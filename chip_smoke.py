@@ -21,10 +21,29 @@ It builds the Hopper kernels from `smilecode_tpu_torch/csrc/` and then:
    flow within 1e-3 voxel, moved image within 1e-4.
 5. Times: median ms per pair over 12 forwards each (kernels, plain), and
    each kernel beside its plain version, per pair.
+6. K3 and K4 (attention backward) vs their plain versions at the five level
+   shapes: dq, dl, drpb (K3) and dk (K4, on the plain dl).
+7. K5 (warp adjoint) vs its plain version at the nine warp shapes, smooth
+   +-5 and wild +-20 voxel flows: d_flow and the d_src scatter.
+8. The training slice through its entry point:
+   `smilecode_tpu_torch.train.main` on synthetic 160x192x160 subjects (6
+   steps, then validation on 2 pairs and a checkpoint), which
+   `smilecode_tpu_torch.infer.main` reads back. Launches must be exactly, per
+   train step, K1 5, K3 5, K4 5, K2 9 and K5 9 (8 of them with the d_src
+   scatter), plus 5 K1 and 9 K2 per validation pair; losses finite; the same
+   run with ``attn_impl="plain"`` launches nothing and gives the same first
+   loss.
+9. One training step with the kernels vs the plain one, same weights and
+   batch: the loss and every parameter's gradient.
+10. Times: median ms per training step (forward, backward, AMSGrad update)
+   over 5 steps each (kernels, plain), peak memory of each, each backward
+   kernel beside its plain version per step, and the top device operations
+   of one kernel step (`torch.profiler`).
 
 Every failed check raises, so the exit code is non-zero; without a CUDA card
-it exits non-zero before printing any result. The last two lines are the
-kernels' JSON record and ``{"ok": true, "device": {...}}``.
+it exits non-zero before printing any result. The kernels' JSON record lists
+K1-K5 with their launches in the training run of phase 8; the last two
+lines are that record and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -49,6 +68,13 @@ FLOW_TOL = 1e-3
 MOVED_TOL = 1e-4
 N_SUBJECTS = 3
 N_TIMED = 12
+BWD_TOL = 1e-5  # times the largest |gradient| of the plain version
+DRPB_TOL = 1e-6  # times the largest sum_x |dl_t| (see check_attention_bwd)
+STEP_LOSS_TOL = 1e-4  # relative, kernels vs plain training loss
+STEP_GRAD_TOL = 1e-3  # times each parameter's largest |gradient|, kernels vs plain step
+STEP_GRAD_FLOOR = 1e-6  # times the model's largest |gradient| (zero-gradient conv biases)
+N_VAL_SUBJECTS = 2
+N_TIMED_STEPS = 5
 
 
 def require(cond: bool, msg: str) -> None:
@@ -171,16 +197,253 @@ def check_warp(device, size=SIZE, timed=True):
     return worst, ms, plain_ms
 
 
-def write_subjects(test_dir, size=SIZE, device="cpu"):
+def check_attention_bwd(device, size=SIZE):
+    """K3, K4 vs their plain versions at every level shape; returns
+    {kernel: (max_err, ms, plain_ms)} with times summed over the five calls
+    of a training step.
+
+    Tolerances: dq, dl and dk within BWD_TOL of the plain version's largest
+    magnitude (27-term float32 sums in another order). drpb sums dl_t over
+    every voxel, and the terms cancel (sum_t dl_t = 0 at each voxel), so its
+    rounding scales with sum_x |dl_t|, not with drpb: it is held within
+    DRPB_TOL of the largest sum_x |dl_t| of the plain dl (K3 adds 256-row
+    blocks in order, then torch adds the blocks; a dropped block would be off
+    by ~256 |dl| and fail)."""
+    import torch
+
+    from smilecode_tpu_torch.kernels.modet_attn import (
+        modet_attention_bwd_dk,
+        modet_attention_bwd_dk_plain,
+        modet_attention_bwd_dq,
+        modet_attention_bwd_dq_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    res = {"K3": [0.0, 0.0, 0.0], "K4": [0.0, 0.0, 0.0]}
+    for level, heads in zip((5, 4, 3, 2, 1), NUM_HEADS):
+        shape = (1, *level_shape(level, size), heads, HEAD_DIM)
+        q, k = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+                for _ in range(2))
+        rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(device)
+        g = torch.from_numpy(rng.standard_normal((*shape[:4], heads * 3), dtype=np.float32)).to(device)
+        dq, dl, part = modet_attention_bwd_dq(q, k, rpb, 1.0, g)
+        drpb = part.sum(0).reshape(heads, 3, 3, 3)
+        p_dq, p_dl, p_drpb = modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g)
+        dk = modet_attention_bwd_dk(q, p_dl, 1.0)
+        p_dk = modet_attention_bwd_dk_plain(q, p_dl, 1.0)
+        drpb_tol = DRPB_TOL * float(p_dl.abs().sum(dim=(0, 1, 2, 3)).max())
+        errs = {}
+        for name, a, b, tol in (("dq", dq, p_dq, None), ("dl", dl, p_dl, None),
+                                ("drpb", drpb, p_drpb, drpb_tol), ("dk", dk, p_dk, None)):
+            require(bool(torch.isfinite(a).all()), f"attention bwd level {level}: {name} not finite")
+            err = float((a - b).abs().max())
+            tol = tol if tol is not None else BWD_TOL * float(b.abs().max())
+            require(err <= tol, f"attention bwd level {level} {shape}: {name} max abs err "
+                                f"{err} > {tol}")
+            errs[name] = (err, tol)
+        t3 = event_ms(lambda: modet_attention_bwd_dq(q, k, rpb, 1.0, g), 10)
+        t4 = event_ms(lambda: modet_attention_bwd_dk(q, p_dl, 1.0), 10)
+        p3 = event_ms(lambda: modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g), 3)
+        p4 = event_ms(lambda: modet_attention_bwd_dk_plain(q, p_dl, 1.0), 3)
+        for key, err, t, tp in (("K3", max(errs["dq"][0], errs["dl"][0], errs["drpb"][0]), t3, p3),
+                                ("K4", errs["dk"][0], t4, p4)):
+            res[key] = [max(res[key][0], err), res[key][1] + t, res[key][2] + tp]
+        print(f"K3/K4 attention bwd level {level} q,k {shape}: max_abs_err "
+              + ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in errs.items())
+              + f"; K3 {t3:.4f} ms (plain {p3:.4f}), K4 {t4:.4f} ms (plain {p4:.4f})", flush=True)
+        del q, k, g, dq, dl, part, p_dq, p_dl, p_drpb, dk, p_dk
+        torch.cuda.empty_cache()
+    return {key: tuple(v) for key, v in res.items()}
+
+
+def check_warp_bwd(device, size=SIZE):
+    """K5 vs its plain version at the pair's warp shapes, smooth and wild
+    flows; d_flow within BWD_TOL of the plain version's largest |d_flow|,
+    d_src (an atomic scatter, order-dependent) within BWD_TOL of its largest
+    |d_src|. Returns (max_err, ms, plain_ms) per training step: eight warps
+    with the scatter, the moved image's without (on the smooth flows)."""
+    import torch
+
+    from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear_bwd, warp3d_trilinear_bwd_plain
+
+    rng = np.random.default_rng(6)
+    worst, times = 0.0, {}
+    for what, c, level in warp_calls():
+        want_dsrc = what != "moved image"
+        key = (c, level, want_dsrc)
+        if key in times:
+            continue
+        shape = level_shape(level, size)
+        src = torch.from_numpy(rng.standard_normal((1, *shape, c), dtype=np.float32)).to(device)
+        g = torch.from_numpy(rng.standard_normal((1, *shape, c), dtype=np.float32)).to(device)
+        flows = {"smooth +-5": smooth_flow(shape, 5.0, device),
+                 "wild +-20": torch.from_numpy(
+                     rng.uniform(-20, 20, (1, *shape, 3)).astype(np.float32)).to(device)}
+        for name, flow in flows.items():
+            d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, True)
+            p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, True)
+            line = f"K5 warp bwd C={c} {shape} {name}:"
+            for what_, a, b in (("d_flow", d_flow, p_flow), ("d_src", d_src, p_src)):
+                require(bool(torch.isfinite(a).all()), f"warp bwd C={c} {shape} {name}: {what_}")
+                err = float((a - b).abs().max())
+                tol = BWD_TOL * float(b.abs().max())
+                require(err <= tol, f"warp bwd C={c} {shape} {name}: {what_} max abs err "
+                                    f"{err} > {tol}")
+                worst = max(worst, err)
+                line += f" {what_} max_abs_err {err:.3e} (tol {tol:.3e})"
+            t = event_ms(lambda: warp3d_trilinear_bwd(src, flow, g, want_dsrc), 10)
+            tp = event_ms(lambda: warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc), 3)
+            line += f"; {'with' if want_dsrc else 'without'} d_src {t:.4f} ms (plain {tp:.4f})"
+            if name.startswith("smooth"):
+                times[key] = (t, tp)
+            print(line, flush=True)
+        del src, g, flows, d_src, d_flow, p_src, p_flow
+        torch.cuda.empty_cache()
+    keys = [(c, level, what != "moved image") for what, c, level in warp_calls()]
+    return worst, sum(times[k][0] for k in keys), sum(times[k][1] for k in keys)
+
+
+def launch_counts():
+    from smilecode_tpu_torch.kernels.modet_attn import (
+        modet_attention,
+        modet_attention_bwd_dk,
+        modet_attention_bwd_dq,
+    )
+    from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_bwd
+
+    return {"K1": modet_attention.launches, "K2": warp3d_trilinear.launches,
+            "K3": modet_attention_bwd_dq.launches, "K4": modet_attention_bwd_dk.launches,
+            "K5": warp3d_trilinear_bwd.launches, "K5 d_src": warp3d_trilinear_bwd.scatters}
+
+
+def reset_launch_counts():
+    from smilecode_tpu_torch.kernels.modet_attn import (
+        modet_attention,
+        modet_attention_bwd_dk,
+        modet_attention_bwd_dq,
+    )
+    from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_bwd
+
+    for fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk,
+               warp3d_trilinear, warp3d_trilinear_bwd):
+        fn.launches = 0
+    warp3d_trilinear_bwd.scatters = 0
+
+
+def run_train(train_dir, val_dir, root, attn_impl="auto"):
+    """train.main for one epoch; returns (best_dsc, exp_dir, step losses,
+    launch counts, seconds)."""
+    import torch
+
+    from smilecode_tpu_torch import train
+    from smilecode_tpu_torch.config import TrainConfig
+
+    cfg = TrainConfig(train_dir=train_dir, val_dir=val_dir, max_epoch=1, attn_impl=attn_impl,
+                      save_root=os.path.join(root, "experiments"),
+                      log_root=os.path.join(root, "logs"))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    best = train.main(cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    with open(os.path.join(cfg.log_root, cfg.save_dir, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f if '"iter"' in line]
+    return best, os.path.join(cfg.save_root, cfg.save_dir), losses, counts, seconds
+
+
+def compare_step_grads(model, plain, x, y):
+    """One loss-and-gradients pass of each model on (x, y); returns
+    (loss, plain loss, worst gradient error over its tolerance)."""
+    from smilecode_tpu_torch.models.registry import loss_plan
+    from smilecode_tpu_torch.train import make_loss_and_grads
+
+    plan = loss_plan("modet")
+    loss, _ = make_loss_and_grads(model, plan, (1.0, 1.0))(x, y)
+    p_loss, _ = make_loss_and_grads(plain, plan, (1.0, 1.0))(x, y)
+    grads = dict(model.named_parameters())
+    p_grads = dict(plain.named_parameters())
+    gmax = max(float(p.grad.abs().max()) for p in p_grads.values())
+    floor = STEP_GRAD_FLOOR * gmax
+    worst, worst_name, worst_rel, rel_name = 0.0, "", 0.0, ""
+    for name, p in p_grads.items():
+        g = grads[name].grad
+        require(g is not None and bool(g.isfinite().all()), f"step gradient {name} missing or not finite")
+        err, scale = float((g - p.grad).abs().max()), float(p.grad.abs().max())
+        ratio = err / (STEP_GRAD_TOL * scale + floor)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+        if scale > 1e-3 * gmax and err / scale > worst_rel:
+            worst_rel, rel_name = err / scale, name  # parameters with a real gradient
+        require(ratio <= 1.0, f"step gradient {name}: kernels vs plain max abs err over "
+                              f"tolerance {ratio:.3f} > 1")
+    print(f"kernel step vs plain step: loss {float(loss):.7f} vs {float(p_loss):.7f}; "
+          f"worst gradient err/tol {worst:.4f} ({worst_name}); tolerance "
+          f"{STEP_GRAD_TOL} x each parameter's max |grad| + {STEP_GRAD_FLOOR} x the model's; "
+          f"worst err / max |grad| over parameters whose max |grad| is above 1e-3 of the "
+          f"model's: {worst_rel:.3e} ({rel_name})")
+    return float(loss), float(p_loss), worst
+
+
+def time_steps(model, plain, x, y):
+    """Median ms per training step and peak GiB, alternating kernels/plain."""
+    import torch
+
+    from smilecode_tpu_torch.models.registry import loss_plan
+    from smilecode_tpu_torch.optim import AMSGrad
+    from smilecode_tpu_torch.train import make_train_step
+
+    steps = {name: make_train_step(m, loss_plan("modet"), AMSGrad(m.parameters(), lr=1e-4),
+                                   (1.0, 1.0)) for name, m in (("kernels", model), ("plain", plain))}
+    times = {"kernels": [], "plain": []}
+    peak = {"kernels": 0.0, "plain": 0.0}
+    for name in steps:  # warm-up
+        steps[name](x, y)
+    for i in range(N_TIMED_STEPS):
+        for name in (("plain", "kernels") if i % 2 else ("kernels", "plain")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = steps[name](x, y)
+            require(bool(torch.isfinite(loss)), f"{name} step loss not finite")
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated() / 2**30)
+    return times, peak, steps["kernels"]
+
+
+def profile_step(step, x, y, top=12):
+    """Top device operations of one training step, and the device idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels only: user-annotated ranges (Optimizer.step) would count twice
+    events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
+              and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    print(f"profile of one kernel step: wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms "
+          f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}); top device operations:")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
+
+
+def write_subjects(test_dir, size=SIZE, device="cpu", n=N_SUBJECTS, seed=3):
     """Smooth random textures in [0, 1] with LPBA labels from a second field."""
     import torch
     import torch.nn.functional as F
 
     from smilecode_tpu_torch.data.trans import LPBA_SEG_TABLE
 
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     coarse = tuple(max(2, s // 16) for s in size)
-    for i in range(N_SUBJECTS):
+    for i in range(n):
         fields = torch.from_numpy(rng.random((1, 2, *coarse), dtype=np.float32)).to(device)
         fields = F.interpolate(fields, size=size, mode="trilinear", align_corners=True)[0]
         img = fields[0].cpu().numpy()
@@ -223,18 +486,15 @@ def run_infer(test_dir, model_dir, attn_impl="auto"):
 
     from smilecode_tpu_torch import infer
     from smilecode_tpu_torch.config import InferConfig
-    from smilecode_tpu_torch.kernels.modet_attn import modet_attention
-    from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear
 
     cfg = InferConfig(test_dir=test_dir, model_dir=model_dir, attn_impl=attn_impl)
-    modet_attention.launches = 0
-    warp3d_trilinear.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     dsc, fold = infer.main(cfg)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return dsc, fold, modet_attention.launches, warp3d_trilinear.launches, seconds
+    counts = launch_counts()
+    return dsc, fold, counts["K1"], counts["K2"], seconds
 
 
 def forward_pair(test_dir, device):
@@ -329,16 +589,72 @@ def main() -> int:
         print(f"[{card}] per pair: K1 {k1_ms:.4f} ms (plain {k1_plain_ms:.4f}), "
               f"K2 {k2_ms:.4f} ms (plain {k2_plain_ms:.4f}); "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del moved, flow, p_moved, p_flow
+        torch.cuda.empty_cache()
+
+        print("== phase 6: K3/K4 attention backward vs plain", flush=True)
+        bwd = check_attention_bwd(device)
+        print("== phase 7: K5 warp adjoint vs plain", flush=True)
+        k5_err, k5_ms, k5_plain_ms = check_warp_bwd(device)
+
+        print("== phase 8: train.main on synthetic 160x192x160 subjects", flush=True)
+        val_dir = os.path.join(tmp, "Val")
+        os.makedirs(val_dir)
+        write_subjects(val_dir, device=device, n=N_VAL_SUBJECTS, seed=7)
+        n_steps, n_val = n_pairs, N_VAL_SUBJECTS * (N_VAL_SUBJECTS - 1)
+        best, exp_dir, losses, train_counts, secs = run_train(test_dir, val_dir,
+                                                               os.path.join(tmp, "kernels"))
+        print(f"train (kernels): {n_steps} steps + {n_val} validation pairs in {secs:.2f} s, "
+              f"losses {losses}, best dsc {best:.6f}, launches {train_counts}", flush=True)
+        require(len(losses) == n_steps and bool(np.isfinite(losses).all()), f"losses {losses}")
+        want = {"K1": 5 * (n_steps + n_val), "K2": 9 * (n_steps + n_val), "K3": 5 * n_steps,
+                "K4": 5 * n_steps, "K5": 9 * n_steps, "K5 d_src": 8 * n_steps}
+        require(train_counts == want, f"train launches {train_counts}, expected {want}")
+        dsc, fold, n_k1, n_k2, secs = run_infer(val_dir, exp_dir)
+        print(f"infer of the trained checkpoint: dsc {dsc:.6f}, fold {fold:.6f}, "
+              f"K1 {n_k1}, K2 {n_k2} launches", flush=True)
+        require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0 and np.isfinite(fold),
+                f"trained checkpoint: dsc {dsc}, fold {fold}")
+        require(n_k1 == 5 * n_val and n_k2 == 9 * n_val, "infer launches after training")
+        _, _, p_losses, p_counts, p_secs = run_train(test_dir, val_dir, os.path.join(tmp, "plain"),
+                                                     attn_impl="plain")
+        print(f"train (plain): {p_secs:.2f} s, losses {p_losses}, launches {p_counts}", flush=True)
+        require(not any(p_counts.values()), "the plain training run launched a kernel")
+        require(abs(losses[0] - p_losses[0]) <= STEP_LOSS_TOL * abs(p_losses[0]),
+                f"first step loss, kernels vs plain: {losses[0]} vs {p_losses[0]}")
+        torch.cuda.empty_cache()
+
+        print("== phase 9: one training step, kernels vs plain", flush=True)
+        loss, p_loss, _ = compare_step_grads(model, plain, x, y)
+        require(abs(loss - p_loss) <= STEP_LOSS_TOL * abs(p_loss),
+                f"step loss, kernels vs plain: {loss} vs {p_loss}")
+
+        print("== phase 10: ms per training step", flush=True)
+        times, peak, kernel_step = time_steps(model, plain, x, y)
+        med = {k: statistics.median(v) for k, v in times.items()}
+        print(f"[{card}] ModeT 160x192x160 training step (fwd + bwd + AMSGrad), median of "
+              f"{N_TIMED_STEPS}: kernels {med['kernels']:.3f} ms, plain {med['plain']:.3f} ms "
+              f"(min {min(times['kernels']):.3f} / {min(times['plain']):.3f}); peak memory "
+              f"kernels {peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB")
+        print(f"[{card}] backward kernels per step: K3 {bwd['K3'][1]:.4f} ms (plain "
+              f"{bwd['K3'][2]:.4f}), K4 {bwd['K4'][1]:.4f} ms (plain {bwd['K4'][2]:.4f}), "
+              f"K5 {k5_ms:.4f} ms (plain {k5_plain_ms:.4f})")
+        profile_step(kernel_step, x, y)
+
+    def entry(name, source, line, key, err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": f"smilecode_tpu_torch/csrc/{source}",
+                "replaces": f"smilecode_tpu/kernels/{line}", "launches": train_counts[key],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
     record = {"kernels": [
-        {"name": "modet_attn_fwd", "route": "cuda",
-         "source": "smilecode_tpu_torch/csrc/modet_attn.cu",
-         "replaces": "smilecode_tpu/kernels/modet_attn.py:56",
-         "launches": n_k1, "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "warp3d_trilinear_fwd", "route": "cuda",
-         "source": "smilecode_tpu_torch/csrc/warp3d.cu",
-         "replaces": "smilecode_tpu/kernels/warp3d_v4.py:104",
-         "launches": n_k2, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+        entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1", k1_err, k1_ms,
+              k1_plain_ms),
+        entry("warp3d_trilinear_fwd", "warp3d.cu", "warp3d_v4.py:104", "K2", k2_err, k2_ms,
+              k2_plain_ms),
+        entry("modet_attn_bwd_dq", "modet_attn_bwd.cu", "modet_attn.py:183", "K3", *bwd["K3"]),
+        entry("modet_attn_bwd_dk", "modet_attn_bwd.cu", "modet_attn.py:256", "K4", *bwd["K4"]),
+        entry("warp3d_trilinear_bwd", "warp3d_bwd.cu", "warp3d_v4.py:339", "K5", k5_err, k5_ms,
+              k5_plain_ms),
     ]}
     print(card_line())
     print(json.dumps(record))

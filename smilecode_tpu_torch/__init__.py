@@ -1,11 +1,12 @@
 """smilecode_tpu_torch — PyTorch/CUDA port of `smilecode_tpu`.
 
 The JAX package is the reference; this package mirrors its module tree
-(`ops/`, `kernels/`, `models/`, `data/`, `utils/`, `metrics.py`,
-`convert.py`, `config.py`, `infer.py`) and imports only torch and numpy.
-Each Pallas TPU kernel on the ported path is a CUDA C++ kernel for Hopper
-(`csrc/`, built by `kernels/_build.py` at first use), with its plain PyTorch
-version beside it for CPU tensors.
+(`ops/`, `kernels/`, `models/`, `losses/`, `data/`, `utils/`, `metrics.py`,
+`convert.py`, `config.py`, `optim.py`, `train.py`, `infer.py`) and imports
+only torch and numpy. Each Pallas TPU kernel on the ported path is a CUDA
+C++ kernel for Hopper (`csrc/`, built by `kernels/_build.py` at first use),
+forward and backward, with its plain PyTorch version beside it for CPU
+tensors.
 
 Layout convention, as in the JAX package: volumes are channels-last
 ``(B, D, H, W, C)``; deformation fields are ``(B, D, H, W, 3)`` with the last

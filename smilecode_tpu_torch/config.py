@@ -1,17 +1,75 @@
 """Run configuration for the PyTorch port's drivers.
 
-`InferConfig` and `apply_cli_overrides` are copied from
+`TrainConfig`, `InferConfig` and `apply_cli_overrides` are copied from
 `smilecode_tpu/config.py` (the JAX package cannot be imported without jax).
 Left out: the JAX-only `fast_path` knob (planes-layout TPU decoder),
-`img_size` (the JAX loader of reference checkpoints needs it to build a
-template; the port does not) and the knobs of models and datasets that are
-not ported (`atlas_path`, `n_cascade`, `stages`, `levels`, `dropout_rate`).
+`img_size` (the JAX package needs it to build a parameter template; the port
+does not) and the knobs of models and datasets that are not ported
+(`atlas_path`, `n_cascade`, `stages`, `levels`, `dropout_rate`).
+`check_train_config` raises `NotImplementedError` for the training knobs
+whose paths are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    model: str = "modet"
+    train_dir: str = "/LPBA_path/Train/"
+    val_dir: str = "/LPBA_path/Val/"
+    batch_size: int = 1
+    lr: float = 1e-4
+    weights: Sequence[float] = (1.0, 1.0)
+    head_dim: int = 6
+    num_heads: Sequence[int] = (8, 4, 2, 1, 1)
+    channels: int = 4
+    qk_scale: float | None = 1.0  # the reference trains ModeT with scale=1
+    max_epoch: int = 30
+    epoch_start: int = 0
+    cont_training: bool = False
+    seed: int = 24
+    save_root: str = "experiments"
+    log_root: str = "logs"
+    max_keep: int = 8
+    num_workers: int = 4
+    # "auto": Hopper kernels for tensors on a CUDA device, their plain
+    # PyTorch versions for CPU tensors; "plain": the plain versions always
+    attn_impl: str = "auto"
+    # "" = float32 ("bfloat16" is not ported yet)
+    compute_dtype: str = ""
+    dataset: str = "s2s"  # s2s (half | atlas are not ported yet)
+    # data-parallel devices and D-axis shards (only 1 is ported)
+    dp: int = 1
+    spatial: int = 1
+
+    @property
+    def save_dir(self) -> str:
+        """Reference save-dir naming convention (`ModeT/train.py:51`)."""
+        if self.model == "modet":
+            return "modet-heads({}{}{}{}{})-rpe_headim_{}_ncc_{}_reg_{}_lr_{}_54r/".format(
+                *self.num_heads, self.head_dim, self.weights[0], self.weights[1], self.lr
+            )
+        return "{}_ncc_{}_reg_{}_lr_{}_54r/".format(
+            self.model, self.weights[0], self.weights[1], self.lr
+        )
+
+
+def check_train_config(cfg: TrainConfig) -> None:
+    """Raise `NotImplementedError`, naming the ROADMAP item, for a knob whose
+    path the port does not have yet."""
+    if cfg.dp != 1 or cfg.spatial != 1:
+        raise NotImplementedError(f"dp={cfg.dp}, spatial={cfg.spatial}: multi-GPU training is "
+                                  "not ported yet (ROADMAP.md queue 1, item 10)")
+    if cfg.dataset != "s2s":
+        raise NotImplementedError(f"dataset={cfg.dataset!r} is not ported yet "
+                                  "(ROADMAP.md queue 1, item 5)")
+    if cfg.compute_dtype:
+        raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: bf16 I/O is not "
+                                  "ported yet (ROADMAP.md queue 1, item 3)")
 
 
 @dataclasses.dataclass

@@ -1,8 +1,8 @@
 """LPBA pair datasets (numpy; items are (1, D, H, W) arrays).
 
 Copied from `smilecode_tpu/data/datasets.py` (the JAX package cannot be
-imported without jax): the all-ordered-pairs S2S inference dataset. The
-``half`` and ``atlas`` variants are not ported yet.
+imported without jax): the all-ordered-pairs S2S training and inference
+datasets. The ``half`` and ``atlas`` variants are not ported yet.
 
 Pair index math: x = i // (n-1); s = i % (n-1); y = s + 1 if s >= x else s,
 which enumerates all n*(n-1) ordered (x, y) pairs with x != y.
@@ -27,8 +27,8 @@ def pair_indices(index: int, n: int) -> tuple[int, int]:
     return x, y
 
 
-class LPBABrainInferDatasetS2S:
-    """Eval pairs: (x, y, x_seg, y_seg); transform applied per (img, seg)."""
+class _PairDataset:
+    """All ordered pairs over a list of pkl subject paths."""
 
     def __init__(self, data_path, transforms):
         self.paths = list(data_path)
@@ -36,6 +36,22 @@ class LPBABrainInferDatasetS2S:
 
     def __len__(self):
         return len(self.paths) * (len(self.paths) - 1)
+
+
+class LPBABrainDatasetS2S(_PairDataset):
+    """Training pairs: (x, y) images only, transformed jointly."""
+
+    def __getitem__(self, index):
+        xi, yi = pair_indices(index, len(self.paths))
+        x, _ = pkload(self.paths[xi])
+        y, _ = pkload(self.paths[yi])
+        x, y = x[None, ...], y[None, ...]
+        x, y = self.transforms([x, y])
+        return np.ascontiguousarray(x), np.ascontiguousarray(y)
+
+
+class LPBABrainInferDatasetS2S(_PairDataset):
+    """Eval pairs: (x, y, x_seg, y_seg); transform applied per (img, seg)."""
 
     def __getitem__(self, index):
         xi, yi = pair_indices(index, len(self.paths))

@@ -1,7 +1,8 @@
 """Build and load the Hopper kernels of `smilecode_tpu_torch/csrc/`.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The library
 is named by a hash of the sources and flags, so an edit rebuilds; it lives in
 ``smilecode_tpu_torch/_build/`` (git-ignored). The build runs at the first
 launch of any kernel, never at import, so a checkout alone is enough:
@@ -26,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
@@ -56,6 +57,17 @@ def _library_path() -> str:
     return os.path.join(BUILD_DIR, f"libsmilecode_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> str:
+    """Start every command at once, wait for all, raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash is new."""
     global _lib
@@ -67,15 +79,14 @@ def library() -> ctypes.CDLL:
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in _sources() if s.endswith(".cu")]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
+        nvcc = _nvcc()
+        cus = [s for s in _sources() if s.endswith(".cu")]
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cus]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(cus, objs)])
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        for o in objs:
+            os.remove(o)
         os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
-        log = proc.stdout + proc.stderr
     lib = ctypes.CDLL(path)
     lib.smilecode_error_string.argtypes = [ctypes.c_int]
     lib.smilecode_error_string.restype = ctypes.c_char_p

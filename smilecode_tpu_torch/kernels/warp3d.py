@@ -1,14 +1,22 @@
-"""Hopper kernel K2: trilinear warp forward.
+"""Hopper kernels K2, K5: trilinear warp forward and its adjoint.
 
-Replaces `smilecode_tpu/kernels/warp3d_v4.py:_warp_v4_kernel` and
-`smilecode_tpu/kernels/warp3d_v3.py:_warp_v3_kernel`, and computes the
-function of the frozen `smilecode_tpu/kernels/warp3d.py:_warp_kernel`.
-Source: `smilecode_tpu_torch/csrc/warp3d.cu`, which also says what bounds it
-on the H100 and what its design does about that. Exact for every flow.
+* K2 (`csrc/warp3d.cu`) replaces `smilecode_tpu/kernels/warp3d_v4.py:_warp_v4_kernel`
+  and `smilecode_tpu/kernels/warp3d_v3.py:_warp_v3_kernel`, and computes the
+  function of the frozen `smilecode_tpu/kernels/warp3d.py:_warp_kernel`.
+* K5 (`csrc/warp3d_bwd.cu`) replaces `warp3d_v4.py:_warp_v4_dflow_kernel` and
+  `warp3d_v3.py:_warp_v3_dflow_kernel` (d_flow), fused with the d_src scatter
+  that the TPU path leaves to XLA (`smilecode_tpu/models/modet_planes.py:_warp_hw_bwd`).
 
-`warp3d_trilinear` launches the kernel for CUDA tensors and runs the plain
-version (`warp3d_trilinear_plain`, `ops/warp.py:_warp_simple`) for CPU
-tensors. It never falls back from the card to the plain version.
+The sources say what bounds each kernel on the H100 and what its design does
+about that. Both are exact for every flow.
+
+`warp3d_trilinear` runs the plain version (`warp3d_trilinear_plain`,
+`ops/warp.py:_warp_simple`, differentiated by torch autograd) for CPU
+tensors. For CUDA tensors it goes through `Warp3dTrilinearFunction`, whose
+forward launches K2 and whose backward launches K5, with the scatter half
+only when the source needs a gradient. It never falls back from the card to
+the plain version. `warp3d_trilinear_bwd_plain` writes the adjoint out
+explicitly; it is K5's oracle on the card.
 """
 
 from __future__ import annotations
@@ -18,9 +26,11 @@ import ctypes
 import torch
 
 from smilecode_tpu_torch.kernels import _build
-from smilecode_tpu_torch.ops.warp import _warp_simple, check_warp_args, rescale_factors
+from smilecode_tpu_torch.ops.warp import _warp_simple, base_grid, check_warp_args, rescale_factors
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+    ctypes.c_float] * 3 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
     ctypes.c_float] * 3 + [ctypes.c_void_p]
 
 
@@ -29,39 +39,159 @@ def warp3d_trilinear_plain(src: torch.Tensor, flow: torch.Tensor) -> torch.Tenso
     return _warp_simple(src, flow, "bilinear")
 
 
-def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """src (B, SD, SH, SW, C), flow (B, FD, FH, FW, 3) -> (B, FD, FH, FW, C).
-
-    Adds one to ``warp3d_trilinear.launches`` per kernel launch.
-    """
+def _check(src, flow, what: str) -> bool:
+    """Argument checks; returns True for CPU tensors (the plain version)."""
     check_warp_args(src, flow)
     if src.device.type == "cpu" and flow.device.type == "cpu":
-        return warp3d_trilinear_plain(src, flow)
+        return True
     if src.device != flow.device or src.device.type != "cuda":
-        raise ValueError(f"warp3d_trilinear: src on {src.device}, flow on {flow.device}; "
+        raise ValueError(f"{what}: src on {src.device}, flow on {flow.device}; "
                          "the kernel takes both on one CUDA device")
     if src.dtype != torch.float32 or flow.dtype != torch.float32:
-        raise TypeError("warp3d_trilinear: the kernel takes float32 only "
+        raise TypeError(f"{what}: the kernel takes float32 only "
                         f"(got {src.dtype}, {flow.dtype}); bf16 I/O is not ported yet")
-    if torch.is_grad_enabled() and (src.requires_grad or flow.requires_grad):
-        raise RuntimeError("warp3d_trilinear: the kernel is forward-only (its adjoint is not "
-                           "ported yet); call it under torch.no_grad()")
     if not (src.is_contiguous() and flow.is_contiguous()):
-        raise ValueError("warp3d_trilinear: src and flow must be contiguous")
+        raise ValueError(f"{what}: src and flow must be contiguous")
+    return False
+
+
+def _scale(src, flow):
+    return rescale_factors(src.shape[1:4], flow.shape[1:4]) or (1.0, 1.0, 1.0)
+
+
+def _launch_fwd(src, flow) -> torch.Tensor:
+    """K2: (B, FD, FH, FW, C) float32."""
     b, sd, sh, sw, c = src.shape
     fd, fh, fw = flow.shape[1:4]
     out = torch.empty((b, fd, fh, fw, c), dtype=torch.float32, device=src.device)
     if out.numel() == 0:
         return out
-    scale = rescale_factors((sd, sh, sw), (fd, fh, fw)) or (1.0, 1.0, 1.0)
-    fn = _build.function("smilecode_warp3d_trilinear_fwd", _ARGTYPES)
+    fn = _build.function("smilecode_warp3d_trilinear_fwd", _FWD_ARGTYPES)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         code = fn(src.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                  b, sd, sh, sw, c, fd, fh, fw, *scale, stream)
+                  b, sd, sh, sw, c, fd, fh, fw, *_scale(src, flow), stream)
     _build.check(code, "warp3d_trilinear_fwd launch")
     warp3d_trilinear.launches += 1
     return out
 
 
+def _launch_bwd(src, flow, g, want_dsrc: bool):
+    """K5: (d_src or None, d_flow)."""
+    b, sd, sh, sw, c = src.shape
+    fd, fh, fw = flow.shape[1:4]
+    d_flow = torch.empty_like(flow)
+    d_src = torch.zeros_like(src) if want_dsrc else None  # the scatter adds into zeros
+    if d_flow.numel() == 0 or c == 0:
+        return d_src, d_flow.zero_()
+    fn = _build.function("smilecode_warp3d_trilinear_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        code = fn(src.data_ptr(), flow.data_ptr(), g.data_ptr(),
+                  d_src.data_ptr() if want_dsrc else None, d_flow.data_ptr(),
+                  b, sd, sh, sw, c, fd, fh, fw, *_scale(src, flow), stream)
+    _build.check(code, "warp3d_trilinear_bwd launch")
+    warp3d_trilinear_bwd.launches += 1
+    if want_dsrc:
+        warp3d_trilinear_bwd.scatters += 1
+    return d_src, d_flow
+
+
+def warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc: bool = True):
+    """Adjoint of the trilinear warp for the output cotangent ``g``
+    (B, FD, FH, FW, C), written out (no autograd) as K5 computes it.
+
+    Per output voxel at coord = (grid + flow) * rescale, with corner weights
+    w = prod_a (t_a or 1 - t_a) and in-volume indicators:
+    d_coord_a = sum_corners (+-1 on axis a) (the other two axes' factors)
+    [corner in volume] sum_c g_c src[corner, c]; d_flow = d_coord * rescale;
+    d_src[corner] += w_corner g (only when ``want_dsrc``).
+    Returns (d_src or None, d_flow)."""
+    check_warp_args(src, flow)
+    b, sd, sh, sw, c = src.shape
+    fd, fh, fw = flow.shape[1:4]
+    n = fd * fh * fw
+    dt = torch.float32
+    coords = base_grid(fd, fh, fw, dt, flow.device) + flow.to(dt)
+    scale = torch.tensor(_scale(src, flow), dtype=dt, device=flow.device)
+    coords = (coords * scale).reshape(b, n, 3)
+    c0 = torch.floor(coords)
+    t = coords - c0
+    sizes = torch.tensor([sd, sh, sw], dtype=dt, device=src.device)
+    src_flat = src.reshape(b, sd * sh * sw, c).to(dt)
+    gf = g.reshape(b, n, c).to(dt)
+    bidx = torch.arange(b, device=src.device)[:, None]
+    d_coord = torch.zeros((b, n, 3), dtype=dt, device=src.device)
+    d_src = torch.zeros((b * sd * sh * sw, c), dtype=dt, device=src.device) if want_dsrc else None
+    for od in (0, 1):
+        for oh in (0, 1):
+            for ow in (0, 1):
+                idx = c0 + torch.tensor([od, oh, ow], dtype=dt, device=src.device)
+                inb = ((idx >= 0) & (idx <= sizes - 1)).all(dim=-1)
+                idxi = torch.where(inb[..., None], idx, torch.zeros((), dtype=dt,
+                                                                    device=src.device)).long()
+                lin = (idxi[..., 0] * sh + idxi[..., 1]) * sw + idxi[..., 2]
+                m = inb.to(dt)
+                fac = [t[..., a] if o else 1.0 - t[..., a] for a, o in enumerate((od, oh, ow))]
+                sign = [1.0 if o else -1.0 for o in (od, oh, ow)]
+                gv = (gf * src_flat[bidx, lin]).sum(-1) * m  # sum_c g_c src[corner, c]
+                d_coord[..., 0] += sign[0] * fac[1] * fac[2] * gv
+                d_coord[..., 1] += fac[0] * sign[1] * fac[2] * gv
+                d_coord[..., 2] += fac[0] * fac[1] * sign[2] * gv
+                if want_dsrc:
+                    wgt = fac[0] * fac[1] * fac[2] * m
+                    rows = (bidx * (sd * sh * sw) + lin).reshape(-1)
+                    d_src.index_add_(0, rows, (wgt[..., None] * gf).reshape(-1, c))
+    d_flow = (d_coord * scale).reshape(flow.shape).to(flow.dtype)
+    if want_dsrc:
+        d_src = d_src.reshape(src.shape).to(src.dtype)
+    return d_src, d_flow
+
+
+def warp3d_trilinear_bwd(src, flow, g, want_dsrc: bool = True):
+    """(d_src or None, d_flow) for the output cotangent ``g``: K5 for CUDA
+    tensors, `warp3d_trilinear_bwd_plain` for CPU tensors.
+
+    Adds one to ``warp3d_trilinear_bwd.launches`` per K5 launch, and one to
+    ``warp3d_trilinear_bwd.scatters`` when that launch also scattered d_src.
+    """
+    if _check(src, flow, "warp3d_trilinear_bwd"):
+        return warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc)
+    out_shape = (src.shape[0], *flow.shape[1:4], src.shape[4])
+    if tuple(g.shape) != out_shape or g.device != src.device:
+        raise ValueError(f"warp3d_trilinear_bwd: g must be {out_shape} on {src.device}, "
+                         f"got {tuple(g.shape)} on {g.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"warp3d_trilinear_bwd: g must be float32, got {g.dtype}")
+    return _launch_bwd(src, flow, g.contiguous(), want_dsrc)
+
+
+class Warp3dTrilinearFunction(torch.autograd.Function):
+    """K2 forward, K5 backward (CUDA tensors)."""
+
+    @staticmethod
+    def forward(ctx, src, flow):
+        ctx.save_for_backward(src, flow)
+        return _launch_fwd(src, flow)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, flow = ctx.saved_tensors
+        d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, want_dsrc=ctx.needs_input_grad[0])
+        return d_src, d_flow if ctx.needs_input_grad[1] else None
+
+
+def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """src (B, SD, SH, SW, C), flow (B, FD, FH, FW, 3) -> (B, FD, FH, FW, C),
+    differentiable in both.
+
+    Adds one to ``warp3d_trilinear.launches`` per K2 launch.
+    """
+    if _check(src, flow, "warp3d_trilinear"):
+        return warp3d_trilinear_plain(src, flow)
+    return Warp3dTrilinearFunction.apply(src, flow)
+
+
 warp3d_trilinear.launches = 0
+warp3d_trilinear_bwd.launches = 0
+warp3d_trilinear_bwd.scatters = 0

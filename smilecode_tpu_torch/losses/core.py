@@ -1,0 +1,68 @@
+"""Core registration losses: local NCC and the diffusion regularizer, PyTorch.
+
+Counterpart of `smilecode_tpu/losses/core.py` (`ncc_vxm`, `grad3d`), in the
+same channels-last layout (B, D, H, W, C) and with the same arithmetic: the
+five 9^3 box sums are separable shifted-slice adds over a zero-padded volume
+(the reference's conv3d with padding 4), added in the JAX package's order,
+then the reference's win_size mean-reconstruction algebra and its 1e-5
+denominator epsilon. The JAX package has no Pallas kernel for either loss,
+so these stay plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _box_sum_axis(x: torch.Tensor, win: int, axis: int) -> torch.Tensor:
+    """Box sum of width ``win`` along ``axis`` (1..3 of NDHWC), zero padding."""
+    pad = win // 2
+    pads = [0, 0] * (x.ndim - 1 - axis) + [pad, pad]  # F.pad lists the last axis first
+    xp = F.pad(x, pads)
+    size = x.shape[axis]
+    out = xp.narrow(axis, 0, size)
+    for o in range(1, win):
+        out = out + xp.narrow(axis, o, size)
+    return out
+
+
+def _box_sum(x: torch.Tensor, win: int) -> torch.Tensor:
+    for axis in (1, 2, 3):
+        x = _box_sum_axis(x, win, axis)
+    return x
+
+
+def ncc_vxm(y_true: torch.Tensor, y_pred: torch.Tensor, win: int = 9) -> torch.Tensor:
+    """Local (windowed) normalized cross-correlation loss; returns -mean(cc)."""
+    ii, ji = y_true, y_pred
+    i2, j2, ij = ii * ii, ji * ji, ii * ji
+    i_sum = _box_sum(ii, win)
+    j_sum = _box_sum(ji, win)
+    i2_sum = _box_sum(i2, win)
+    j2_sum = _box_sum(j2, win)
+    ij_sum = _box_sum(ij, win)
+    win_size = float(win ** 3)
+    u_i = i_sum / win_size
+    u_j = j_sum / win_size
+    cross = ij_sum - u_j * i_sum - u_i * j_sum + u_i * u_j * win_size
+    i_var = i2_sum - 2 * u_i * i_sum + u_i * u_i * win_size
+    j_var = j2_sum - 2 * u_j * j_sum + u_j * u_j * win_size
+    cc = cross * cross / (i_var * j_var + 1e-5)
+    return -torch.mean(cc)
+
+
+def grad3d(flow: torch.Tensor, penalty: str = "l1", loss_mult: float | None = None) -> torch.Tensor:
+    """Diffusion regularizer: mean |forward difference| (or squared) per axis
+    of a (B, D, H, W, C) field."""
+    dd = torch.abs(flow[:, 1:] - flow[:, :-1])
+    dh = torch.abs(flow[:, :, 1:] - flow[:, :, :-1])
+    dw = torch.abs(flow[:, :, :, 1:] - flow[:, :, :, :-1])
+    if penalty == "l2":
+        dd, dh, dw = dd * dd, dh * dh, dw * dw
+    elif penalty != "l1":
+        raise ValueError(f"penalty must be l1 or l2, got {penalty!r}")
+    g = (torch.mean(dd) + torch.mean(dh) + torch.mean(dw)) / 3.0
+    if loss_mult is not None:
+        g = g * loss_mult
+    return g

@@ -1,13 +1,33 @@
-"""Model registry of the port: name -> ``nn.Module``.
+"""Model registry of the port: name -> ``nn.Module`` and its training loss plan.
 
-Counterpart of `smilecode_tpu/models/registry.py:build_model`. Only ModeT is
-ported; every other model of the JAX registry raises `NotImplementedError`
-naming its ROADMAP item.
+Counterpart of `smilecode_tpu/models/registry.py` (`build_model`, `CRITERIA`
+and the `ModelSpec` loss plan). Only ModeT is ported; every other model of
+the JAX registry raises `NotImplementedError` naming its ROADMAP item.
+
+A loss plan is a list of criterion names applied index-wise to the model's
+(possibly sliced) training outputs against the fixed volume:
+``loss = sum criterions[n](outputs[n], fixed) * weights[n]``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
+
+from smilecode_tpu_torch.losses import grad3d, ncc_vxm
+
+
+def _ncc(pred, fixed):
+    return ncc_vxm(pred, fixed)
+
+
+def _grad_l2(pred, fixed):
+    return grad3d(pred, penalty="l2")
+
+
+CRITERIA = {"ncc": _ncc, "grad_l2": _grad_l2}
 
 MODET_NAMES = ("modet", "modet-cu", "modet_cu", "modetcu")
 # JAX registry names that are not ported yet (ROADMAP.md queue 1, item 8)
@@ -37,6 +57,25 @@ def build_model(name: str, cfg, device=None, generator: torch.Generator | None =
             device=device,
             generator=generator,
         )
+    if name in NOT_PORTED or name.startswith("rdn"):
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP.md queue 1, item 8: baselines)")
+    raise ValueError(f"unknown model {name!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class LossPlan:
+    """Criterion names, index-aligned with ``select_train_outputs(outputs)``."""
+
+    criterions: tuple[str, ...]
+    select_train_outputs: Callable = lambda outs: outs
+
+
+def loss_plan(name: str) -> LossPlan:
+    """The training loss plan of model ``name`` (JAX `build_model`'s spec)."""
+    name = name.lower()
+    if name in MODET_NAMES:
+        return LossPlan(("ncc", "grad_l2"))  # (moved, flow): NCC + L2 diffusion
     if name in NOT_PORTED or name.startswith("rdn"):
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md queue 1, item 8: baselines)")

@@ -38,9 +38,10 @@ def neighborhood_attention_3d(q, k, rpb, scale: float = 1.0, impl: str = "auto",
       rpb: (heads, k, k, k) relative position bias, or None.
       scale: query scaling (the reference trains with scale=1).
       impl: "auto" sends kernel_size 3 through the Hopper kernel wrapper
-        (`kernels/modet_attn.py`: the kernel for CUDA tensors, this module's
-        plain version for CPU tensors); "plain" forces the plain version.
-        Other kernel sizes always take the plain version.
+        (`kernels/modet_attn.py`: the forward kernel, and the backward
+        kernels under autograd, for CUDA tensors; this module's plain version
+        for CPU tensors); "plain" forces the plain version. Other kernel
+        sizes always take the plain version.
 
     Returns:
       (B, D, H, W, heads*3) subfields, channel order head-major then (d,h,w).

@@ -44,8 +44,9 @@ def warp(src: torch.Tensor, flow: torch.Tensor, mode: str = "bilinear",
     """Warp ``src`` by dense displacement ``flow`` (voxel units, channels-last).
 
     impl: "auto" sends the bilinear warp through the Hopper kernel wrapper
-    (`kernels/warp3d.py`), which runs the kernel for CUDA tensors and the
-    plain version for CPU tensors; "plain" forces `_warp_simple`. Nearest
+    (`kernels/warp3d.py`), which runs the kernel (and its adjoint kernel
+    under autograd) for CUDA tensors and the plain version for CPU tensors;
+    "plain" forces `_warp_simple`. Nearest
     mode (segmentations) is always the plain version: the JAX package has
     no kernel for it either.
     """

@@ -1,20 +1,31 @@
 """Port attention (plain path) vs the JAX package: the fused Pallas kernel in
-interpret mode and the XLA oracle, on the same numpy inputs.
+interpret mode and the XLA oracle, on the same numpy inputs; and the
+written-out backward (`modet_attention_bwd_plain`, the backward kernels'
+oracle) vs torch autograd, the Pallas B1/B2 backward and the oracle's VJP.
 
-Tolerance 1e-5 absolute (outputs lie in [-1, 1]): float32 softmax over 27
-logits, summed in another order by each implementation.
+Tolerance 1e-5 absolute on outputs (they lie in [-1, 1]): float32 softmax
+over 27 logits, summed in another order by each implementation. Gradients
+2e-5 times their largest magnitude (same reason, one more 27-term sum).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from smilecode_tpu.kernels.modet_attn import modet_attention_pallas
 from smilecode_tpu.ops.attention import _neighborhood_attention_xla
 from smilecode_tpu.ops.attention import offset_grid as jax_offset_grid
-from smilecode_tpu_torch.kernels.modet_attn import modet_attention, modet_attention_plain
+from smilecode_tpu_torch.kernels.modet_attn import (
+    modet_attention,
+    modet_attention_bwd,
+    modet_attention_bwd_dk,
+    modet_attention_bwd_dq,
+    modet_attention_bwd_plain,
+    modet_attention_plain,
+)
 from smilecode_tpu_torch.ops.attention import (
     KERNEL_SIZES,
     _neighborhood_attention_plain,
@@ -113,6 +124,86 @@ def test_dispatch_rejects_bad_arguments():
         modet_attention(q, k[..., :3], rpb)
     with pytest.raises(ValueError, match="rpb"):
         modet_attention(q, k, rpb[:, :2])
+
+
+BWD_TOL = 2e-5  # times the largest |gradient|: 27-term float32 sums in another order
+
+
+def assert_grads_close(got, want):
+    for name, a, b in zip(("dq", "dk", "drpb"), got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a, b, rtol=0, atol=BWD_TOL * max(np.abs(b).max(), 1e-3),
+                                   err_msg=name)
+
+
+def jit_vjp(fn, *args):
+    """Cotangents of ``fn``'s inputs for the output cotangent ``args[-1]``."""
+    return jax.jit(lambda *a: jax.vjp(fn, *a[:-1])[1](a[-1]))(*args[:-1], jnp.asarray(args[-1]))
+
+
+def cotangent(shape, heads, seed):
+    return np.random.default_rng(seed).standard_normal((1, *shape, heads * 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,heads,scale,with_rpb", [
+    ((4, 6, 5), 1, 1.0, True),
+    ((3, 5, 4), 2, 0.5, False),
+    ((2, 3, 2), 2, 0.5, True),  # every voxel on the border
+    ((5, 4, 6), 3, 0.408, True),
+])
+def test_bwd_plain_matches_torch_autograd(shape, heads, scale, with_rpb):
+    q, k, rpb = to_torch(*make_inputs(shape, heads, with_rpb=with_rpb, seed=7))
+    g = torch.from_numpy(cotangent(shape, heads, 8))
+    leaves = [t.clone().requires_grad_() for t in (q, k) + ((rpb,) if with_rpb else ())]
+    out = modet_attention_plain(leaves[0], leaves[1], leaves[2] if with_rpb else None, scale)
+    want = torch.autograd.grad(out, leaves, g)
+    got = modet_attention_bwd_plain(q, k, rpb, scale, g)
+    assert_grads_close(got, list(want) + ([] if with_rpb else [None]))
+
+
+def test_bwd_plain_matches_jax_pallas_b1_b2_interpret():
+    """B1/B2 of the JAX package in interpret mode, one tiny single-block shape."""
+    shape, heads, scale = (3, 4, 5), 1, 1.0
+    q, k, rpb = make_inputs(shape, heads, seed=9)
+    g = cotangent(shape, heads, 10)
+    want = jit_vjp(lambda a, b, c: modet_attention_pallas(a, b, c, scale, True),
+                   *to_jax(q, k, rpb), g)
+    got = modet_attention_bwd_plain(*to_torch(q, k, rpb), scale, torch.from_numpy(g))
+    assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("shape,heads,scale,with_rpb", [
+    ((2, 3, 2), 2, 0.5, False),
+    ((3, 2, 4), 2, 0.5, True),
+    ((1, 4, 3), 1, 1.0, True),
+])
+def test_bwd_plain_matches_jax_xla_vjp_at_borders(shape, heads, scale, with_rpb):
+    q, k, rpb = make_inputs(shape, heads, with_rpb=with_rpb, seed=11)
+    g = cotangent(shape, heads, 12)
+    if with_rpb:
+        want = jit_vjp(lambda a, b, c: _neighborhood_attention_xla(a, b, c, scale),
+                       *to_jax(q, k, rpb), g)
+    else:
+        want = (*jit_vjp(lambda a, b: _neighborhood_attention_xla(a, b, None, scale),
+                         *to_jax(q, k), g), None)
+    got = modet_attention_bwd_plain(*to_torch(q, k, rpb), scale, torch.from_numpy(g))
+    assert_grads_close(got, want)
+
+
+def test_bwd_wrapper_on_cpu_runs_plain_without_launch():
+    q, k, rpb = to_torch(*make_inputs((3, 4, 3), 2, seed=13))
+    g = torch.from_numpy(cotangent((3, 4, 3), 2, 14))
+    before = (modet_attention_bwd_dq.launches, modet_attention_bwd_dk.launches)
+    got = modet_attention_bwd(q, k, rpb, 1.0, g)
+    assert (modet_attention_bwd_dq.launches, modet_attention_bwd_dk.launches) == before
+    for a, b in zip(got, modet_attention_bwd_plain(q, k, rpb, 1.0, g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        modet_attention_bwd(q.to("meta"), k.to("meta"), None, 1.0, g.to("meta"))
 
 
 def test_wrapper_never_takes_the_plain_path_off_the_cpu():

@@ -8,14 +8,29 @@ jax, so it also runs where only PyTorch is installed:
 (``--noconftest`` skips the JAX test configuration in tests/conftest.py.)
 Tolerances: attention 1e-5 absolute (outputs in [-1, 1]); warp
 1e-5 * max|src| (FMA contraction on the card, none in the plain version).
+Backward kernels: 1e-5 times the largest |gradient| (27- and 8-term float32
+sums in another order; drpb adds per-block partials, d_src is an atomic
+scatter whose order changes from run to run).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from smilecode_tpu_torch.kernels.modet_attn import modet_attention, modet_attention_plain
-from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_plain
+from smilecode_tpu_torch.kernels.modet_attn import (
+    modet_attention,
+    modet_attention_bwd,
+    modet_attention_bwd_dk,
+    modet_attention_bwd_dq,
+    modet_attention_bwd_plain,
+    modet_attention_plain,
+)
+from smilecode_tpu_torch.kernels.warp3d import (
+    warp3d_trilinear,
+    warp3d_trilinear_bwd,
+    warp3d_trilinear_bwd_plain,
+    warp3d_trilinear_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -79,12 +94,105 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         big = rand((1, 2, 2, 2, 1, 33), 7).to(dev)
         modet_attention(big, big, None)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        modet_attention(q.clone().requires_grad_(), q, None)
+    with pytest.raises(TypeError, match="float32"):
+        modet_attention_bwd(q, q, None, 1.0, torch.zeros((1, 3, 3, 3, 3), device=dev).double())
     src, flow = rand((1, 4, 4, 4, 2), 8).to(dev), torch.zeros((1, 4, 4, 4, 3), device=dev)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        warp3d_trilinear(src, flow.clone().requires_grad_())
+    with pytest.raises(ValueError, match="g must be"):
+        warp3d_trilinear_bwd(src, flow, torch.zeros((1, 4, 4, 4, 3), device=dev))
     with pytest.raises(TypeError, match="bf16"):
         warp3d_trilinear(src.bfloat16(), flow)
     with pytest.raises(ValueError, match="contiguous"):
         warp3d_trilinear(src.transpose(1, 2), flow)
+
+
+BWD_TOL = 1e-5
+
+
+def assert_scaled_close(got, want, what):
+    atol = BWD_TOL * max(float(want.abs().max()), 1e-3)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol, msg=what)
+
+
+@pytest.mark.parametrize("shape,heads,hd,scale,with_rpb", [
+    ((5, 7, 3), 1, 6, 1.0, True),
+    ((3, 4, 5), 8, 6, 1.0, True),
+    ((4, 3, 5), 2, 1, 0.5, False),
+    ((3, 5, 3), 2, 16, 0.25, True),
+    ((3, 3, 3), 1, 32, 0.1, True),
+])
+def test_attention_backward_kernels_match_plain(dev, shape, heads, hd, scale, with_rpb):
+    q, k = rand((2, *shape, heads, hd), 11), rand((2, *shape, heads, hd), 12)
+    rpb = rand((heads, 3, 3, 3), 13) if with_rpb else None
+    g = rand((2, *shape, heads * 3), 14)
+    ref = modet_attention_bwd_plain(q, k, rpb, scale, g)
+    before = (modet_attention_bwd_dq.launches, modet_attention_bwd_dk.launches)
+    got = modet_attention_bwd(q.to(dev), k.to(dev), None if rpb is None else rpb.to(dev), scale,
+                              g.to(dev))
+    torch.cuda.synchronize()
+    assert (modet_attention_bwd_dq.launches, modet_attention_bwd_dk.launches) == (
+        before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "drpb"), got, ref):
+        if b is None:
+            assert a is None
+        else:
+            assert_scaled_close(a, b, name)
+
+
+def test_attention_autograd_runs_k1_k3_k4(dev):
+    q, k = rand((1, 4, 5, 3, 2, 6), 15), rand((1, 4, 5, 3, 2, 6), 16)
+    rpb, g = rand((2, 3, 3, 3), 17), rand((1, 4, 5, 3, 6), 18)
+    leaves = [t.to(dev).requires_grad_() for t in (q, k, rpb)]
+    counts = (modet_attention.launches, modet_attention_bwd_dq.launches,
+              modet_attention_bwd_dk.launches)
+    out = modet_attention(*leaves, 0.5)
+    out.backward(g.to(dev))
+    torch.cuda.synchronize()
+    assert (modet_attention.launches, modet_attention_bwd_dq.launches,
+            modet_attention_bwd_dk.launches) == tuple(c + 1 for c in counts)
+    ref = modet_attention_bwd_plain(q, k, rpb, 0.5, g)
+    for name, leaf, b in zip(("dq", "dk", "drpb"), leaves, ref):
+        assert_scaled_close(leaf.grad, b, name)
+
+
+@pytest.mark.parametrize("src_shape,flow_shape,c,amp", [
+    ((6, 7, 5), (6, 7, 5), 1, 2.0),
+    ((5, 7, 6), (5, 7, 6), 3, 20.0),
+    ((9, 11, 7), (5, 6, 4), 3, 1.0),  # shape-mismatch rescale
+    ((4, 5, 3), (4, 5, 3), 64, 3.0),
+])
+def test_warp_backward_kernel_matches_plain(dev, src_shape, flow_shape, c, amp):
+    src = rand((2, *src_shape, c), 19)
+    flow = rand((2, *flow_shape, 3), 20, amp)
+    g = rand((2, *flow_shape, c), 21)
+    for want_dsrc in (True, False):
+        ref = warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc)
+        before = (warp3d_trilinear_bwd.launches, warp3d_trilinear_bwd.scatters)
+        d_src, d_flow = warp3d_trilinear_bwd(src.to(dev), flow.to(dev), g.to(dev), want_dsrc)
+        torch.cuda.synchronize()
+        assert (warp3d_trilinear_bwd.launches, warp3d_trilinear_bwd.scatters) == (
+            before[0] + 1, before[1] + int(want_dsrc))
+        assert_scaled_close(d_flow, ref[1], "d_flow")
+        if want_dsrc:
+            assert_scaled_close(d_src, ref[0], "d_src")
+        else:
+            assert d_src is None
+
+
+def test_warp_autograd_scatters_only_when_src_needs_grad(dev):
+    src, flow, g = rand((1, 5, 6, 4, 2), 22), rand((1, 5, 6, 4, 3), 23, 2.0), rand((1, 5, 6, 4, 2), 24)
+    for src_grad in (True, False):
+        s = src.to(dev).requires_grad_(src_grad)
+        f = flow.to(dev).requires_grad_()
+        counts = (warp3d_trilinear.launches, warp3d_trilinear_bwd.launches,
+                  warp3d_trilinear_bwd.scatters)
+        warp3d_trilinear(s, f).backward(g.to(dev))
+        torch.cuda.synchronize()
+        assert (warp3d_trilinear.launches, warp3d_trilinear_bwd.launches,
+                warp3d_trilinear_bwd.scatters) == (counts[0] + 1, counts[1] + 1,
+                                                    counts[2] + int(src_grad))
+        ref_src, ref_flow = warp3d_trilinear_bwd_plain(src, flow, g, src_grad)
+        assert_scaled_close(f.grad, ref_flow, "d_flow")
+        if src_grad:
+            assert_scaled_close(s.grad, ref_src, "d_src")
+        else:
+            assert s.grad is None

@@ -1,22 +1,34 @@
 """Port warp (plain path) vs the JAX package: the v4 Pallas warp kernel in
 interpret mode on smooth flows within its window budget, and the naive
 gather oracle `_warp_simple` on every flow, including a wild one the TPU
-kernels' budgets could not take.
+kernels' budgets could not take. The written-out adjoint
+(`warp3d_trilinear_bwd_plain`, K5's oracle) vs the VJPs of the JAX oracle and
+of JAX `ops.warp`, the v3 d_coords kernel in interpret mode, and torch
+autograd.
 
 Tolerance 1e-5 absolute on unit-scale sources: 8 float32 products summed in
-the same corner order on both sides.
+the same corner order on both sides. Adjoints 2e-5 times their largest
+magnitude (the scatter and the per-corner reductions sum in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from smilecode_tpu.kernels.warp3d_v3 import warp3d_planes_v3_dflow
 from smilecode_tpu.kernels.warp3d_v4 import warp3d_planes_v4
 from smilecode_tpu.ops.warp import _warp_simple as jax_warp_simple
 from smilecode_tpu.ops.warp import base_grid as jax_base_grid
-from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_plain
+from smilecode_tpu.ops.warp import warp as jax_warp
+from smilecode_tpu_torch.kernels.warp3d import (
+    warp3d_trilinear,
+    warp3d_trilinear_bwd,
+    warp3d_trilinear_bwd_plain,
+    warp3d_trilinear_plain,
+)
 from smilecode_tpu_torch.ops.warp import _warp_simple, base_grid, warp
 
 torch.set_num_threads(1)
@@ -126,6 +138,86 @@ def test_identity_flow_and_base_grid():
     src = torch.from_numpy(source((4, 5, 6), 2, 9))
     torch.testing.assert_close(warp(src, torch.zeros((1, 4, 5, 6, 3))), src, rtol=0, atol=0)
     np.testing.assert_array_equal(base_grid(3, 4, 5).numpy(), np.asarray(jax_base_grid(3, 4, 5)))
+
+
+BWD_TOL = 2e-5  # times the largest |gradient|: 8-corner float32 sums, another order
+
+
+def jax_warp_vjp(warp_fn, src, fl, g):
+    """(d_src, d_flow) of a JAX warp for the output cotangent g (jitted vjp)."""
+    return jax.jit(lambda s, f, gg: jax.vjp(warp_fn, s, f)[1](gg))(
+        jnp.asarray(src), jnp.asarray(fl), jnp.asarray(g))
+
+
+def assert_close_scaled(got, want, what):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=BWD_TOL * max(np.abs(want).max(), 1e-3), err_msg=what)
+
+
+@pytest.mark.parametrize("src_shape,flow_shape,c,kind,amp", [
+    ((8, 10, 9), (8, 10, 9), 1, "smooth", 5.0),
+    ((7, 9, 8), (7, 9, 8), 3, "wild", 20.0),
+    ((6, 8, 7), (6, 8, 7), 16, "wild", 3.0),
+    ((9, 11, 7), (5, 6, 4), 2, "smooth", 1.0),  # shape mismatch: rescaled coordinates
+])
+def test_bwd_plain_matches_jax_vjps(src_shape, flow_shape, c, kind, amp):
+    """d_flow and d_src vs the VJP of the JAX oracle `_warp_simple`; d_flow
+    also vs the VJP of JAX `ops.warp` (the packed warp the JAX ModeT trains
+    through)."""
+    src = source(src_shape, c, 20)
+    fl = smooth_flow(flow_shape, amp, 2) if kind == "smooth" else wild_flow(flow_shape, amp, 21)
+    g = source(flow_shape, c, 22)
+    d_src, d_flow = warp3d_trilinear_bwd_plain(torch.from_numpy(src), torch.from_numpy(fl),
+                                               torch.from_numpy(g), want_dsrc=True)
+    j_src, j_flow = jax_warp_vjp(jax_warp_simple, src, fl, g)
+    assert_close_scaled(d_src, j_src, "d_src vs oracle")
+    assert_close_scaled(d_flow, j_flow, "d_flow vs oracle")
+    _, p_flow = jax_warp_vjp(jax_warp, src, fl, g)
+    assert_close_scaled(d_flow, p_flow, "d_flow vs ops.warp")
+
+
+@pytest.mark.parametrize("shape,c", [((10, 12, 10), 3), ((6, 9, 7), 1)])
+def test_bwd_plain_d_flow_matches_jax_v3_dflow_interpret(shape, c):
+    """d_flow vs H, `warp3d_planes_v3_dflow` in interpret mode, on a smooth
+    flow within its window budget."""
+    src, fl, g = source(shape, c, 23), smooth_flow(shape, 1.5, 2), source(shape, c, 24)
+    coords = np.asarray(jax_base_grid(*shape, jnp.float32))[None] + fl
+    planes = jnp.asarray(src).transpose(0, 4, 1, 2, 3).reshape(c, *shape)
+    gp = jnp.asarray(g).transpose(0, 4, 1, 2, 3).reshape(c, *shape)
+    want = warp3d_planes_v3_dflow(planes, *(jnp.asarray(coords[..., a]) for a in range(3)), gp, c,
+                                  interpret=True)
+    d_src, d_flow = warp3d_trilinear_bwd_plain(torch.from_numpy(src), torch.from_numpy(fl),
+                                               torch.from_numpy(g), want_dsrc=False)
+    assert d_src is None
+    for a in range(3):
+        assert_close_scaled(d_flow[..., a], want[a], f"d_flow axis {a}")
+
+
+def test_bwd_plain_matches_torch_autograd():
+    src = torch.from_numpy(source((7, 6, 8), 4, 25)).requires_grad_()
+    fl = torch.from_numpy(wild_flow((5, 7, 6), 4.0, 26)).requires_grad_()  # rescaled too
+    g = torch.from_numpy(source((5, 7, 6), 4, 27))
+    want = torch.autograd.grad(warp3d_trilinear_plain(src, fl), (src, fl), g)
+    got = warp3d_trilinear_bwd_plain(src.detach(), fl.detach(), g)
+    for a, b, what in zip(got, want, ("d_src", "d_flow")):
+        assert_close_scaled(a, b, what)
+
+
+def test_bwd_wrapper_on_cpu_runs_plain_without_launch():
+    src, fl = torch.from_numpy(source((5, 6, 7), 3, 28)), torch.from_numpy(wild_flow((5, 6, 7), 4, 29))
+    g = torch.from_numpy(source((5, 6, 7), 3, 30))
+    before = (warp3d_trilinear_bwd.launches, warp3d_trilinear_bwd.scatters)
+    for want_dsrc in (True, False):
+        got = warp3d_trilinear_bwd(src, fl, g, want_dsrc)
+        ref = warp3d_trilinear_bwd_plain(src, fl, g, want_dsrc)
+        assert (got[0] is None) == (not want_dsrc)
+        for a, b in zip(got, ref):
+            if b is not None:
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (warp3d_trilinear_bwd.launches, warp3d_trilinear_bwd.scatters) == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        warp3d_trilinear_bwd(src.to("meta"), fl.to("meta"), g.to("meta"))
 
 
 def test_bad_shapes_raise():
