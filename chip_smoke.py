@@ -40,10 +40,34 @@ It builds the Hopper kernels from `smilecode_tpu_torch/csrc/` and then:
    kernel beside its plain version per step, and the top device operations
    of one kernel step (`torch.profiler`).
 
+The baseline-serving slice (Im2grid, RCN, RDN):
+
+11. K1 at Im2grid's five level shapes with one head, head_dim 6 and no
+   rpb (its `cotr`) vs plain, max abs error <= 1e-5; K3 and K4 without rpb
+   at level 1 vs plain.
+12. K2 through kernel F's entries, ``ops.warp(impl="pallas")`` and
+   ``"guarded"``, at the baselines' warp shapes (RDN features C=16..128,
+   C=3 flows, RCN's 128x192x128 image and flow, one source/flow shape
+   mismatch), smooth +-5 and wild +-20 voxel flows, vs plain; one launch
+   per call.
+13. `smilecode_tpu_torch.infer.main` for im2grid, rdn and rdn_diff_share on
+   the 160x192x160 subjects and rcn on 3 synthetic 128x192x128 subjects
+   (VTN needs axes that are multiples of 64), with seeded weights whose
+   flow heads are perturbed so that the flows move voxels, saved as
+   JAX-format checkpoints. Launches per pair exactly as `BASELINE_LAUNCHES`;
+   the ``attn_impl="plain"`` runs launch nothing and give the same Dice and
+   fold.
+14. Each baseline's forward, kernels vs plain: flow and every aux field
+   within 1e-3 voxel, moved image within 1e-4; then median ms per pair over
+   5 forwards each (kernels and plain alternating), the peak memory of
+   each, and the top device operations of one kernel forward.
+
 Every failed check raises, so the exit code is non-zero; without a CUDA card
 it exits non-zero before printing any result. The kernels' JSON record lists
-K1-K5 with their launches in the training run of phase 8; the last two
-lines are that record and ``{"ok": true, "device": {...}}``.
+K1-K5 with their launches in the training run of phase 8, then K1 as
+Im2grid runs it and K2 as kernel F's counterpart with their launches in the
+kernel runs of phase 13; the last two lines are that record and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,6 +99,33 @@ STEP_GRAD_TOL = 1e-3  # times each parameter's largest |gradient|, kernels vs pl
 STEP_GRAD_FLOOR = 1e-6  # times the model's largest |gradient| (zero-gradient conv biases)
 N_VAL_SUBJECTS = 2
 N_TIMED_STEPS = 5
+RCN_SIZE = (128, 192, 128)  # the largest crop of 160x192x160 whose axes are multiples of 64
+N_TIMED_BASELINE = 5
+# (model, volume size, K1 and K2 launches per pair), derived from the JAX
+# modules (`smilecode_tpu/models/`): Im2grid runs `cotr` at 5 levels and
+# warps the features and composes the flow at levels 4..1 plus the moved
+# image (9); RCN with its 10 cascades warps the moving image in each and
+# composes in each after the first (19); RDN with stages 4 and levels
+# (4, 4, 4, 4) composes after every estimate but the first, warps the
+# features before every estimate at the finer levels and before the later
+# ones at the coarsest, re-warps 4 feature levels and composes per later
+# stage, and warps the moved image (136); diff adds an sv composition and 7
+# vecint steps per estimate (644). A CPU test counts the same calls
+# (`tests/test_torch_baselines.py::test_kernel_wrapper_calls_per_pair`).
+BASELINES = (("im2grid", SIZE, 5, 9), ("rdn", SIZE, 0, 136),
+             ("rdn_diff_share", SIZE, 0, 644), ("rcn", RCN_SIZE, 0, 19))
+# seeded perturbation of the flow heads: (parameter name part, std)
+BASELINE_HEADS = {"im2grid": ("proj", 0.1), "rdn": ("conv.4", 0.02),
+                  "rdn_diff_share": ("conv.4", 0.02), "rcn": ("Pred0", 0.1)}
+# kernel F's entries at the baselines' warps: (what, source shape, flow shape, C)
+F_CASES = [("RDN level-0 features", (80, 96, 80), (80, 96, 80), 16),
+           ("RDN level-1 features", (40, 48, 40), (40, 48, 40), 32),
+           ("RDN level-2 features", (20, 24, 20), (20, 24, 20), 64),
+           ("RDN level-3 features", (10, 12, 10), (10, 12, 10), 128),
+           ("RDN/vecint flow", (80, 96, 80), (80, 96, 80), 3),
+           ("RCN moved image", RCN_SIZE, RCN_SIZE, 1),
+           ("RCN flow", RCN_SIZE, RCN_SIZE, 3),
+           ("shape mismatch", (80, 96, 80), (40, 48, 40), 3)]
 
 
 def require(cond: bool, msg: str) -> None:
@@ -128,19 +179,21 @@ def smooth_flow(shape, amp, device):
     return (amp * torch.stack(comps, -1))[None].contiguous()
 
 
-def check_attention(device, size=SIZE, timed=True):
-    """K1 vs plain at every level shape; returns (max_err, ms, plain_ms) per pair."""
+def check_attention(device, size=SIZE, timed=True, num_heads=NUM_HEADS, with_rpb=True):
+    """K1 vs plain at every level shape (heads per level 5..1, with or
+    without rpb); returns (max_err, ms, plain_ms) per pair."""
     import torch
 
     from smilecode_tpu_torch.kernels.modet_attn import modet_attention, modet_attention_plain
 
     rng = np.random.default_rng(1)
     worst, ms, plain_ms = 0.0, 0.0, 0.0
-    for level, heads in zip((5, 4, 3, 2, 1), NUM_HEADS):
+    for level, heads in zip((5, 4, 3, 2, 1), num_heads):
         shape = (1, *level_shape(level, size), heads, HEAD_DIM)
         q = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
         k = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
-        rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(device)
+        rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(
+            device) if with_rpb else None
         out = modet_attention(q, k, rpb, 1.0)
         ref = modet_attention_plain(q, k, rpb, 1.0)
         err = float((out - ref).abs().max())
@@ -148,7 +201,8 @@ def check_attention(device, size=SIZE, timed=True):
                 f"attention level {level}: output not finite or outside [-1, 1]")
         require(err <= ATTN_TOL, f"attention level {level} {shape}: max abs err {err} > {ATTN_TOL}")
         worst = max(worst, err)
-        line = f"K1 attention level {level} q,k {shape}: max_abs_err {err:.3e}"
+        line = (f"K1 attention level {level} q,k {shape}, rpb {'yes' if with_rpb else 'none'}: "
+                f"max_abs_err {err:.3e}")
         if timed:
             t = event_ms(lambda: modet_attention(q, k, rpb, 1.0), 20)
             tp = event_ms(lambda: modet_attention_plain(q, k, rpb, 1.0), 5)
@@ -197,7 +251,8 @@ def check_warp(device, size=SIZE, timed=True):
     return worst, ms, plain_ms
 
 
-def check_attention_bwd(device, size=SIZE):
+def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_HEADS)),
+                        with_rpb=True):
     """K3, K4 vs their plain versions at every level shape; returns
     {kernel: (max_err, ms, plain_ms)} with times summed over the five calls
     of a training step.
@@ -220,21 +275,26 @@ def check_attention_bwd(device, size=SIZE):
 
     rng = np.random.default_rng(5)
     res = {"K3": [0.0, 0.0, 0.0], "K4": [0.0, 0.0, 0.0]}
-    for level, heads in zip((5, 4, 3, 2, 1), NUM_HEADS):
+    for level, heads in specs:
         shape = (1, *level_shape(level, size), heads, HEAD_DIM)
         q, k = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
                 for _ in range(2))
-        rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(device)
+        rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(
+            device) if with_rpb else None
         g = torch.from_numpy(rng.standard_normal((*shape[:4], heads * 3), dtype=np.float32)).to(device)
         dq, dl, part = modet_attention_bwd_dq(q, k, rpb, 1.0, g)
-        drpb = part.sum(0).reshape(heads, 3, 3, 3)
         p_dq, p_dl, p_drpb = modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g)
         dk = modet_attention_bwd_dk(q, p_dl, 1.0)
         p_dk = modet_attention_bwd_dk_plain(q, p_dl, 1.0)
-        drpb_tol = DRPB_TOL * float(p_dl.abs().sum(dim=(0, 1, 2, 3)).max())
+        checks = [("dq", dq, p_dq, None), ("dl", dl, p_dl, None), ("dk", dk, p_dk, None)]
+        if with_rpb:
+            drpb = part.sum(0).reshape(heads, 3, 3, 3)
+            drpb_tol = DRPB_TOL * float(p_dl.abs().sum(dim=(0, 1, 2, 3)).max())
+            checks.insert(2, ("drpb", drpb, p_drpb, drpb_tol))
+        else:
+            require(part is None and p_drpb is None, "attention bwd without rpb returned a drpb")
         errs = {}
-        for name, a, b, tol in (("dq", dq, p_dq, None), ("dl", dl, p_dl, None),
-                                ("drpb", drpb, p_drpb, drpb_tol), ("dk", dk, p_dk, None)):
+        for name, a, b, tol in checks:
             require(bool(torch.isfinite(a).all()), f"attention bwd level {level}: {name} not finite")
             err = float((a - b).abs().max())
             tol = tol if tol is not None else BWD_TOL * float(b.abs().max())
@@ -245,15 +305,80 @@ def check_attention_bwd(device, size=SIZE):
         t4 = event_ms(lambda: modet_attention_bwd_dk(q, p_dl, 1.0), 10)
         p3 = event_ms(lambda: modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g), 3)
         p4 = event_ms(lambda: modet_attention_bwd_dk_plain(q, p_dl, 1.0), 3)
-        for key, err, t, tp in (("K3", max(errs["dq"][0], errs["dl"][0], errs["drpb"][0]), t3, p3),
-                                ("K4", errs["dk"][0], t4, p4)):
+        k3_err = max(e for n, (e, _) in errs.items() if n != "dk")
+        for key, err, t, tp in (("K3", k3_err, t3, p3), ("K4", errs["dk"][0], t4, p4)):
             res[key] = [max(res[key][0], err), res[key][1] + t, res[key][2] + tp]
-        print(f"K3/K4 attention bwd level {level} q,k {shape}: max_abs_err "
+        print(f"K3/K4 attention bwd level {level} q,k {shape}, rpb "
+              f"{'yes' if with_rpb else 'none'}: max_abs_err "
               + ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in errs.items())
               + f"; K3 {t3:.4f} ms (plain {p3:.4f}), K4 {t4:.4f} ms (plain {p4:.4f})", flush=True)
-        del q, k, g, dq, dl, part, p_dq, p_dl, p_drpb, dk, p_dk
+        del q, k, g, dq, dl, part, p_dq, p_dl, p_drpb, dk, p_dk, checks
         torch.cuda.empty_cache()
     return {key: tuple(v) for key, v in res.items()}
+
+
+def check_warp_f(device):
+    """K2 through kernel F's entries, ``ops.warp(impl="pallas" | "guarded")``,
+    vs plain at `F_CASES`, smooth and wild flows; exactly one launch per
+    call. Returns (max_err, ms, plain_ms), times summed over the smooth
+    cases of "pallas", one call each."""
+    import torch
+
+    from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_plain
+    from smilecode_tpu_torch.ops.warp import warp
+
+    rng = np.random.default_rng(8)
+    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    for what, src_shape, flow_shape, c in F_CASES:
+        src = torch.from_numpy(rng.standard_normal((1, *src_shape, c), dtype=np.float32)).to(device)
+        flows = {"smooth +-5": smooth_flow(flow_shape, 5.0, device),
+                 "wild +-20": torch.from_numpy(
+                     rng.uniform(-20, 20, (1, *flow_shape, 3)).astype(np.float32)).to(device)}
+        tol = WARP_TOL * float(src.abs().max())
+        for name, flow in flows.items():
+            ref = warp3d_trilinear_plain(src, flow)
+            line = f"K2 via ops.warp {what} C={c} src {src_shape} flow {flow_shape} {name}:"
+            for impl in ("pallas", "guarded"):
+                before = warp3d_trilinear.launches
+                out = warp(src, flow, impl=impl)
+                require(warp3d_trilinear.launches == before + 1, f"warp(impl={impl!r}) did not "
+                                                                 "launch K2 exactly once")
+                err = float((out - ref).abs().max())
+                require(bool(torch.isfinite(out).all()) and out.shape == (1, *flow_shape, c),
+                        f"{line} impl={impl}: output not finite or of the wrong shape")
+                require(err <= tol, f"{line} impl={impl}: max abs err {err} > {tol}")
+                worst = max(worst, err)
+                line += f" {impl} max_abs_err {err:.3e}"
+            t = event_ms(lambda: warp(src, flow, impl="pallas"), 20)
+            tp = event_ms(lambda: warp3d_trilinear_plain(src, flow), 5)
+            if name.startswith("smooth"):
+                ms, plain_ms = ms + t, plain_ms + tp
+            print(f"{line} (tol {tol:.3e}), kernel {t:.4f} ms, plain {tp:.4f} ms", flush=True)
+        del src, flows, ref, out
+        torch.cuda.empty_cache()
+    return worst, ms, plain_ms
+
+
+def seeded_baseline(name, device, attn_impl="auto"):
+    """Baseline ``name`` as `build_model` makes it (the reference's depth:
+    RCN 10 cascades, RDN stages 4 and levels (4, 4, 4, 4)) from seed 0, with
+    the flow heads perturbed from a numpy seed (`BASELINE_HEADS`): their
+    N(0, 1e-5) or zero init would leave the flows near identity, where a
+    warp bug hides."""
+    import torch
+
+    from smilecode_tpu_torch.config import InferConfig
+    from smilecode_tpu_torch.models.registry import build_model
+
+    model = build_model(name, InferConfig(model=name, attn_impl=attn_impl), device=device,
+                        generator=torch.Generator().manual_seed(0))
+    part, std = BASELINE_HEADS[name]
+    rng = np.random.default_rng(9)
+    with torch.no_grad():
+        for pname, p in model.named_parameters():
+            if part in pname:
+                p.add_(torch.from_numpy(rng.standard_normal(p.shape, dtype=np.float32) * std).to(device))
+    return model.eval()
 
 
 def check_warp_bwd(device, size=SIZE):
@@ -412,8 +537,8 @@ def time_steps(model, plain, x, y):
     return times, peak, steps["kernels"]
 
 
-def profile_step(step, x, y, top=12):
-    """Top device operations of one training step, and the device idle share."""
+def profile_step(step, x, y, top=12, what="kernel step"):
+    """Top device operations of one call of ``step``, and the device idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -428,7 +553,7 @@ def profile_step(step, x, y, top=12):
               and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.device_time_total for e in events) / 1e3
-    print(f"profile of one kernel step: wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms "
+    print(f"profile of one {what}: wall {wall_ms:.3f} ms, device kernels {busy_ms:.3f} ms "
           f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}); top device operations:")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:100]}")
@@ -475,19 +600,20 @@ def write_jax_checkpoint(model_dir, model):
     from smilecode_tpu_torch.convert import params_from_state_dict
 
     os.makedirs(model_dir, exist_ok=True)
-    state = {"epoch": 0, "params": params_from_state_dict(model.state_dict()), "best_dsc": 0.0}
+    state = {"epoch": 0, "params": params_from_state_dict(model.state_dict(), model),
+             "best_dsc": 0.0}
     with open(os.path.join(model_dir, "dsc0.000.ckpt"), "wb") as f:
         pickle.dump(state, f)
 
 
-def run_infer(test_dir, model_dir, attn_impl="auto"):
+def run_infer(test_dir, model_dir, attn_impl="auto", model="modet"):
     """infer.main through its config; returns (dsc, fold, K1 launches, K2 launches, s)."""
     import torch
 
     from smilecode_tpu_torch import infer
     from smilecode_tpu_torch.config import InferConfig
 
-    cfg = InferConfig(test_dir=test_dir, model_dir=model_dir, attn_impl=attn_impl)
+    cfg = InferConfig(model=model, test_dir=test_dir, model_dir=model_dir, attn_impl=attn_impl)
     reset_launch_counts()
     t0 = time.perf_counter()
     dsc, fold = infer.main(cfg)
@@ -640,10 +766,93 @@ def main() -> int:
               f"{bwd['K3'][2]:.4f}), K4 {bwd['K4'][1]:.4f} ms (plain {bwd['K4'][2]:.4f}), "
               f"K5 {k5_ms:.4f} ms (plain {k5_plain_ms:.4f})")
         profile_step(kernel_step, x, y)
+        del model, plain, kernel_step, x, y
+        torch.cuda.empty_cache()
 
-    def entry(name, source, line, key, err, ms, plain_ms):
+        print("== phase 11: K1 as Im2grid runs it (1 head, no rpb); K3/K4 without rpb", flush=True)
+        g_err, g_ms, g_plain_ms = check_attention(device, num_heads=(1,) * 5, with_rpb=False)
+        check_attention_bwd(device, specs=((1, 1),), with_rpb=False)
+        print("== phase 12: K2 through kernel F's entries at the baselines' shapes", flush=True)
+        f_err, f_ms, f_plain_ms = check_warp_f(device)
+
+        print("== phase 13: infer.main for the baselines", flush=True)
+        rcn_dir = os.path.join(tmp, "TestRCN")
+        os.makedirs(rcn_dir)
+        write_subjects(rcn_dir, size=RCN_SIZE, device=device)
+        base_counts = {"K1": 0, "K2": 0}
+        for name, size, k1_pair, k2_pair in BASELINES:
+            data_dir = test_dir if size == SIZE else rcn_dir
+            model_dir = os.path.join(tmp, f"exp_{name}")
+            write_jax_checkpoint(model_dir, seeded_baseline(name, device))
+            dsc, fold, n_k1, n_k2, secs = run_infer(data_dir, model_dir, model=name)
+            print(f"{name} {size} infer (kernels): {n_pairs} pairs in {secs:.2f} s, K1 launches "
+                  f"{n_k1}, K2 launches {n_k2}, dsc {dsc:.6f}, fold {fold:.6f}", flush=True)
+            require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0, f"{name}: Dice {dsc} outside [0, 1]")
+            require(np.isfinite(fold) and 0.0 <= fold <= 1.0, f"{name}: fold {fold} outside [0, 1]")
+            require((n_k1, n_k2) == (k1_pair * n_pairs, k2_pair * n_pairs),
+                    f"{name}: K1, K2 launched {n_k1}, {n_k2} times, expected "
+                    f"{k1_pair * n_pairs}, {k2_pair * n_pairs}")
+            base_counts["K1"] += n_k1
+            base_counts["K2"] += n_k2
+            p_dsc, p_fold, p_k1, p_k2, p_secs = run_infer(data_dir, model_dir, attn_impl="plain",
+                                                          model=name)
+            print(f"{name} {size} infer (plain): {p_secs:.2f} s, K1 launches {p_k1}, K2 launches "
+                  f"{p_k2}, dsc {p_dsc:.6f}, fold {p_fold:.6f}", flush=True)
+            require(p_k1 == 0 and p_k2 == 0, f"{name}: the plain run launched a kernel")
+            require(abs(dsc - p_dsc) <= 1e-3 and abs(fold - p_fold) <= 1e-3,
+                    f"{name} kernels vs plain infer: dsc {dsc} vs {p_dsc}, fold {fold} vs {p_fold}")
+            torch.cuda.empty_cache()
+
+        print("== phase 14: baseline forwards, kernels vs plain; ms per pair", flush=True)
+        for name, size, _, _ in BASELINES:
+            x, y = forward_pair(test_dir if size == SIZE else rcn_dir, device)
+            model, plain = seeded_baseline(name, device), seeded_baseline(name, device, "plain")
+            with torch.no_grad():
+                outs, p_outs = model(x, y), plain(x, y)
+            require(len(outs) == len(p_outs) and outs[0].shape == (1, *size, 1)
+                    and outs[1].shape == (1, *size, 3), f"{name}: output shapes")
+            require(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite output")
+            moved_err = float((outs[0] - p_outs[0]).abs().max())
+            flow_err = max(float((a - b).abs().max()) for a, b in zip(outs[1:], p_outs[1:]))
+            mag = outs[1].norm(dim=-1)
+            print(f"{name} {size} forward: {len(outs)} outputs, flow |.| max {float(mag.max()):.4f} "
+                  f"mean {float(mag.mean()):.4f} voxel; kernels vs plain: flow and aux max abs "
+                  f"diff {flow_err:.3e}, moved {moved_err:.3e}", flush=True)
+            require(flow_err <= FLOW_TOL, f"{name}: flow diff {flow_err} > {FLOW_TOL}")
+            require(moved_err <= MOVED_TOL, f"{name}: moved diff {moved_err} > {MOVED_TOL}")
+            del outs, p_outs
+            times = {"kernels": [], "plain": []}
+            peak = {"kernels": 0.0, "plain": 0.0}
+            with torch.no_grad():
+                for i in range(N_TIMED_BASELINE):
+                    order = (("plain", plain), ("kernels", model)) if i % 2 else (
+                        ("kernels", model), ("plain", plain))
+                    for path, m in order:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        t0 = time.perf_counter()
+                        m(x, y)
+                        torch.cuda.synchronize()
+                        times[path].append((time.perf_counter() - t0) * 1e3)
+                        peak[path] = max(peak[path], torch.cuda.max_memory_allocated() / 2**30)
+            med = {k: statistics.median(v) for k, v in times.items()}
+            print(f"[{card}] {name} {'x'.join(map(str, size))} forward, median of "
+                  f"{N_TIMED_BASELINE}: kernels {med['kernels']:.3f} ms/pair, plain "
+                  f"{med['plain']:.3f} ms/pair (min {min(times['kernels']):.3f} / "
+                  f"{min(times['plain']):.3f}); peak memory kernels {peak['kernels']:.2f} GiB, "
+                  f"plain {peak['plain']:.2f} GiB", flush=True)
+            with torch.no_grad():
+                profile_step(model, x, y, top=8, what=f"{name} kernel forward")
+            del model, plain, x, y
+            torch.cuda.empty_cache()
+        print(f"[{card}] K1 as Im2grid runs it, per pair: {g_ms:.4f} ms (plain {g_plain_ms:.4f}); "
+              f"K2 via ops.warp over the smooth cases of phase 12: {f_ms:.4f} ms (plain "
+              f"{f_plain_ms:.4f})")
+
+    def entry(name, source, line, key, err, ms, plain_ms, counts=None):
         return {"name": name, "route": "cuda", "source": f"smilecode_tpu_torch/csrc/{source}",
-                "replaces": f"smilecode_tpu/kernels/{line}", "launches": train_counts[key],
+                "replaces": f"smilecode_tpu/kernels/{line}",
+                "launches": (counts or train_counts)[key],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
     record = {"kernels": [
@@ -655,6 +864,10 @@ def main() -> int:
         entry("modet_attn_bwd_dk", "modet_attn_bwd.cu", "modet_attn.py:256", "K4", *bwd["K4"]),
         entry("warp3d_trilinear_bwd", "warp3d_bwd.cu", "warp3d_v4.py:339", "K5", k5_err, k5_ms,
               k5_plain_ms),
+        entry("modet_attn_fwd (Im2grid: 1 head, no rpb)", "modet_attn.cu", "modet_attn.py:56",
+              "K1", g_err, g_ms, g_plain_ms, base_counts),
+        entry("warp3d_trilinear_fwd (ops.warp impl=pallas|guarded, baselines)", "warp3d.cu",
+              "warp3d.py:52", "K2", f_err, f_ms, f_plain_ms, base_counts),
     ]}
     print(card_line())
     print(json.dumps(record))

@@ -4,8 +4,8 @@
 `smilecode_tpu/config.py` (the JAX package cannot be imported without jax).
 Left out: the JAX-only `fast_path` knob (planes-layout TPU decoder),
 `img_size` (the JAX package needs it to build a parameter template; the port
-does not) and the knobs of models and datasets that are not ported
-(`atlas_path`, `n_cascade`, `stages`, `levels`, `dropout_rate`).
+does not), `atlas_path` (the atlas dataset is not ported) and, in
+`TrainConfig`, the baselines' knobs (their training is not ported).
 `check_train_config` raises `NotImplementedError` for the training knobs
 whose paths are not ported yet.
 """
@@ -90,6 +90,13 @@ class InferConfig:
     dataset: str = "s2s"  # s2s (half | atlas are not ported yet)
     # load a reference PyTorch .pth.tar instead of a JAX-format checkpoint
     torch_checkpoint: str = ""
+    # structural knobs of the baselines (must match the checkpoint): RCN
+    # cascade depth, RDN stage and per-level recursions, RDN MC-dropout rate
+    # (only 0 is ported)
+    n_cascade: int = 10
+    stages: int = 4
+    levels: Sequence[int] = (4, 4, 4, 4)
+    dropout_rate: float = 0.0
     # MC-dropout uncertainty protocol (not ported yet)
     mc_iter: int = 0
 

@@ -10,8 +10,16 @@
   buffers.
 
 Layout rules (torch -> JAX): Conv3d (Cout, Cin, k, k, k) -> (k, k, k, Cin,
-Cout); Linear (out, in) -> (in, out); LayerNorm weight -> scale; a numeric
-Sequential index merges into its module name (``conv.0`` -> ``conv_0``).
+Cout); ConvTranspose3d (Cin, Cout, k, k, k) -> (k, k, k, Cin, Cout); Linear
+(out, in) -> (in, out); LayerNorm weight -> scale; a numeric Sequential index
+merges into its module name (``conv.0`` -> ``conv_0``).
+
+Given the port ``model``, both directions take each 5-D kernel's layout from
+its module's type and apply the JAX package's per-family renames
+(`RENAMES_BY_MODEL`, keyed by the model's class name). Without it they treat
+every 5-D kernel as a Conv3d and rename nothing, which is right for ModeT
+only: a square ConvTranspose3d (Cin == Cout, VTN's ``Upsamp*``) has the same
+shape in both layouts and would load transposed without an error.
 """
 
 from __future__ import annotations
@@ -21,6 +29,15 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+from torch import nn
+
+# the VTN/RCN entries of `smilecode_tpu/convert.py:RENAMES_BY_MODEL` (torch
+# path -> JAX path on the dotted merged path; the first pattern that changes
+# it wins). PCNet's entries come with PCNet.
+RENAMES_BY_MODEL = {
+    "vtn": ((r"(Upsamp\dto\d|Pred0)\.upconv\.", r"\1."),),
+    "rcn": ((r"(Upsamp\dto\d|Pred0)\.upconv\.", r"\1."),),
+}
 
 
 def torch_key_to_flax_path(key: str) -> tuple[str, ...] | None:
@@ -42,16 +59,44 @@ def torch_key_to_flax_path(key: str) -> tuple[str, ...] | None:
     return tuple(mods) + (leaf,)
 
 
-def params_from_state_dict(state_dict) -> dict:
-    """Port `state_dict` -> ``{"params": nested numpy tree}`` (JAX layout)."""
+def _renamed(path: tuple[str, ...], renames) -> tuple[str, ...]:
+    dotted = ".".join(path)
+    for pat, repl in renames:
+        cand = re.sub(pat, repl, dotted)
+        if cand != dotted:
+            return tuple(cand.split("."))
+    return path
+
+
+def _param_map(model: nn.Module) -> dict:
+    """{state_dict key: (JAX path, is the owner a ConvTranspose3d)} for every
+    parameter of ``model``."""
+    renames = RENAMES_BY_MODEL.get(type(model).__name__.lower(), ())
+    out = {}
+    for key, _ in model.named_parameters():
+        owner = model.get_submodule(key.rpartition(".")[0])
+        out[key] = (_renamed(torch_key_to_flax_path(key), renames),
+                    isinstance(owner, nn.ConvTranspose3d))
+    return out
+
+
+def params_from_state_dict(state_dict, model: nn.Module | None = None) -> dict:
+    """Port `state_dict` -> ``{"params": nested numpy tree}`` (JAX layout).
+    Give ``model`` for any model with transposed convolutions or renames."""
+    pmap = _param_map(model) if model is not None else None
     tree: dict = {}
     for key, w in state_dict.items():
         path = torch_key_to_flax_path(key)
         if path is None:
             continue
+        transposed = False
+        if pmap is not None:
+            if key not in pmap:
+                raise KeyError(f"{key!r} is not a parameter of {type(model).__name__}")
+            path, transposed = pmap[key]
         w = w.detach().cpu().numpy()
         if path[-1] == "kernel" and w.ndim == 5:
-            w = w.transpose(2, 3, 4, 1, 0)
+            w = w.transpose(2, 3, 4, 0, 1) if transposed else w.transpose(2, 3, 4, 1, 0)
         elif path[-1] == "kernel" and w.ndim == 2:
             w = w.T
         node = tree
@@ -68,9 +113,14 @@ def _module_name(name: str) -> str:
     return f"{m.group(1)}.{m.group(2)}" if m else name
 
 
-def state_dict_from_jax(params) -> "OrderedDict[str, torch.Tensor]":
-    """JAX params (``{"params": tree}`` or the tree) -> port `state_dict`."""
+def state_dict_from_jax(params, model: nn.Module | None = None) -> "OrderedDict[str, torch.Tensor]":
+    """JAX params (``{"params": tree}`` or the tree) -> port `state_dict`.
+    Give ``model`` for any model with transposed convolutions or renames:
+    every leaf must then be one of its parameters, and every parameter must
+    be filled."""
     tree = params["params"] if "params" in params else params
+    if model is not None:
+        return _state_dict_for_model(tree, model)
     out: OrderedDict = OrderedDict()
 
     def walk(node, prefix):
@@ -91,6 +141,35 @@ def state_dict_from_jax(params) -> "OrderedDict[str, torch.Tensor]":
             out[".".join(prefix + [leaf])] = torch.from_numpy(np.ascontiguousarray(w))
 
     walk(tree, [])
+    return out
+
+
+def _state_dict_for_model(tree, model: nn.Module) -> "OrderedDict[str, torch.Tensor]":
+    by_path = {path: (key, transposed) for key, (path, transposed) in _param_map(model).items()}
+    out: OrderedDict = OrderedDict()
+
+    def walk(node, prefix):
+        for name, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (name,))
+                continue
+            path = prefix + (name,)
+            if path not in by_path:
+                raise KeyError(f"JAX param {'/'.join(path)} is not a parameter of "
+                               f"{type(model).__name__}")
+            key, transposed = by_path[path]
+            w = np.asarray(v)
+            if w.ndim == 5:
+                w = w.transpose(3, 4, 0, 1, 2) if transposed else w.transpose(4, 3, 0, 1, 2)
+            elif w.ndim == 2:
+                w = w.T
+            out[key] = torch.from_numpy(np.ascontiguousarray(w))
+
+    walk(tree, ())
+    missing = [key for key, _ in by_path.values() if key not in out]
+    if missing:
+        raise KeyError(f"parameters of {type(model).__name__} not in the JAX params: "
+                       f"{missing[:10]}")
     return out
 
 

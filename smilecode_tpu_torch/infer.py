@@ -8,8 +8,11 @@ Runs on the CUDA card when there is one (the Hopper kernels), else on the
 CPU (their plain versions). float32 throughout, with TF32 off in cuDNN
 convolutions and matmuls, for parity with the JAX package.
 
+Models: modet (modet-cu), im2grid, vtn, rcn, rdn, rdn_share, rdn_diff,
+rdn_diff_share (`models/registry.py`).
+
 Usage: python -m smilecode_tpu_torch.infer test_dir=/data/Test model_dir=experiments/<run>
-       [torch_checkpoint=/path/dsc0.xxx.pth.tar]
+       [model=rdn stages=4 levels=4,4,4,4] [torch_checkpoint=/path/dsc0.xxx.pth.tar]
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ def make_infer_step(model):
 
     @torch.no_grad()
     def step(x, y, x_seg, y_seg):
-        _, flow = model(x, y)
+        flow = model(x, y)[1]  # (moved, flow, *aux)
         def_seg = warp(x_seg.float(), flow, mode="nearest").to(torch.int32)
         dice_trans = dice_val_voi(def_seg, y_seg)
         dice_raw = dice_val_voi(x_seg, y_seg)
@@ -56,7 +59,7 @@ def load_weights(model, cfg: InferConfig):
     if ckpt_path is None:
         raise SystemExit(f"no checkpoints in {cfg.model_dir!r}")
     state = load_checkpoint(ckpt_path)
-    model.load_state_dict(state_dict_from_jax(state["params"]), strict=True)
+    model.load_state_dict(state_dict_from_jax(state["params"], model), strict=True)
     print(f"loaded {ckpt_path} (epoch {state.get('epoch')}, best_dsc {state.get('best_dsc')})")
     return model
 

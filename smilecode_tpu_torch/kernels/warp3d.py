@@ -1,8 +1,12 @@
 """Hopper kernels K2, K5: trilinear warp forward and its adjoint.
 
 * K2 (`csrc/warp3d.cu`) replaces `smilecode_tpu/kernels/warp3d_v4.py:_warp_v4_kernel`
-  and `smilecode_tpu/kernels/warp3d_v3.py:_warp_v3_kernel`, and computes the
-  function of the frozen `smilecode_tpu/kernels/warp3d.py:_warp_kernel`.
+  (D) and `smilecode_tpu/kernels/warp3d_v3.py:_warp_v3_kernel` (E), the
+  planes-layout warps of ModeT, and `smilecode_tpu/kernels/warp3d.py:
+  _warp_kernel` (F), the channels-last warp behind `ops.warp(impl="pallas" |
+  "guarded")` that the baseline models run. `warp3d_pallas` and
+  `warp3d_guarded` name F's two entries; both are `warp3d_trilinear`, since
+  K2 needs neither F's window budget nor its guard.
 * K5 (`csrc/warp3d_bwd.cu`) replaces `warp3d_v4.py:_warp_v4_dflow_kernel` and
   `warp3d_v3.py:_warp_v3_dflow_kernel` (d_flow), fused with the d_src scatter
   that the TPU path leaves to XLA (`smilecode_tpu/models/modet_planes.py:_warp_hw_bwd`).
@@ -191,6 +195,10 @@ def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         return warp3d_trilinear_plain(src, flow)
     return Warp3dTrilinearFunction.apply(src, flow)
 
+
+# F's entries (`smilecode_tpu/kernels/warp3d.py:238,259`): the same K2 wrapper
+# and launch count, with no fallback
+warp3d_pallas = warp3d_guarded = warp3d_trilinear
 
 warp3d_trilinear.launches = 0
 warp3d_trilinear_bwd.launches = 0

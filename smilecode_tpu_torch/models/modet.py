@@ -31,6 +31,7 @@ from smilecode_tpu_torch.ops.attention import neighborhood_attention_3d
 from smilecode_tpu_torch.ops.blocks import (
     ConvBlock,
     ConvInsBlock,
+    channels_last_convs_,
     conv3d_ndhwc,
     normal_,
     reset_conv_,
@@ -156,9 +157,7 @@ class ModeT(nn.Module):
                     setattr(self, f"cwm{level}", CWM(3 * heads, 3 * heads * 2))
         self.to_empty(device=device or "cpu")
         self.reset_parameters(generator)
-        for m in self.modules():
-            if isinstance(m, nn.Conv3d):  # NDHWC activations are channels_last_3d
-                m.to(memory_format=torch.channels_last_3d)
+        channels_last_convs_(self)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Torch-default conv init, N(0, 1e-5) projection weights, zero

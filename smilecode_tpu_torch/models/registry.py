@@ -1,8 +1,10 @@
 """Model registry of the port: name -> ``nn.Module`` and its training loss plan.
 
 Counterpart of `smilecode_tpu/models/registry.py` (`build_model`, `CRITERIA`
-and the `ModelSpec` loss plan). Only ModeT is ported; every other model of
-the JAX registry raises `NotImplementedError` naming its ROADMAP item.
+and the `ModelSpec` loss plan). ModeT is ported for inference and training;
+Im2grid, VTN, RCN and the four deterministic RDN variants for inference
+(their loss plans raise `NotImplementedError`); PCNet and PRNet/PR++ raise
+`NotImplementedError` naming their ROADMAP item.
 
 A loss plan is a list of criterion names applied index-wise to the model's
 (possibly sliced) training outputs against the fixed volume:
@@ -31,7 +33,9 @@ CRITERIA = {"ncc": _ncc, "grad_l2": _grad_l2}
 
 MODET_NAMES = ("modet", "modet-cu", "modet_cu", "modetcu")
 # JAX registry names that are not ported yet (ROADMAP.md queue 1, item 8)
-NOT_PORTED = ("im2grid", "pcnet", "prnet", "prnetplusplus", "prnet++", "prpp", "vtn", "rcn")
+NOT_PORTED = ("pcnet", "prnet", "prnetplusplus", "prnet++", "prpp")
+# ported for inference; their training is ROADMAP.md queue 1, item 8
+BASELINE_NAMES = ("im2grid", "vtn", "rcn")
 
 
 def build_model(name: str, cfg, device=None, generator: torch.Generator | None = None):
@@ -41,13 +45,13 @@ def build_model(name: str, cfg, device=None, generator: torch.Generator | None =
     takes the kernel wrappers (attn_impl="auto") whatever ``cfg.attn_impl``.
     """
     name = name.lower()
+    if getattr(cfg, "compute_dtype", ""):
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}: bf16 I/O is not ported yet "
+            "(ROADMAP.md queue 1, item 3)")
     if name in MODET_NAMES:
         from smilecode_tpu_torch.models.modet import ModeT
 
-        if getattr(cfg, "compute_dtype", ""):
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: bf16 I/O is not ported yet "
-                "(ROADMAP.md queue 1, item 3)")
         return ModeT(
             channels=cfg.channels,
             head_dim=cfg.head_dim,
@@ -57,9 +61,30 @@ def build_model(name: str, cfg, device=None, generator: torch.Generator | None =
             device=device,
             generator=generator,
         )
-    if name in NOT_PORTED or name.startswith("rdn"):
+    if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md queue 1, item 8: baselines)")
+    kw = {"attn_impl": cfg.attn_impl, "device": device, "generator": generator}
+    if name == "im2grid":
+        from smilecode_tpu_torch.models.im2grid import Im2grid
+
+        return Im2grid(**kw)
+    if name == "vtn":
+        from smilecode_tpu_torch.models.rcn import build_vtn
+
+        return build_vtn(**kw)
+    if name == "rcn":
+        from smilecode_tpu_torch.models.rcn import RCN
+
+        return RCN(n_cascade=getattr(cfg, "n_cascade", 10), **kw)
+    if name.startswith("rdn"):
+        from smilecode_tpu_torch.models.rdn import RDN
+
+        # reference train config: stages=4, levels=[4,4,4,4]
+        return RDN(stages=getattr(cfg, "stages", 4),
+                   levels=tuple(getattr(cfg, "levels", (4, 4, 4, 4))),
+                   share_weights="share" in name, diff="diff" in name,
+                   dropout_rate=getattr(cfg, "dropout_rate", 0.0), **kw)
     raise ValueError(f"unknown model {name!r}")
 
 
@@ -76,7 +101,11 @@ def loss_plan(name: str) -> LossPlan:
     name = name.lower()
     if name in MODET_NAMES:
         return LossPlan(("ncc", "grad_l2"))  # (moved, flow): NCC + L2 diffusion
-    if name in NOT_PORTED or name.startswith("rdn"):
+    if name in BASELINE_NAMES or name.startswith("rdn"):
+        raise NotImplementedError(
+            f"training {name!r} is not ported yet (ROADMAP.md queue 1, item 8: training of "
+            "the baselines); the port runs its inference")
+    if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported yet (ROADMAP.md queue 1, item 8: baselines)")
     raise ValueError(f"unknown model {name!r}")

@@ -3,7 +3,10 @@
 Counterpart of `smilecode_tpu/ops/blocks.py`: ConvBlock (Conv3d +
 LeakyReLU(0.1)) and ConvInsBlock (+InstanceNorm3d). Each block owns its
 conv as ``main`` so the `state_dict` keys are the reference's
-(``encoder.conv0_0.main.weight``).
+(``encoder.conv0_0.main.weight``). The JAX package's bare ``Conv3d``,
+``ConvTranspose3d`` (k4 s2 p0, then cropped by the caller) and ``Dense`` are
+``nn.Conv3d``, ``nn.ConvTranspose3d`` and ``nn.Linear`` here, applied to
+NDHWC tensors by `conv3d_ndhwc`; ``normal_init`` is `normal_`.
 
 Convolutions run as ``nn.Conv3d`` on ``x.permute(0, 4, 1, 2, 3)``: a
 contiguous NDHWC tensor permuted that way is ``channels_last_3d`` memory, so
@@ -36,15 +39,39 @@ def normal_(param: torch.Tensor, stddev: float, generator: torch.Generator | Non
         param.copy_(vals)
 
 
-def reset_conv_(conv: nn.Conv3d, generator: torch.Generator | None):
-    fan_in = conv.in_channels * conv.kernel_size[0] * conv.kernel_size[1] * conv.kernel_size[2]
+def reset_conv_(conv: nn.Conv3d | nn.ConvTranspose3d, generator: torch.Generator | None):
+    """Torch-default init. Torch takes the fan-in from the weight's second
+    axis: Cin·k³ for a Conv3d (Cout, Cin, k, k, k), Cout·k³ for a
+    ConvTranspose3d (Cin, Cout, k, k, k), as `smilecode_tpu/ops/blocks.py:128`."""
+    fan_in = conv.weight.shape[1] * conv.kernel_size[0] * conv.kernel_size[1] * conv.kernel_size[2]
     torch_uniform_(conv.weight, fan_in, generator)
     if conv.bias is not None:
         torch_uniform_(conv.bias, fan_in, generator)
 
 
-def conv3d_ndhwc(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``conv`` to an NDHWC tensor; returns NDHWC."""
+def reset_torch_default_(model: nn.Module, generator: torch.Generator | None):
+    """Torch-default init of every conv, transposed conv and linear layer of
+    ``model``, in module order."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+            reset_conv_(m, generator)
+        elif isinstance(m, nn.Linear):
+            torch_uniform_(m.weight, m.in_features, generator)
+            torch_uniform_(m.bias, m.in_features, generator)
+
+
+def channels_last_convs_(model: nn.Module):
+    """Store every conv weight as channels_last_3d: the NDHWC activations
+    permuted by `conv3d_ndhwc` are channels_last_3d, so cuDNN takes both
+    without a copy."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
+            m.to(memory_format=torch.channels_last_3d)
+
+
+def conv3d_ndhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Apply ``conv`` (a Conv3d, ConvTranspose3d or a Sequential of them)
+    to an NDHWC tensor; returns NDHWC."""
     return conv(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
 
 

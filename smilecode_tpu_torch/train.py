@@ -91,7 +91,7 @@ def make_train_step(model, plan, optimizer, weights):
 def make_eval_step(model):
     @torch.no_grad()
     def eval_step(x, y, x_seg, y_seg):
-        _, flow = model(x, y)
+        flow = model(x, y)[1]  # (moved, flow, *aux)
         warped_seg = warp(x_seg.float(), flow, mode="nearest")
         return dice_val_voi(warped_seg.to(torch.int32), y_seg.to(torch.int32)), flow
 
@@ -104,7 +104,7 @@ def _resume(cfg, exp_dir, model, optimizer):
     if not ckpt:
         return cfg.epoch_start, 0.0
     state = load_checkpoint(ckpt)
-    model.load_state_dict(state_dict_from_jax(state["params"]), strict=True)
+    model.load_state_dict(state_dict_from_jax(state["params"], model), strict=True)
     opt_state = state.get("opt_state")
     if isinstance(opt_state, dict) and _PORT_OPT_KEYS <= opt_state.keys():
         optimizer.load_state_by_name(model.named_parameters(), opt_state)
@@ -198,7 +198,7 @@ def _train(cfg: TrainConfig, exp_dir: str, metrics: MetricsWriter, f):
         save_checkpoint(
             {
                 "epoch": epoch + 1,
-                "params": params_from_state_dict(model.state_dict()),
+                "params": params_from_state_dict(model.state_dict(), model),
                 "best_dsc": best_dsc,
                 "opt_state": optimizer.state_by_name(model.named_parameters()),
                 "config": dict(cfg.__dict__),

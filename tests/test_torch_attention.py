@@ -16,7 +16,9 @@ import jax
 import jax.numpy as jnp
 
 from smilecode_tpu.kernels.modet_attn import modet_attention_pallas
+from smilecode_tpu.models.im2grid import cotr as jax_cotr
 from smilecode_tpu.ops.attention import _neighborhood_attention_xla
+from smilecode_tpu.ops.attention import neighborhood_attention_3d as jax_neighborhood_attention_3d
 from smilecode_tpu.ops.attention import offset_grid as jax_offset_grid
 from smilecode_tpu_torch.kernels.modet_attn import (
     modet_attention,
@@ -26,6 +28,7 @@ from smilecode_tpu_torch.kernels.modet_attn import (
     modet_attention_bwd_plain,
     modet_attention_plain,
 )
+from smilecode_tpu_torch.models.im2grid import cotr
 from smilecode_tpu_torch.ops.attention import (
     KERNEL_SIZES,
     _neighborhood_attention_plain,
@@ -76,6 +79,22 @@ def test_plain_matches_jax_xla(shape, heads, scale, with_rpb):
     ref = _neighborhood_attention_xla(*to_jax(q, k, rpb), scale)
     out = _neighborhood_attention_plain(*to_torch(q, k, rpb), scale)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(4, 6, 5), (2, 3, 2), (5, 3, 4)])
+def test_cotr_matches_jax_pallas_interpret(shape):
+    """Im2grid's `cotr` (one head, head_dim 6, scale 1, no rpb: the case of
+    K1 it runs) vs JAX ``neighborhood_attention_3d(..., None,
+    impl="pallas")``, kernel A in interpret mode, and vs JAX `cotr`."""
+    rng = np.random.default_rng(15)
+    q, k = (rng.standard_normal((1, *shape, 6)).astype(np.float32) * 2 for _ in range(2))
+    ref = jax_neighborhood_attention_3d(*to_jax(q[..., None, :], k[..., None, :]), None,
+                                        scale=1.0, impl="pallas")
+    out = cotr(*to_torch(q, k))
+    assert out.shape == (1, *shape, 3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jax_cotr(*to_jax(q, k))), atol=TOL, rtol=0)
+    torch.testing.assert_close(cotr(*to_torch(q, k), impl="plain"), out, rtol=0, atol=0)
 
 
 def test_plain_kernel_size_5_matches_jax_xla():

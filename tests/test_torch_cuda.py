@@ -54,6 +54,7 @@ def rand(shape, seed, scale=1.0):
     ((4, 4, 4), 2, 1, 0.5, False),
     ((4, 5, 3), 2, 16, 0.25, True),
     ((3, 3, 3), 1, 32, 0.1, True),
+    ((10, 12, 10), 1, 6, 1.0, False),  # Im2grid's cotr
 ])
 def test_attention_kernel_matches_plain(dev, shape, heads, hd, scale, with_rpb):
     q, k = rand((2, *shape, heads, hd), 1), rand((2, *shape, heads, hd), 2)
@@ -78,6 +79,30 @@ def test_warp_kernel_matches_plain(dev, src_shape, flow_shape, c, amp):
     ref = warp3d_trilinear_plain(src, flow)
     before = warp3d_trilinear.launches
     out = warp3d_trilinear(src.to(dev), flow.to(dev))
+    torch.cuda.synchronize()
+    assert warp3d_trilinear.launches == before + 1
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5 * float(src.abs().max()))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "guarded", "auto"])
+@pytest.mark.parametrize("src_shape,flow_shape,c,amp", [
+    ((8, 10, 8), (8, 10, 8), 16, 2.0),
+    ((6, 7, 8), (6, 7, 8), 3, 20.0),
+    ((9, 11, 7), (5, 6, 4), 1, 1.0),  # shape-mismatch rescale
+])
+def test_warp_f_entries_launch_k2(dev, impl, src_shape, flow_shape, c, amp):
+    """``ops.warp(impl="pallas"|"guarded")``, kernel F's entries, launch K2
+    once per bilinear warp and match the plain version; nearest mode and
+    ``impl="simple"`` launch nothing."""
+    from smilecode_tpu_torch.ops.warp import warp
+
+    src = rand((1, *src_shape, c), 25)
+    flow = rand((1, *flow_shape, 3), 26, amp)
+    ref = warp3d_trilinear_plain(src, flow)
+    before = warp3d_trilinear.launches
+    out = warp(src.to(dev), flow.to(dev), impl=impl)
+    warp(src.to(dev), flow.to(dev), mode="nearest", impl=impl)
+    warp(src.to(dev), flow.to(dev), impl="simple")
     torch.cuda.synchronize()
     assert warp3d_trilinear.launches == before + 1
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5 * float(src.abs().max()))
@@ -119,6 +144,7 @@ def assert_scaled_close(got, want, what):
     ((4, 3, 5), 2, 1, 0.5, False),
     ((3, 5, 3), 2, 16, 0.25, True),
     ((3, 3, 3), 1, 32, 0.1, True),
+    ((6, 8, 5), 1, 6, 1.0, False),  # Im2grid's cotr
 ])
 def test_attention_backward_kernels_match_plain(dev, shape, heads, hd, scale, with_rpb):
     q, k = rand((2, *shape, heads, hd), 11), rand((2, *shape, heads, hd), 12)

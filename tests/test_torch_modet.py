@@ -148,9 +148,11 @@ def test_registry():
     assert model.attn_impl == "auto"
     assert build_model("modet", InferConfig(attn_impl="plain")).attn_impl == "plain"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("rdn-diff", cfg)
+        build_model("pcnet", cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("im2grid", cfg)
+        build_model("prnet++", cfg)
+    assert type(build_model("rdn-diff", InferConfig(stages=1, levels=(1, 1, 1, 1)))).__name__ == "RDN"
+    assert type(build_model("im2grid", cfg)).__name__ == "Im2grid"
     with pytest.raises(NotImplementedError, match="bf16"):
         build_model("modet", InferConfig(compute_dtype="bfloat16"))
     with pytest.raises(ValueError, match="unknown"):

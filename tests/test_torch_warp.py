@@ -1,7 +1,11 @@
 """Port warp (plain path) vs the JAX package: the v4 Pallas warp kernel in
 interpret mode on smooth flows within its window budget, and the naive
 gather oracle `_warp_simple` on every flow, including a wild one the TPU
-kernels' budgets could not take. The written-out adjoint
+kernels' budgets could not take. Kernel F's entries: the port's
+``warp(impl="pallas")`` vs JAX ``warp(impl="pallas")`` (F in interpret
+mode) on smooth flows within F's window, and ``impl="guarded"`` vs JAX
+``impl="guarded"`` on smooth and wild flows, with a shape mismatch; the
+mapping of the JAX impl names. The written-out adjoint
 (`warp3d_trilinear_bwd_plain`, K5's oracle) vs the VJPs of the JAX oracle and
 of JAX `ops.warp`, the v3 d_coords kernel in interpret mode, and torch
 autograd.
@@ -18,6 +22,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from smilecode_tpu.kernels.warp3d import warp_window_violations
 from smilecode_tpu.kernels.warp3d_v3 import warp3d_planes_v3_dflow
 from smilecode_tpu.kernels.warp3d_v4 import warp3d_planes_v4
 from smilecode_tpu.ops.warp import _warp_simple as jax_warp_simple
@@ -29,7 +34,8 @@ from smilecode_tpu_torch.kernels.warp3d import (
     warp3d_trilinear_bwd_plain,
     warp3d_trilinear_plain,
 )
-from smilecode_tpu_torch.ops.warp import _warp_simple, base_grid, warp
+from smilecode_tpu_torch.kernels import warp3d as port_warp3d
+from smilecode_tpu_torch.ops.warp import IMPLS, KERNEL_IMPLS, _warp_simple, base_grid, warp
 
 torch.set_num_threads(1)
 TOL = 1e-5
@@ -226,4 +232,55 @@ def test_bad_shapes_raise():
     with pytest.raises(ValueError, match="batch"):
         warp(torch.zeros((2, 4, 4, 4, 1)), torch.zeros((1, 4, 4, 4, 3)))
     with pytest.raises(ValueError, match="impl"):
-        warp(torch.zeros((1, 4, 4, 4, 1)), torch.zeros((1, 4, 4, 4, 3)), impl="packed")
+        warp(torch.zeros((1, 4, 4, 4, 1)), torch.zeros((1, 4, 4, 4, 3)), impl="cuda")
+
+
+@pytest.mark.parametrize("src_shape,flow_shape,c,amp,freq", [
+    ((16, 16, 16), (16, 16, 16), 1, 0.8, 1),
+    ((12, 16, 12), (12, 16, 12), 3, 2.0, 2),
+    ((10, 12, 10), (10, 12, 10), 16, 1.5, 2),
+    ((13, 17, 11), (9, 12, 8), 2, 1.0, 1),  # shape mismatch: rescaled coordinates
+])
+def test_pallas_matches_jax_f_interpret(src_shape, flow_shape, c, amp, freq):
+    """F (`smilecode_tpu/kernels/warp3d.py:_warp_kernel`) in interpret mode
+    through JAX ``warp(impl="pallas")``, on smooth flows within its window."""
+    src, fl = source(src_shape, c, 31), smooth_flow(flow_shape, amp, freq)
+    assert float(warp_window_violations(jnp.asarray(fl), src_shape)) == 0.0
+    ref = np.asarray(jax_warp(jnp.asarray(src), jnp.asarray(fl), impl="pallas"))
+    out = warp(torch.from_numpy(src), torch.from_numpy(fl), impl="pallas")
+    assert out.shape == (1, *flow_shape, c)
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("src_shape,flow_shape,c,kind,amp", [
+    ((12, 16, 12), (12, 16, 12), 3, "smooth", 2.0),
+    ((12, 16, 12), (12, 16, 12), 1, "wild", 30.0),  # F would clamp: JAX takes its fallback
+    ((10, 12, 10), (10, 12, 10), 8, "wild", 12.0),
+    ((13, 17, 11), (9, 12, 8), 2, "smooth", 1.0),
+])
+def test_guarded_matches_jax_guarded(src_shape, flow_shape, c, kind, amp):
+    src = source(src_shape, c, 32)
+    fl = smooth_flow(flow_shape, amp, 2) if kind == "smooth" else wild_flow(flow_shape, amp, 33)
+    viol = float(warp_window_violations(jnp.asarray(fl), src_shape))
+    assert (viol > 0) == (kind == "wild")
+    ref = np.asarray(jax_warp(jnp.asarray(src), jnp.asarray(fl), impl="guarded"))
+    out = warp(torch.from_numpy(src), torch.from_numpy(fl), impl="guarded")
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+def test_impl_names_map_to_the_kernel_wrapper_or_plain(monkeypatch, impl, mode):
+    """"auto", "pallas" and "guarded" reach the K2 wrapper for a bilinear
+    warp (on the CPU: its plain version); the rest, and nearest mode, run
+    `_warp_simple`. Every name gives the same numbers on the CPU."""
+    calls = []
+    plain = port_warp3d.warp3d_trilinear_plain
+    monkeypatch.setattr(port_warp3d, "warp3d_trilinear_plain",
+                        lambda s, f: calls.append(1) or plain(s, f))
+    src = torch.from_numpy(source((5, 6, 7), 2, 34))
+    fl = torch.from_numpy(wild_flow((5, 6, 7), 3.0, 35))
+    out = warp(src, fl, mode=mode, impl=impl)
+    assert len(calls) == int(mode == "bilinear" and impl in KERNEL_IMPLS)
+    torch.testing.assert_close(out, _warp_simple(src, fl, mode), rtol=0, atol=0)
+    assert port_warp3d.warp3d_pallas is port_warp3d.warp3d_guarded is port_warp3d.warp3d_trilinear
