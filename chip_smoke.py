@@ -62,12 +62,45 @@ The baseline-serving slice (Im2grid, RCN, RDN):
    5 forwards each (kernels and plain alternating), the peak memory of
    each, and the top device operations of one kernel forward.
 
+The bf16 feature path (ModeT's ``compute_dtype="bfloat16"``):
+
+15. The bf16 instances of K1-K5 vs their bf16 plain versions at the five
+   attention level shapes and the four feature-warp shapes, smooth +-5 and
+   wild +-20 voxel flows: bf16 outputs within 2 bf16 ulps of the plain
+   output's largest magnitude, float32 outputs (drpb, d_flow) as the
+   float32 gates; CUDA-event ms of each beside its plain version, the f32
+   kernel at the same shapes and, for K2 and K5, `F.grid_sample` and its
+   backward.
+16. `infer.main` with ``compute_dtype=bfloat16`` on the phase-3 subjects and
+   checkpoint: exactly 5 bf16 K1 and 4 bf16 + 5 f32 K2 launches per pair;
+   the plain run launches nothing; Dice and fold beside the f32 run's.
+17. Forwards with excited seeded weights (tests/test_modet.py's recipe):
+   bf16 kernels, bf16 plain and f32 kernels. At 160x192x160 the kernels add
+   nothing beyond bf16's own noise (kernels vs plain no larger than plain vs
+   f32, mean and p99 of the flow endpoint error) and the moved image's p99
+   stays below 0.1; at 32^3, where tests/test_modet.py sets it, both bf16
+   forwards also pass the bf16-vs-f32 gate (mean < 0.06, p99 < 0.3 voxel).
+   Then ms per pair (median of 12, in turns) with peak memory, and a
+   profile of one bf16 kernel forward.
+18. `train.main` with ``compute_dtype=bfloat16`` (6 steps, 2 validation
+   pairs): per step exactly K1 5, K3 5, K4 5 (bf16), K2 4 bf16 + 5 f32, K5
+   4 bf16 + 5 f32 with 8 scatters (4 bf16), plus the validation forwards;
+   the plain run launches nothing and its first loss is within 1e-2.
+19. One bf16 training step, kernels vs plain: the loss within 1e-2, each
+   gradient within 5e-2 of its largest magnitude plus 1e-6 of the model's,
+   and no further from the plain bf16 gradient than that is from the f32
+   one; ms per step (median of 5) for bf16 kernels, bf16 plain and f32
+   kernels with peak memory, and a profile of one bf16 kernel step.
+
 Every failed check raises, so the exit code is non-zero; without a CUDA card
 it exits non-zero before printing any result. The kernels' JSON record lists
 K1-K5 with their launches in the training run of phase 8, then K1 as
 Im2grid runs it and K2 as kernel F's counterpart with their launches in the
-kernel runs of phase 13; the last two lines are that record and
-``{"ok": true, "device": {...}}``.
+kernel runs of phase 13, then the bf16 K1-K5 with their launches in the
+training run of phase 18; each with its bound (bytes or float32 operations
+at the card's published peaks) and, for K2 and K5, the time of
+`F.grid_sample` (forward or backward) on the same inputs. The last two
+lines are that record and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -101,6 +134,21 @@ N_VAL_SUBJECTS = 2
 N_TIMED_STEPS = 5
 RCN_SIZE = (128, 192, 128)  # the largest crop of 160x192x160 whose axes are multiples of 64
 N_TIMED_BASELINE = 5
+# the card's published peaks (H100 SXM, dense): HBM bytes/s and float32
+# operations/s outside the tensor cores; every kernel computes in float32,
+# its bf16 instances included, so float32 is their operations' type
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# the bf16 feature path
+BF16_TOL = 2.0 ** -7  # 2 bf16 ulps, times the plain output's largest magnitude
+BF16_FLOW_MEAN, BF16_FLOW_P99, BF16_MOVED_P99 = 0.06, 0.3, 0.1  # voxel, bf16 vs f32 (bench.py)
+BF16_STEP_LOSS_TOL = 1e-2  # relative, kernels vs plain bf16 step
+BF16_STEP_GRAD_TOL = 5e-2  # times each parameter's largest |gradient|
+EXCITE_STD, EXCITE_SEED = 0.1, 20  # tests/test_modet.py's excitation; tests/test_torch_bf16.py's seed
+GATE_SHAPE = (32, 32, 32)  # where tests/test_modet.py sets the bf16-vs-f32 gate
+# ModeT's feature warps on the bf16 path: (what, channels, level)
+FEATURE_WARPS = [("level4 features", 64, 4), ("level3 features", 32, 3),
+                 ("level2 features", 16, 2), ("level1 features", 8, 1)]
 # (model, volume size, K1 and K2 launches per pair), derived from the JAX
 # modules (`smilecode_tpu/models/`): Im2grid runs `cotr` at 5 levels and
 # warps the features and composes the flow at levels 4..1 plus the moved
@@ -155,6 +203,90 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) and do
+    ``ops`` float32 operations, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_work(kernel: str, voxels: int, heads: int, hd: int, isz: int, with_rpb=True):
+    """(bytes, float32 operations) of one attention kernel call on ``voxels``
+    voxels of ``heads`` heads with ``isz``-byte q and k (K1 forward, K3 dq/dl/
+    drpb partials, K4 dk). Operations per (voxel, head): 27 tokens of a
+    head_dim dot product (2*hd), the bias add, exp and the online softmax
+    (~10); K3 adds the dl arithmetic and the dq contraction (2*hd + 6); K4
+    is the 27-token dk contraction alone."""
+    rows = voxels * heads
+    rpb = heads * 27 * 4 if with_rpb else 0
+    if kernel == "K1":
+        return rows * (2 * hd + 3) * isz + rpb, rows * (27 * (2 * hd + 10) + 3)
+    if kernel == "K3":
+        parts = -(-rows // 256) * heads * 27 * 4 if with_rpb else 0
+        return (rows * (3 * hd + 3 + 27) * isz + rpb + parts,
+                rows * 27 * (4 * hd + 16))
+    return rows * (2 * hd + 27) * isz, rows * 27 * 2 * hd  # K4
+
+
+def warp_work(kernel: str, src_voxels: int, voxels: int, c: int, isz: int, scatter=False):
+    """(bytes, float32 operations) of one warp kernel call: K2 reads the
+    source once, the float32 flow and writes C values per output voxel; K5
+    also reads g and writes the float32 d_flow, and d_src when it scatters.
+    Operations per output voxel: ~40 for coordinates and corner weights, 8
+    corners x C multiply-adds (K2); K5 the same plus the derivative
+    coefficients, and 8 x C more for the scatter."""
+    if kernel == "K2":
+        return src_voxels * c * isz + voxels * (12 + c * isz), voxels * (40 + 16 * c)
+    nbytes = src_voxels * c * isz * (2 if scatter else 1) + voxels * (24 + c * isz)
+    return nbytes, voxels * (60 + 16 * c * (2 if scatter else 1))
+
+
+def grid_sample_args(src, flow, requires_grad=False):
+    """`F.grid_sample`'s input (N, C, D, H, W) and normalised (x, y, z) grid
+    for the warp of ``src`` by ``flow`` (align_corners=True, zeros outside):
+    the library call that computes K2's function, in src's dtype."""
+    import torch
+
+    fd, fh, fw = flow.shape[1:4]
+    axes = [torch.arange(n, dtype=torch.float32, device=flow.device) for n in (fd, fh, fw)]
+    coords = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1) + flow
+    size = torch.tensor([max(n - 1, 1) for n in (fd, fh, fw)], dtype=torch.float32,
+                        device=flow.device)
+    grid = (2 * coords / size - 1).flip(-1).to(src.dtype).contiguous()
+    inp = src.permute(0, 4, 1, 2, 3).contiguous()
+    return inp.requires_grad_(requires_grad), grid.requires_grad_(requires_grad)
+
+
+def library_warp_ms(src, flow, g=None, want_dsrc=True, iters=10):
+    """CUDA-event ms of `F.grid_sample` on (src, flow), or with ``g`` of its
+    backward (d_input only when ``want_dsrc``, and d_grid); a bf16 source
+    takes a bf16 grid, which grid_sample requires. Timed here as a
+    yardstick only: the port never calls it. None when this torch build has
+    no such call for src's dtype."""
+    try:
+        return _library_warp_ms(src, flow, g, want_dsrc, iters)
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"  F.grid_sample on {src.dtype}: not available ({str(e).splitlines()[0]})")
+        return None
+
+
+def _library_warp_ms(src, flow, g, want_dsrc, iters):
+    import torch
+    import torch.nn.functional as F
+
+    inp, grid = grid_sample_args(src, flow)
+    if g is None:
+        return event_ms(lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                                              align_corners=True), iters)
+    inp.requires_grad_(want_dsrc)
+    grid.requires_grad_()
+    out = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    gl = g.permute(0, 4, 1, 2, 3).contiguous()
+    wrt = (inp, grid) if want_dsrc else (grid,)
+    return event_ms(lambda: torch.autograd.grad(out, wrt, gl, retain_graph=True), iters)
+
+
 def level_shape(level: int, size=SIZE):
     f = 2 ** (level - 1)
     return tuple(s // f for s in size)
@@ -181,15 +313,17 @@ def smooth_flow(shape, amp, device):
 
 def check_attention(device, size=SIZE, timed=True, num_heads=NUM_HEADS, with_rpb=True):
     """K1 vs plain at every level shape (heads per level 5..1, with or
-    without rpb); returns (max_err, ms, plain_ms) per pair."""
+    without rpb); returns (max_err, ms, plain_ms, (bytes, operations)) per
+    pair."""
     import torch
 
     from smilecode_tpu_torch.kernels.modet_attn import modet_attention, modet_attention_plain
 
     rng = np.random.default_rng(1)
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, work = 0.0, 0.0, 0.0, np.zeros(2)
     for level, heads in zip((5, 4, 3, 2, 1), num_heads):
         shape = (1, *level_shape(level, size), heads, HEAD_DIM)
+        work += attn_work("K1", int(np.prod(shape[1:4])), heads, HEAD_DIM, 4, with_rpb)
         q = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
         k = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
         rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(
@@ -209,12 +343,13 @@ def check_attention(device, size=SIZE, timed=True, num_heads=NUM_HEADS, with_rpb
             ms, plain_ms = ms + t, plain_ms + tp
             line += f", kernel {t:.4f} ms, plain {tp:.4f} ms"
         print(line, flush=True)
-    return worst, ms, plain_ms
+    return worst, ms, plain_ms, tuple(work)
 
 
 def check_warp(device, size=SIZE, timed=True):
     """K2 vs plain at the pair's warp shapes, smooth and wild flows;
-    returns (max_err, ms, plain_ms) summed over the nine calls of a pair."""
+    returns (max_err, ms, plain_ms, grid_sample ms, (bytes, operations))
+    summed over the nine calls of a pair (smooth flows)."""
     import torch
 
     from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_plain
@@ -241,21 +376,26 @@ def check_warp(device, size=SIZE, timed=True):
             if timed:
                 t = event_ms(lambda: warp3d_trilinear(src, flow), 20)
                 tp = event_ms(lambda: warp3d_trilinear_plain(src, flow), 5)
-                line += f", kernel {t:.4f} ms, plain {tp:.4f} ms"
+                lib = library_warp_ms(src, flow)
+                line += f", kernel {t:.4f} ms, plain {tp:.4f} ms, F.grid_sample {lib:.4f} ms"
                 if name.startswith("smooth"):
-                    times[key] = (t, tp)
+                    times[key] = (t, tp, lib)
             print(line, flush=True)
-        times.setdefault(key, (0.0, 0.0))
-    ms = sum(times[(c, level)][0] for _, c, level in warp_calls())
-    plain_ms = sum(times[(c, level)][1] for _, c, level in warp_calls())
-    return worst, ms, plain_ms
+        times.setdefault(key, (0.0, 0.0, 0.0))
+    calls = [(c, level) for _, c, level in warp_calls()]
+    ms, plain_ms, lib_ms = (sum(times[k][i] for k in calls) for i in range(3))
+    work = np.zeros(2)
+    for c, level in calls:
+        vox = int(np.prod(level_shape(level, size)))
+        work += warp_work("K2", vox, vox, c, 4)
+    return worst, ms, plain_ms, lib_ms, tuple(work)
 
 
 def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_HEADS)),
                         with_rpb=True):
     """K3, K4 vs their plain versions at every level shape; returns
-    {kernel: (max_err, ms, plain_ms)} with times summed over the five calls
-    of a training step.
+    {kernel: (max_err, ms, plain_ms, (bytes, operations))} summed over the
+    five calls of a training step.
 
     Tolerances: dq, dl and dk within BWD_TOL of the plain version's largest
     magnitude (27-term float32 sums in another order). drpb sums dl_t over
@@ -274,9 +414,11 @@ def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_
     )
 
     rng = np.random.default_rng(5)
-    res = {"K3": [0.0, 0.0, 0.0], "K4": [0.0, 0.0, 0.0]}
+    res = {"K3": [0.0, 0.0, 0.0, np.zeros(2)], "K4": [0.0, 0.0, 0.0, np.zeros(2)]}
     for level, heads in specs:
         shape = (1, *level_shape(level, size), heads, HEAD_DIM)
+        for key in res:
+            res[key][3] += attn_work(key, int(np.prod(shape[1:4])), heads, HEAD_DIM, 4, with_rpb)
         q, k = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
                 for _ in range(2))
         rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(
@@ -307,29 +449,30 @@ def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_
         p4 = event_ms(lambda: modet_attention_bwd_dk_plain(q, p_dl, 1.0), 3)
         k3_err = max(e for n, (e, _) in errs.items() if n != "dk")
         for key, err, t, tp in (("K3", k3_err, t3, p3), ("K4", errs["dk"][0], t4, p4)):
-            res[key] = [max(res[key][0], err), res[key][1] + t, res[key][2] + tp]
+            res[key][:3] = [max(res[key][0], err), res[key][1] + t, res[key][2] + tp]
         print(f"K3/K4 attention bwd level {level} q,k {shape}, rpb "
               f"{'yes' if with_rpb else 'none'}: max_abs_err "
               + ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in errs.items())
               + f"; K3 {t3:.4f} ms (plain {p3:.4f}), K4 {t4:.4f} ms (plain {p4:.4f})", flush=True)
         del q, k, g, dq, dl, part, p_dq, p_dl, p_drpb, dk, p_dk, checks
         torch.cuda.empty_cache()
-    return {key: tuple(v) for key, v in res.items()}
+    return {key: (*v[:3], tuple(v[3])) for key, v in res.items()}
 
 
 def check_warp_f(device):
     """K2 through kernel F's entries, ``ops.warp(impl="pallas" | "guarded")``,
     vs plain at `F_CASES`, smooth and wild flows; exactly one launch per
-    call. Returns (max_err, ms, plain_ms), times summed over the smooth
-    cases of "pallas", one call each."""
+    call. Returns (max_err, ms, plain_ms, grid_sample ms, (bytes,
+    operations)), summed over the smooth cases of "pallas", one call each."""
     import torch
 
     from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_plain
     from smilecode_tpu_torch.ops.warp import warp
 
     rng = np.random.default_rng(8)
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, lib_ms, work = 0.0, 0.0, 0.0, 0.0, np.zeros(2)
     for what, src_shape, flow_shape, c in F_CASES:
+        work += warp_work("K2", int(np.prod(src_shape)), int(np.prod(flow_shape)), c, 4)
         src = torch.from_numpy(rng.standard_normal((1, *src_shape, c), dtype=np.float32)).to(device)
         flows = {"smooth +-5": smooth_flow(flow_shape, 5.0, device),
                  "wild +-20": torch.from_numpy(
@@ -351,12 +494,211 @@ def check_warp_f(device):
                 line += f" {impl} max_abs_err {err:.3e}"
             t = event_ms(lambda: warp(src, flow, impl="pallas"), 20)
             tp = event_ms(lambda: warp3d_trilinear_plain(src, flow), 5)
+            lib = library_warp_ms(src, flow)
             if name.startswith("smooth"):
-                ms, plain_ms = ms + t, plain_ms + tp
-            print(f"{line} (tol {tol:.3e}), kernel {t:.4f} ms, plain {tp:.4f} ms", flush=True)
+                ms, plain_ms, lib_ms = ms + t, plain_ms + tp, lib_ms + lib
+            print(f"{line} (tol {tol:.3e}), kernel {t:.4f} ms, plain {tp:.4f} ms, F.grid_sample "
+                  f"{lib:.4f} ms", flush=True)
         del src, flows, ref, out
         torch.cuda.empty_cache()
-    return worst, ms, plain_ms
+    return worst, ms, plain_ms, lib_ms, tuple(work)
+
+
+def fmt_ms(t):
+    return "n/a" if t is None else f"{t:.4f}"
+
+
+def bf16_err(out, ref, what):
+    """max |out - ref| of two bf16 (or float32) tensors, in float32, held to
+    2 bf16 ulps of ref's largest magnitude; returns (err, tol)."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    require(bool(torch.isfinite(out).all()), f"{what}: not finite")
+    err, tol = float((out - ref).abs().max()), BF16_TOL * float(ref.abs().max())
+    require(err <= tol, f"{what}: max abs err {err} > {tol}")
+    return err, tol
+
+
+def check_bf16_kernels(device):
+    """Phase 15: the bf16 instances of K1-K5 against their bf16 plain
+    versions, at the five attention level shapes (K1, K3, K4) and the four
+    feature-warp shapes (K2, K5), smooth +-5 and wild +-20 voxel flows.
+    bf16 outputs (K1 out, K2 out, K3 dq and dl, K4 dk, K5 d_src) within 2 bf16
+    ulps of the plain output's largest magnitude; float32 outputs as the
+    float32 gates (K5 d_flow BWD_TOL, drpb DRPB_TOL of the largest sum_x|dl_t|).
+    Times per pair (K1, K2) or per training step (K3, K4, K5) over the bf16
+    calls of the path, on the smooth flows: the kernel, its plain version,
+    the float32 kernel at the same shapes and, for K2 and K5,
+    `F.grid_sample` and its backward on the bf16 source. Returns
+    {kernel: dict(err, ms, plain_ms, f32_ms, library_ms, work)}."""
+    import torch
+
+    from smilecode_tpu_torch.kernels.modet_attn import (
+        modet_attention,
+        modet_attention_bwd_dk,
+        modet_attention_bwd_dk_plain,
+        modet_attention_bwd_dq,
+        modet_attention_bwd_dq_plain,
+        modet_attention_plain,
+    )
+    from smilecode_tpu_torch.kernels.warp3d import (
+        warp3d_trilinear,
+        warp3d_trilinear_bwd,
+        warp3d_trilinear_bwd_plain,
+        warp3d_trilinear_plain,
+    )
+
+    bf16 = torch.bfloat16
+    res = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "f32_ms": 0.0, "library_ms": None,
+               "work": np.zeros(2)} for k in ("K1", "K2", "K3", "K4", "K5")}
+
+    def add(key, err, t, tp, t32, lib=None):
+        r = res[key]
+        r["err"] = max(r["err"], err)
+        r["ms"], r["plain_ms"], r["f32_ms"] = r["ms"] + t, r["plain_ms"] + tp, r["f32_ms"] + t32
+        if lib is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib
+
+    rng = np.random.default_rng(10)
+    for level, heads in zip((5, 4, 3, 2, 1), NUM_HEADS):
+        shape = (1, *level_shape(level), heads, HEAD_DIM)
+        vox = int(np.prod(shape[1:4]))
+        q32, k32 = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+                    for _ in range(2))
+        rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(device)
+        g32 = torch.from_numpy(rng.standard_normal((*shape[:4], heads * 3),
+                                                   dtype=np.float32)).to(device)
+        q, k, g = q32.to(bf16), k32.to(bf16), g32.to(bf16)
+        out = modet_attention(q, k, rpb, 1.0)
+        require(out.dtype == bf16, f"K1 bf16 level {level}: output {out.dtype}")
+        e1 = bf16_err(out, modet_attention_plain(q, k, rpb, 1.0), f"K1 bf16 level {level}")
+        dq, dl, part = modet_attention_bwd_dq(q, k, rpb, 1.0, g)
+        p_dq, p_dl, p_drpb = modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g)
+        require(dq.dtype == dl.dtype == bf16 and part.dtype == torch.float32,
+                f"K3 bf16 level {level}: dtypes {dq.dtype}, {dl.dtype}, {part.dtype}")
+        e_dq = bf16_err(dq, p_dq, f"K3 bf16 level {level} dq")
+        e_dl = bf16_err(dl, p_dl, f"K3 bf16 level {level} dl")
+        drpb = part.sum(0).reshape(heads, 3, 3, 3)
+        e_drpb = float((drpb - p_drpb).abs().max())
+        drpb_tol = DRPB_TOL * float(p_dl.float().abs().sum(dim=(0, 1, 2, 3)).max())
+        require(e_drpb <= drpb_tol, f"K3 bf16 level {level} drpb: {e_drpb} > {drpb_tol}")
+        e_dk = bf16_err(modet_attention_bwd_dk(q, p_dl, 1.0), modet_attention_bwd_dk_plain(q, p_dl, 1.0),
+                        f"K4 bf16 level {level} dk")
+        p_dl32 = p_dl.float()
+        times = {
+            "K1": (event_ms(lambda: modet_attention(q, k, rpb, 1.0), 20),
+                   event_ms(lambda: modet_attention_plain(q, k, rpb, 1.0), 2),
+                   event_ms(lambda: modet_attention(q32, k32, rpb, 1.0), 10)),
+            "K3": (event_ms(lambda: modet_attention_bwd_dq(q, k, rpb, 1.0, g), 10),
+                   event_ms(lambda: modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g), 2),
+                   event_ms(lambda: modet_attention_bwd_dq(q32, k32, rpb, 1.0, g32), 10)),
+            "K4": (event_ms(lambda: modet_attention_bwd_dk(q, p_dl, 1.0), 10),
+                   event_ms(lambda: modet_attention_bwd_dk_plain(q, p_dl, 1.0), 2),
+                   event_ms(lambda: modet_attention_bwd_dk(q32, p_dl32, 1.0), 10)),
+        }
+        errs = {"K1": e1[0], "K3": max(e_dq[0], e_dl[0], e_drpb), "K4": e_dk[0]}
+        for key, (t, tp, t32) in times.items():
+            add(key, errs[key], t, tp, t32)
+            res[key]["work"] += attn_work(key, vox, heads, HEAD_DIM, 2)
+        print(f"bf16 K1/K3/K4 level {level} q,k {shape}: max_abs_err out {e1[0]:.3e} (tol "
+              f"{e1[1]:.3e}), dq {e_dq[0]:.3e} ({e_dq[1]:.3e}), dl {e_dl[0]:.3e} ({e_dl[1]:.3e}), "
+              f"drpb {e_drpb:.3e} ({drpb_tol:.3e}), dk {e_dk[0]:.3e} ({e_dk[1]:.3e}); ms bf16 / "
+              f"plain bf16 / f32 kernel: " + ", ".join(
+                  f"{key} {t:.4f} / {tp:.4f} / {t32:.4f}" for key, (t, tp, t32) in times.items()),
+              flush=True)
+        del q, k, g, q32, k32, g32, out, dq, dl, part, p_dq, p_dl, p_drpb, p_dl32
+        torch.cuda.empty_cache()
+
+    for what, c, level in FEATURE_WARPS:
+        shape = level_shape(level)
+        vox = int(np.prod(shape))
+        src32 = torch.from_numpy(rng.standard_normal((1, *shape, c), dtype=np.float32)).to(device)
+        g32 = torch.from_numpy(rng.standard_normal((1, *shape, c), dtype=np.float32)).to(device)
+        src, g = src32.to(bf16), g32.to(bf16)
+        flows = {"smooth +-5": smooth_flow(shape, 5.0, device),
+                 "wild +-20": torch.from_numpy(
+                     rng.uniform(-20, 20, (1, *shape, 3)).astype(np.float32)).to(device)}
+        for name, flow in flows.items():
+            line = f"bf16 K2/K5 {what} C={c} {shape} {name}:"
+            out = warp3d_trilinear(src, flow)
+            require(out.dtype == bf16, f"{line} K2 output {out.dtype}")
+            e2 = bf16_err(out, warp3d_trilinear_plain(src, flow), f"{line} K2")
+            d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, True)
+            p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, True)
+            require(d_src.dtype == bf16 and d_flow.dtype == torch.float32,
+                    f"{line} K5 dtypes {d_src.dtype}, {d_flow.dtype}")
+            e_src = bf16_err(d_src, p_src, f"{line} K5 d_src")
+            e_flow = float((d_flow - p_flow).abs().max())
+            flow_tol = BWD_TOL * float(p_flow.abs().max())
+            require(e_flow <= flow_tol, f"{line} K5 d_flow: {e_flow} > {flow_tol}")
+            line += (f" max_abs_err out {e2[0]:.3e} (tol {e2[1]:.3e}), d_src {e_src[0]:.3e} "
+                     f"({e_src[1]:.3e}), d_flow {e_flow:.3e} ({flow_tol:.3e})")
+            t2 = (event_ms(lambda: warp3d_trilinear(src, flow), 20),
+                  event_ms(lambda: warp3d_trilinear_plain(src, flow), 2),
+                  event_ms(lambda: warp3d_trilinear(src32, flow), 10),
+                  library_warp_ms(src, flow))
+            t5 = (event_ms(lambda: warp3d_trilinear_bwd(src, flow, g, True), 10),
+                  event_ms(lambda: warp3d_trilinear_bwd_plain(src, flow, g, True), 2),
+                  event_ms(lambda: warp3d_trilinear_bwd(src32, flow, g32, True), 10),
+                  library_warp_ms(src, flow, g, True))
+            print(f"{line}; ms bf16 / plain bf16 / f32 kernel / F.grid_sample bf16: K2 "
+                  + " / ".join(map(fmt_ms, t2)) + ", K5 with d_src " + " / ".join(map(fmt_ms, t5)),
+                  flush=True)
+            if name.startswith("smooth"):
+                add("K2", e2[0], *t2)
+                add("K5", max(e_src[0], e_flow), *t5)
+            else:
+                for key, err in (("K2", e2[0]), ("K5", max(e_src[0], e_flow))):
+                    res[key]["err"] = max(res[key]["err"], err)
+        res["K2"]["work"] += warp_work("K2", vox, vox, c, 2)
+        res["K5"]["work"] += warp_work("K5", vox, vox, c, 2, scatter=True)
+        del src, g, src32, g32, flows, out, d_src, d_flow, p_src, p_flow
+        torch.cuda.empty_cache()
+    return res
+
+
+def excited_model(device, attn_impl="auto", compute_dtype="", seed=EXCITE_SEED):
+    """Full-width ModeT from ``seed`` with EXCITE_STD * N(0, 1) from numpy
+    seed ``seed + 1`` added to the projection kernels and the rpb, so that
+    the flows are not near zero and bf16's effect on them is measurable:
+    tests/test_modet.py's recipe, and the weights of
+    tests/test_torch_bf16.py's 32^3 forward."""
+    import torch
+
+    from smilecode_tpu_torch.models import ModeT
+
+    model = ModeT(channels=4, head_dim=HEAD_DIM, num_heads=NUM_HEADS, qk_scale=1.0,
+                  attn_impl=attn_impl, compute_dtype=compute_dtype, device=device,
+                  generator=torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("proj.weight", "rpb")):
+                p.add_(torch.from_numpy(EXCITE_STD * rng.standard_normal(p.shape).astype(np.float32))
+                       .to(device))
+    return model.eval()
+
+
+def blob_vol(shape, seed, device):
+    """(1, D, H, W, 1) sum of 30 random Gaussian blobs in [0, 1]
+    (tests/test_modet.py, tests/test_torch_bf16.py)."""
+    import torch
+
+    g = np.stack(np.meshgrid(*[np.arange(s) for s in shape], indexing="ij"), -1)
+    r = np.random.default_rng(seed)
+    v = np.zeros(shape, np.float32)
+    for _ in range(30):
+        c, s, a = r.uniform(4, max(shape) - 4, 3), r.uniform(2, 6), r.uniform(0.3, 1.0)
+        v += a * np.exp(-np.sum((g - c) ** 2, -1) / (2 * s * s))
+    v = ((v - v.min()) / (v.max() - v.min())).astype(np.float32)
+    return torch.from_numpy(v[None, ..., None]).to(device)
+
+
+def flow_gap(a, b):
+    """(mean, p99) of |a - b| over every flow component (bench.py's gate)."""
+    err = (a - b).abs().flatten().cpu().numpy()
+    return float(err.mean()), float(np.percentile(err, 99))
 
 
 def seeded_baseline(name, device, attn_impl="auto"):
@@ -385,8 +727,9 @@ def check_warp_bwd(device, size=SIZE):
     """K5 vs its plain version at the pair's warp shapes, smooth and wild
     flows; d_flow within BWD_TOL of the plain version's largest |d_flow|,
     d_src (an atomic scatter, order-dependent) within BWD_TOL of its largest
-    |d_src|. Returns (max_err, ms, plain_ms) per training step: eight warps
-    with the scatter, the moved image's without (on the smooth flows)."""
+    |d_src|. Returns (max_err, ms, plain_ms, grid_sample backward ms,
+    (bytes, operations)) per training step: eight warps with the scatter,
+    the moved image's without (on the smooth flows)."""
     import torch
 
     from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear_bwd, warp3d_trilinear_bwd_plain
@@ -418,17 +761,25 @@ def check_warp_bwd(device, size=SIZE):
                 line += f" {what_} max_abs_err {err:.3e} (tol {tol:.3e})"
             t = event_ms(lambda: warp3d_trilinear_bwd(src, flow, g, want_dsrc), 10)
             tp = event_ms(lambda: warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc), 3)
-            line += f"; {'with' if want_dsrc else 'without'} d_src {t:.4f} ms (plain {tp:.4f})"
+            lib = library_warp_ms(src, flow, g, want_dsrc)
+            line += (f"; {'with' if want_dsrc else 'without'} d_src {t:.4f} ms (plain {tp:.4f}, "
+                     f"F.grid_sample backward {lib:.4f})")
             if name.startswith("smooth"):
-                times[key] = (t, tp)
+                times[key] = (t, tp, lib)
             print(line, flush=True)
         del src, g, flows, d_src, d_flow, p_src, p_flow
         torch.cuda.empty_cache()
     keys = [(c, level, what != "moved image") for what, c, level in warp_calls()]
-    return worst, sum(times[k][0] for k in keys), sum(times[k][1] for k in keys)
+    work = np.zeros(2)
+    for c, level, scatter in keys:
+        vox = int(np.prod(level_shape(level, size)))
+        work += warp_work("K5", vox, vox, c, 4, scatter)
+    return (worst, *(sum(times[k][i] for k in keys) for i in range(3)), tuple(work))
 
 
 def launch_counts():
+    """Each kernel's launches since the last reset, and those of its bf16
+    instance ("K1 bf16", ...)."""
     from smilecode_tpu_torch.kernels.modet_attn import (
         modet_attention,
         modet_attention_bwd_dk,
@@ -436,9 +787,14 @@ def launch_counts():
     )
     from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_bwd
 
-    return {"K1": modet_attention.launches, "K2": warp3d_trilinear.launches,
-            "K3": modet_attention_bwd_dq.launches, "K4": modet_attention_bwd_dk.launches,
-            "K5": warp3d_trilinear_bwd.launches, "K5 d_src": warp3d_trilinear_bwd.scatters}
+    counters = {"K1": (modet_attention, "launches"), "K2": (warp3d_trilinear, "launches"),
+                "K3": (modet_attention_bwd_dq, "launches"),
+                "K4": (modet_attention_bwd_dk, "launches"),
+                "K5": (warp3d_trilinear_bwd, "launches"),
+                "K5 d_src": (warp3d_trilinear_bwd, "scatters")}
+    out = {k: getattr(fn, what) for k, (fn, what) in counters.items()}
+    out.update({f"{k} bf16": getattr(fn, f"{what}_bf16") for k, (fn, what) in counters.items()})
+    return out
 
 
 def reset_launch_counts():
@@ -451,11 +807,11 @@ def reset_launch_counts():
 
     for fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk,
                warp3d_trilinear, warp3d_trilinear_bwd):
-        fn.launches = 0
-    warp3d_trilinear_bwd.scatters = 0
+        fn.launches = fn.launches_bf16 = 0
+    warp3d_trilinear_bwd.scatters = warp3d_trilinear_bwd.scatters_bf16 = 0
 
 
-def run_train(train_dir, val_dir, root, attn_impl="auto"):
+def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype=""):
     """train.main for one epoch; returns (best_dsc, exp_dir, step losses,
     launch counts, seconds)."""
     import torch
@@ -465,7 +821,7 @@ def run_train(train_dir, val_dir, root, attn_impl="auto"):
 
     cfg = TrainConfig(train_dir=train_dir, val_dir=val_dir, max_epoch=1, attn_impl=attn_impl,
                       save_root=os.path.join(root, "experiments"),
-                      log_root=os.path.join(root, "logs"))
+                      log_root=os.path.join(root, "logs"), compute_dtype=compute_dtype)
     reset_launch_counts()
     t0 = time.perf_counter()
     best = train.main(cfg)
@@ -510,8 +866,71 @@ def compare_step_grads(model, plain, x, y):
     return float(loss), float(p_loss), worst
 
 
-def time_steps(model, plain, x, y):
-    """Median ms per training step and peak GiB, alternating kernels/plain."""
+def compare_bf16_step(models, x, y):
+    """Phase 19: one loss-and-gradients pass of each of ``models`` ("kernels"
+    and "plain", bf16; "f32", the float32 kernel model; same weights) on (x,
+    y). Gates: the kernels' loss within BF16_STEP_LOSS_TOL of the plain
+    one's; each gradient within BF16_STEP_GRAD_TOL of the plain gradient's
+    largest magnitude plus STEP_GRAD_FLOOR of the model's. The conv biases
+    ahead of an instance norm have a zero float32 gradient (below
+    STEP_GRAD_FLOOR of the model's largest): in bf16 their gradient is
+    rounding noise far above that floor, so they are held within
+    BF16_STEP_GRAD_TOL of the model's largest gradient. And the kernels add nothing beyond bf16's own noise: over the
+    parameters with a real float32 gradient, the relative L2 distance of the
+    kernels' bf16 gradient to the plain bf16 one is at most that of the
+    plain bf16 gradient to the float32 one. Every number is printed before
+    any gate is applied."""
+    import torch
+
+    from smilecode_tpu_torch.models.registry import loss_plan
+    from smilecode_tpu_torch.train import make_loss_and_grads
+
+    plan = loss_plan("modet")
+    losses, grads = {}, {}
+    for name, m in models.items():
+        loss, _ = make_loss_and_grads(m, plan, (1.0, 1.0))(x, y)
+        losses[name] = float(loss)
+        grads[name] = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+        require(all(bool(g.isfinite().all()) for g in grads[name].values()),
+                f"{name} step: a gradient is not finite")
+    gk, gp, g32 = grads["kernels"], grads["plain"], grads["f32"]
+    gmax = max(float(g.abs().max()) for g in gp.values())
+    floor32 = STEP_GRAD_FLOOR * max(float(g.abs().max()) for g in g32.values())
+    real = [n for n, g in g32.items() if float(g.abs().max()) > floor32]
+    worst = {"real": (0.0, ""), "zero": (0.0, "")}
+    for n, g in gp.items():
+        kind = "real" if n in real else "zero"
+        tol = (BF16_STEP_GRAD_TOL * float(g.abs().max()) + STEP_GRAD_FLOOR * gmax
+               if kind == "real" else BF16_STEP_GRAD_TOL * gmax)
+        ratio = float((gk[n] - g).abs().max()) / tol
+        if ratio > worst[kind][0]:
+            worst[kind] = (ratio, n)
+
+    def rel(a, b):
+        a, b = (torch.cat([G[n].flatten() for n in real]) for G in (a, b))
+        return float((a - b).norm() / b.norm())
+
+    k_p, p_32, k_32 = rel(gk, gp), rel(gp, g32), rel(gk, g32)
+    print(f"bf16 kernel step vs bf16 plain step: loss {losses['kernels']:.7f} vs "
+          f"{losses['plain']:.7f} (f32 {losses['f32']:.7f}); worst gradient err/tol over the "
+          f"{len(real)} parameters with a real gradient {worst['real'][0]:.4f} "
+          f"({worst['real'][1]}; tolerance {BF16_STEP_GRAD_TOL} x each parameter's max |grad| + "
+          f"{STEP_GRAD_FLOOR} x the model's), over the {len(gp) - len(real)} with a zero f32 "
+          f"gradient {worst['zero'][0]:.4f} ({worst['zero'][1]}; tolerance {BF16_STEP_GRAD_TOL} x "
+          f"the model's max |grad|); relative L2 over the parameters with a real gradient: "
+          f"kernels vs plain {k_p:.4f}, plain bf16 vs f32 {p_32:.4f}, kernels bf16 vs f32 "
+          f"{k_32:.4f}", flush=True)
+    require(abs(losses["kernels"] - losses["plain"]) <= BF16_STEP_LOSS_TOL * abs(losses["plain"]),
+            f"bf16 step loss, kernels vs plain: {losses['kernels']} vs {losses['plain']}")
+    for kind, (ratio, name) in worst.items():
+        require(ratio <= 1.0, f"bf16 step gradient {name}: kernels vs plain err/tol {ratio:.3f} > 1")
+    require(k_p <= p_32, f"bf16 step: kernels vs plain {k_p} > plain bf16 vs f32 {p_32}")
+    return losses, worst, (k_p, p_32, k_32)
+
+
+def time_steps(models, x, y):
+    """Median ms per training step and peak GiB of each of ``models``, in
+    turns (the order rotates every round); returns (times, peak, steps)."""
     import torch
 
     from smilecode_tpu_torch.models.registry import loss_plan
@@ -519,13 +938,14 @@ def time_steps(model, plain, x, y):
     from smilecode_tpu_torch.train import make_train_step
 
     steps = {name: make_train_step(m, loss_plan("modet"), AMSGrad(m.parameters(), lr=1e-4),
-                                   (1.0, 1.0)) for name, m in (("kernels", model), ("plain", plain))}
-    times = {"kernels": [], "plain": []}
-    peak = {"kernels": 0.0, "plain": 0.0}
-    for name in steps:  # warm-up
+                                   (1.0, 1.0)) for name, m in models.items()}
+    names = list(steps)
+    times = {name: [] for name in names}
+    peak = {name: 0.0 for name in names}
+    for name in names:  # warm-up
         steps[name](x, y)
     for i in range(N_TIMED_STEPS):
-        for name in (("plain", "kernels") if i % 2 else ("kernels", "plain")):
+        for name in names[i % len(names):] + names[:i % len(names)]:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -534,7 +954,30 @@ def time_steps(model, plain, x, y):
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) * 1e3)
             peak[name] = max(peak[name], torch.cuda.max_memory_allocated() / 2**30)
-    return times, peak, steps["kernels"]
+    return times, peak, steps
+
+
+def time_forwards(models, x, y, n=N_TIMED):
+    """Median ms per forward and peak GiB of each of ``models``, in turns
+    (the order rotates every round), after one warm-up each."""
+    import torch
+
+    names = list(models)
+    times = {name: [] for name in names}
+    peak = {name: 0.0 for name in names}
+    with torch.no_grad():
+        for name in names:
+            models[name](x, y)
+        for i in range(n):
+            for name in names[i % len(names):] + names[:i % len(names)]:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                models[name](x, y)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                peak[name] = max(peak[name], torch.cuda.max_memory_allocated() / 2**30)
+    return times, peak
 
 
 def profile_step(step, x, y, top=12, what="kernel step"):
@@ -579,7 +1022,7 @@ def write_subjects(test_dir, size=SIZE, device="cpu", n=N_SUBJECTS, seed=3):
             pickle.dump((img, seg), f)
 
 
-def seeded_model(device, attn_impl="auto"):
+def seeded_model(device, attn_impl="auto", compute_dtype=""):
     """Full-width ModeT from seed 0, with a seeded random RPB so the bias
     path is live (the trained reference's RPB is not zero)."""
     import torch
@@ -587,7 +1030,8 @@ def seeded_model(device, attn_impl="auto"):
     from smilecode_tpu_torch.models import ModeT
 
     model = ModeT(channels=4, head_dim=HEAD_DIM, num_heads=NUM_HEADS, qk_scale=1.0,
-                  attn_impl=attn_impl, device=device, generator=torch.Generator().manual_seed(0))
+                  attn_impl=attn_impl, compute_dtype=compute_dtype, device=device,
+                  generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(4)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -606,21 +1050,21 @@ def write_jax_checkpoint(model_dir, model):
         pickle.dump(state, f)
 
 
-def run_infer(test_dir, model_dir, attn_impl="auto", model="modet"):
-    """infer.main through its config; returns (dsc, fold, K1 launches, K2 launches, s)."""
+def run_infer(test_dir, model_dir, attn_impl="auto", model="modet", compute_dtype=""):
+    """infer.main through its config; returns (dsc, fold, launch counts, s)."""
     import torch
 
     from smilecode_tpu_torch import infer
     from smilecode_tpu_torch.config import InferConfig
 
-    cfg = InferConfig(model=model, test_dir=test_dir, model_dir=model_dir, attn_impl=attn_impl)
+    cfg = InferConfig(model=model, test_dir=test_dir, model_dir=model_dir, attn_impl=attn_impl,
+                      compute_dtype=compute_dtype)
     reset_launch_counts()
     t0 = time.perf_counter()
     dsc, fold = infer.main(cfg)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = launch_counts()
-    return dsc, fold, counts["K1"], counts["K2"], seconds
+    return dsc, fold, launch_counts(), seconds
 
 
 def forward_pair(test_dir, device):
@@ -630,6 +1074,126 @@ def forward_pair(test_dir, device):
     ds = LPBABrainInferDatasetS2S(paths, Compose([Seg_norm(), NumpyType((np.float32, np.int16))]))
     x, y, _, _ = next(iter(Loader(ds, device=device)))
     return x, y
+
+
+def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
+    """Phases 15-19, the bf16 feature path (`compute_dtype="bfloat16"`) on
+    the subjects of phases 3 and 8 and the checkpoint of phase 3. Returns
+    (phase 15's results, the launch counts of phase 18's kernel run)."""
+    import torch
+
+    print("== phase 15: bf16 K1-K5 vs their bf16 plain versions", flush=True)
+    res = check_bf16_kernels(device)
+    for key, r in res.items():
+        lib = "" if r["library_ms"] is None else f", F.grid_sample bf16 {r['library_ms']:.4f}"
+        print(f"[{card}] bf16 {key} per {'pair' if key in ('K1', 'K2') else 'step'} over its bf16 "
+              f"calls: {r['ms']:.4f} ms (plain bf16 {r['plain_ms']:.4f}, f32 kernel "
+              f"{r['f32_ms']:.4f}{lib}); bound {bound(*r['work'])[0]:.4f} ms "
+              f"({bound(*r['work'])[1]}); max_abs_err {r['err']:.3e}", flush=True)
+
+    print("== phase 16: infer.main with compute_dtype=bfloat16", flush=True)
+    n_pairs = N_SUBJECTS * (N_SUBJECTS - 1)
+    model_dir = os.path.join(tmp, "exp")
+    for impl in ("auto", "plain"):
+        dsc, fold, counts, secs = run_infer(test_dir, model_dir, attn_impl=impl,
+                                            compute_dtype="bfloat16")
+        print(f"infer bf16 ({'kernels' if impl == 'auto' else 'plain'}): {n_pairs} pairs in "
+              f"{secs:.2f} s, dsc {dsc:.6f}, fold {fold:.6f} (f32 kernels: dsc "
+              f"{f32_infer[0]:.6f}, fold {f32_infer[1]:.6f}); launches {counts}", flush=True)
+        require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0 and np.isfinite(fold) and 0 <= fold <= 1,
+                f"bf16 infer: dsc {dsc}, fold {fold}")
+        if impl == "plain":
+            require(not any(counts.values()), "the plain bf16 run launched a kernel")
+        else:
+            want = dict.fromkeys(counts, 0)
+            want.update({"K1": 5 * n_pairs, "K1 bf16": 5 * n_pairs, "K2": 9 * n_pairs,
+                         "K2 bf16": 4 * n_pairs})
+            require(counts == want, f"bf16 infer launches {counts}, expected {want}")
+
+    print("== phase 17: forwards with excited weights: bf16 kernels, bf16 plain, f32 kernels",
+          flush=True)
+    x, y = forward_pair(test_dir, device)
+    names = {"bf16 kernels": ("auto", "bfloat16"), "bf16 plain": ("plain", "bfloat16"),
+             "f32 kernels": ("auto", "")}
+    models = {name: excited_model(device, *how) for name, how in names.items()}
+    pairs = {"160x192x160 subjects": (x, y),
+             "32^3 blobs": (blob_vol(GATE_SHAPE, 1, device), blob_vol(GATE_SHAPE, 2, device))}
+    gaps = {}
+    for where, (xx, yy) in pairs.items():
+        with torch.no_grad():
+            outs = {name: m(xx, yy) for name, m in models.items()}
+        for name, (moved, flow) in outs.items():
+            require(moved.dtype == flow.dtype == torch.float32 and flow.shape[1:4] == xx.shape[1:4]
+                    and bool(torch.isfinite(flow).all() and torch.isfinite(moved).all()),
+                    f"{where} {name} forward: outputs not finite float32 of the right shape")
+        ref_moved, ref_flow = outs["f32 kernels"]
+        require(float(ref_flow.abs().max()) > 0.05, f"{where}: the excited f32 flow is degenerate")
+        for name in ("bf16 kernels", "bf16 plain"):
+            moved, flow = outs[name]
+            gaps[where, name] = (*flow_gap(flow, ref_flow), flow_gap(moved, ref_moved)[1])
+            print(f"{where}, {name} vs f32 kernels: flow endpoint error mean "
+                  f"{gaps[where, name][0]:.5f}, p99 {gaps[where, name][1]:.5f} voxel; moved p99 "
+                  f"{gaps[where, name][2]:.5f} (f32 flow max |.| {float(ref_flow.abs().max()):.4f})",
+                  flush=True)
+        k_vs_p = flow_gap(outs["bf16 kernels"][1], outs["bf16 plain"][1])
+        print(f"{where}, bf16 kernels vs bf16 plain: flow endpoint error mean {k_vs_p[0]:.5f}, p99 "
+              f"{k_vs_p[1]:.5f} voxel", flush=True)
+        plain_gap = gaps[where, "bf16 plain"]
+        require(k_vs_p[0] <= plain_gap[0] and k_vs_p[1] <= plain_gap[1],
+                f"{where}: bf16 kernels vs plain {k_vs_p} exceeds bf16 plain vs f32 {plain_gap}")
+        for name in ("bf16 kernels", "bf16 plain"):
+            mean, p99, moved_p99 = gaps[where, name]
+            require(moved_p99 < BF16_MOVED_P99, f"{where} {name}: moved p99 {moved_p99}")
+            if where.startswith("32"):
+                require(mean < BF16_FLOW_MEAN and p99 < BF16_FLOW_P99,
+                        f"{where} {name} vs f32: flow mean {mean}, p99 {p99}")
+        del outs, ref_moved, ref_flow
+    torch.cuda.empty_cache()
+    times, peak = time_forwards(models, x, y)
+    print(f"[{card}] ModeT 160x192x160 forward, excited weights, median of {N_TIMED}: " + "; ".join(
+        f"{name} {statistics.median(t):.3f} ms/pair (min {min(t):.3f}), peak {peak[name]:.2f} GiB"
+        for name, t in times.items()), flush=True)
+    with torch.no_grad():
+        profile_step(models["bf16 kernels"], x, y, top=12, what="bf16 kernel forward")
+    del models
+    torch.cuda.empty_cache()
+
+    print("== phase 18: train.main with compute_dtype=bfloat16", flush=True)
+    n_steps, n_val = n_pairs, N_VAL_SUBJECTS * (N_VAL_SUBJECTS - 1)
+    best, _, losses, counts, secs = run_train(test_dir, val_dir, os.path.join(tmp, "bf16k"),
+                                                    compute_dtype="bfloat16")
+    print(f"train bf16 (kernels): {n_steps} steps + {n_val} validation pairs in {secs:.2f} s, "
+          f"losses {losses}, best dsc {best:.6f}, launches {counts}", flush=True)
+    require(len(losses) == n_steps and bool(np.isfinite(losses).all()), f"bf16 losses {losses}")
+    fwd = n_steps + n_val
+    want = {"K1": 5 * fwd, "K1 bf16": 5 * fwd, "K2": 9 * fwd, "K2 bf16": 4 * fwd,
+            "K3": 5 * n_steps, "K3 bf16": 5 * n_steps, "K4": 5 * n_steps, "K4 bf16": 5 * n_steps,
+            "K5": 9 * n_steps, "K5 bf16": 4 * n_steps, "K5 d_src": 8 * n_steps,
+            "K5 d_src bf16": 4 * n_steps}
+    require(counts == want, f"bf16 train launches {counts}, expected {want}")
+    _, _, p_losses, p_counts, p_secs = run_train(test_dir, val_dir, os.path.join(tmp, "bf16p"),
+                                                 attn_impl="plain", compute_dtype="bfloat16")
+    print(f"train bf16 (plain): {p_secs:.2f} s, losses {p_losses}, launches {p_counts}", flush=True)
+    require(not any(p_counts.values()), "the plain bf16 training run launched a kernel")
+    require(abs(losses[0] - p_losses[0]) <= BF16_STEP_LOSS_TOL * abs(p_losses[0]),
+            f"bf16 first step loss, kernels vs plain: {losses[0]} vs {p_losses[0]}")
+    torch.cuda.empty_cache()
+
+    print("== phase 19: one bf16 training step, kernels vs plain; ms per step", flush=True)
+    models = {"kernels": seeded_model(device, compute_dtype="bfloat16"),
+              "plain": seeded_model(device, "plain", "bfloat16"), "f32": seeded_model(device)}
+    compare_bf16_step(models, x, y)
+    models = {"bf16 kernels": models["kernels"], "bf16 plain": models["plain"],
+              "f32 kernels": models["f32"]}
+    times, peak, steps = time_steps(models, x, y)
+    print(f"[{card}] ModeT 160x192x160 training step (fwd + bwd + AMSGrad), median of "
+          f"{N_TIMED_STEPS}: " + "; ".join(
+              f"{name} {statistics.median(t):.3f} ms (min {min(t):.3f}), peak {peak[name]:.2f} GiB"
+              for name, t in times.items()), flush=True)
+    profile_step(steps["bf16 kernels"], x, y, what="bf16 kernel step")
+    del models, steps, x, y
+    torch.cuda.empty_cache()
+    return res, counts
 
 
 def main() -> int:
@@ -653,9 +1217,9 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     print("== phase 1: K1 attention vs plain", flush=True)
-    k1_err, k1_ms, k1_plain_ms = check_attention(device)
+    k1_err, k1_ms, k1_plain_ms, k1_work = check_attention(device)
     print("== phase 2: K2 warp vs plain", flush=True)
-    k2_err, k2_ms, k2_plain_ms = check_warp(device)
+    k2_err, k2_ms, k2_plain_ms, k2_lib_ms, k2_work = check_warp(device)
 
     print("== phase 3: infer.main on synthetic 160x192x160 pairs", flush=True)
     n_pairs = N_SUBJECTS * (N_SUBJECTS - 1)
@@ -665,19 +1229,22 @@ def main() -> int:
         write_subjects(test_dir, device=device)
         model = seeded_model(device)
         write_jax_checkpoint(model_dir, model)
-        dsc, fold, n_k1, n_k2, secs = run_infer(test_dir, model_dir)
+        dsc, fold, counts, secs = run_infer(test_dir, model_dir)
+        n_k1, n_k2 = counts["K1"], counts["K2"]
         print(f"infer (kernels): {n_pairs} pairs in {secs:.2f} s, K1 launches {n_k1}, "
               f"K2 launches {n_k2}, dsc {dsc:.6f}, fold {fold:.6f}", flush=True)
         require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0, f"Dice {dsc} outside [0, 1]")
         require(np.isfinite(fold) and 0.0 <= fold <= 1.0, f"fold {fold} outside [0, 1]")
         require(n_k1 == 5 * n_pairs, f"K1 launched {n_k1} times, expected {5 * n_pairs}")
         require(n_k2 == 9 * n_pairs, f"K2 launched {n_k2} times, expected {9 * n_pairs}")
-        p_dsc, p_fold, p_k1, p_k2, p_secs = run_infer(test_dir, model_dir, attn_impl="plain")
+        p_dsc, p_fold, counts, p_secs = run_infer(test_dir, model_dir, attn_impl="plain")
+        p_k1, p_k2 = counts["K1"], counts["K2"]
         print(f"infer (plain): {n_pairs} pairs in {p_secs:.2f} s, K1 launches {p_k1}, "
               f"K2 launches {p_k2}, dsc {p_dsc:.6f}, fold {p_fold:.6f}", flush=True)
         require(p_k1 == 0 and p_k2 == 0, "the plain run launched a kernel")
         require(abs(dsc - p_dsc) <= 1e-3 and abs(fold - p_fold) <= 1e-3,
                 f"kernels vs plain infer: dsc {dsc} vs {p_dsc}, fold {fold} vs {p_fold}")
+        f32_infer = (dsc, fold)
 
         print("== phase 4: full forward, kernels vs plain", flush=True)
         x, y = forward_pair(test_dir, device)
@@ -695,33 +1262,21 @@ def main() -> int:
         require(moved_err <= MOVED_TOL, f"moved diff {moved_err} > {MOVED_TOL}")
 
         print("== phase 5: ms per pair (forward only)", flush=True)
-        times = {"kernels": [], "plain": []}
-        with torch.no_grad():
-            for m in (model, plain):  # warm-up
-                m(x, y)
-            for i in range(N_TIMED):
-                order = (("plain", plain), ("kernels", model)) if i % 2 else (
-                    ("kernels", model), ("plain", plain))
-                for name, m in order:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    m(x, y)
-                    torch.cuda.synchronize()
-                    times[name].append((time.perf_counter() - t0) * 1e3)
+        times, peak = time_forwards({"kernels": model, "plain": plain}, x, y)
         med = {k: statistics.median(v) for k, v in times.items()}
         print(f"[{card}] ModeT 160x192x160 forward, median of {N_TIMED}: "
               f"kernels {med['kernels']:.3f} ms/pair, plain {med['plain']:.3f} ms/pair "
               f"(min {min(times['kernels']):.3f} / {min(times['plain']):.3f})")
         print(f"[{card}] per pair: K1 {k1_ms:.4f} ms (plain {k1_plain_ms:.4f}), "
               f"K2 {k2_ms:.4f} ms (plain {k2_plain_ms:.4f}); "
-              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+              f"peak memory kernels {peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB")
         del moved, flow, p_moved, p_flow
         torch.cuda.empty_cache()
 
         print("== phase 6: K3/K4 attention backward vs plain", flush=True)
         bwd = check_attention_bwd(device)
         print("== phase 7: K5 warp adjoint vs plain", flush=True)
-        k5_err, k5_ms, k5_plain_ms = check_warp_bwd(device)
+        k5_err, k5_ms, k5_plain_ms, k5_lib_ms, k5_work = check_warp_bwd(device)
 
         print("== phase 8: train.main on synthetic 160x192x160 subjects", flush=True)
         val_dir = os.path.join(tmp, "Val")
@@ -735,8 +1290,10 @@ def main() -> int:
         require(len(losses) == n_steps and bool(np.isfinite(losses).all()), f"losses {losses}")
         want = {"K1": 5 * (n_steps + n_val), "K2": 9 * (n_steps + n_val), "K3": 5 * n_steps,
                 "K4": 5 * n_steps, "K5": 9 * n_steps, "K5 d_src": 8 * n_steps}
+        want.update({f"{k} bf16": 0 for k in want})
         require(train_counts == want, f"train launches {train_counts}, expected {want}")
-        dsc, fold, n_k1, n_k2, secs = run_infer(val_dir, exp_dir)
+        dsc, fold, counts, secs = run_infer(val_dir, exp_dir)
+        n_k1, n_k2 = counts["K1"], counts["K2"]
         print(f"infer of the trained checkpoint: dsc {dsc:.6f}, fold {fold:.6f}, "
               f"K1 {n_k1}, K2 {n_k2} launches", flush=True)
         require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0 and np.isfinite(fold),
@@ -756,7 +1313,8 @@ def main() -> int:
                 f"step loss, kernels vs plain: {loss} vs {p_loss}")
 
         print("== phase 10: ms per training step", flush=True)
-        times, peak, kernel_step = time_steps(model, plain, x, y)
+        times, peak, steps = time_steps({"kernels": model, "plain": plain}, x, y)
+        kernel_step = steps["kernels"]
         med = {k: statistics.median(v) for k, v in times.items()}
         print(f"[{card}] ModeT 160x192x160 training step (fwd + bwd + AMSGrad), median of "
               f"{N_TIMED_STEPS}: kernels {med['kernels']:.3f} ms, plain {med['plain']:.3f} ms "
@@ -766,14 +1324,15 @@ def main() -> int:
               f"{bwd['K3'][2]:.4f}), K4 {bwd['K4'][1]:.4f} ms (plain {bwd['K4'][2]:.4f}), "
               f"K5 {k5_ms:.4f} ms (plain {k5_plain_ms:.4f})")
         profile_step(kernel_step, x, y)
-        del model, plain, kernel_step, x, y
+        del model, plain, kernel_step, steps, x, y
         torch.cuda.empty_cache()
 
         print("== phase 11: K1 as Im2grid runs it (1 head, no rpb); K3/K4 without rpb", flush=True)
-        g_err, g_ms, g_plain_ms = check_attention(device, num_heads=(1,) * 5, with_rpb=False)
+        g_err, g_ms, g_plain_ms, g_work = check_attention(device, num_heads=(1,) * 5,
+                                                          with_rpb=False)
         check_attention_bwd(device, specs=((1, 1),), with_rpb=False)
         print("== phase 12: K2 through kernel F's entries at the baselines' shapes", flush=True)
-        f_err, f_ms, f_plain_ms = check_warp_f(device)
+        f_err, f_ms, f_plain_ms, f_lib_ms, f_work = check_warp_f(device)
 
         print("== phase 13: infer.main for the baselines", flush=True)
         rcn_dir = os.path.join(tmp, "TestRCN")
@@ -784,7 +1343,8 @@ def main() -> int:
             data_dir = test_dir if size == SIZE else rcn_dir
             model_dir = os.path.join(tmp, f"exp_{name}")
             write_jax_checkpoint(model_dir, seeded_baseline(name, device))
-            dsc, fold, n_k1, n_k2, secs = run_infer(data_dir, model_dir, model=name)
+            dsc, fold, counts, secs = run_infer(data_dir, model_dir, model=name)
+            n_k1, n_k2 = counts["K1"], counts["K2"]
             print(f"{name} {size} infer (kernels): {n_pairs} pairs in {secs:.2f} s, K1 launches "
                   f"{n_k1}, K2 launches {n_k2}, dsc {dsc:.6f}, fold {fold:.6f}", flush=True)
             require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0, f"{name}: Dice {dsc} outside [0, 1]")
@@ -794,8 +1354,9 @@ def main() -> int:
                     f"{k1_pair * n_pairs}, {k2_pair * n_pairs}")
             base_counts["K1"] += n_k1
             base_counts["K2"] += n_k2
-            p_dsc, p_fold, p_k1, p_k2, p_secs = run_infer(data_dir, model_dir, attn_impl="plain",
-                                                          model=name)
+            p_dsc, p_fold, counts, p_secs = run_infer(data_dir, model_dir, attn_impl="plain",
+                                                      model=name)
+            p_k1, p_k2 = counts["K1"], counts["K2"]
             print(f"{name} {size} infer (plain): {p_secs:.2f} s, K1 launches {p_k1}, K2 launches "
                   f"{p_k2}, dsc {p_dsc:.6f}, fold {p_fold:.6f}", flush=True)
             require(p_k1 == 0 and p_k2 == 0, f"{name}: the plain run launched a kernel")
@@ -821,20 +1382,7 @@ def main() -> int:
             require(flow_err <= FLOW_TOL, f"{name}: flow diff {flow_err} > {FLOW_TOL}")
             require(moved_err <= MOVED_TOL, f"{name}: moved diff {moved_err} > {MOVED_TOL}")
             del outs, p_outs
-            times = {"kernels": [], "plain": []}
-            peak = {"kernels": 0.0, "plain": 0.0}
-            with torch.no_grad():
-                for i in range(N_TIMED_BASELINE):
-                    order = (("plain", plain), ("kernels", model)) if i % 2 else (
-                        ("kernels", model), ("plain", plain))
-                    for path, m in order:
-                        torch.cuda.synchronize()
-                        torch.cuda.reset_peak_memory_stats()
-                        t0 = time.perf_counter()
-                        m(x, y)
-                        torch.cuda.synchronize()
-                        times[path].append((time.perf_counter() - t0) * 1e3)
-                        peak[path] = max(peak[path], torch.cuda.max_memory_allocated() / 2**30)
+            times, peak = time_forwards({"kernels": model, "plain": plain}, x, y, N_TIMED_BASELINE)
             med = {k: statistics.median(v) for k, v in times.items()}
             print(f"[{card}] {name} {'x'.join(map(str, size))} forward, median of "
                   f"{N_TIMED_BASELINE}: kernels {med['kernels']:.3f} ms/pair, plain "
@@ -849,25 +1397,39 @@ def main() -> int:
               f"K2 via ops.warp over the smooth cases of phase 12: {f_ms:.4f} ms (plain "
               f"{f_plain_ms:.4f})")
 
-    def entry(name, source, line, key, err, ms, plain_ms, counts=None):
+        bf16, bf16_train_counts = run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer)
+
+    def entry(name, source, line, key, err, ms, plain_ms, work, library_ms=None, counts=None):
+        bound_ms, bound_by = bound(*work)
         return {"name": name, "route": "cuda", "source": f"smilecode_tpu_torch/csrc/{source}",
                 "replaces": f"smilecode_tpu/kernels/{line}",
                 "launches": (counts or train_counts)[key],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+    def bf16_entry(name, source, line, key):
+        r = bf16[key]
+        return entry(f"{name} (bf16)", source, line, f"{key} bf16", r["err"], r["ms"],
+                     r["plain_ms"], tuple(r["work"]), r["library_ms"], bf16_train_counts)
 
     record = {"kernels": [
         entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1", k1_err, k1_ms,
-              k1_plain_ms),
+              k1_plain_ms, k1_work),
         entry("warp3d_trilinear_fwd", "warp3d.cu", "warp3d_v4.py:104", "K2", k2_err, k2_ms,
-              k2_plain_ms),
+              k2_plain_ms, k2_work, k2_lib_ms),
         entry("modet_attn_bwd_dq", "modet_attn_bwd.cu", "modet_attn.py:183", "K3", *bwd["K3"]),
         entry("modet_attn_bwd_dk", "modet_attn_bwd.cu", "modet_attn.py:256", "K4", *bwd["K4"]),
         entry("warp3d_trilinear_bwd", "warp3d_bwd.cu", "warp3d_v4.py:339", "K5", k5_err, k5_ms,
-              k5_plain_ms),
+              k5_plain_ms, k5_work, k5_lib_ms),
         entry("modet_attn_fwd (Im2grid: 1 head, no rpb)", "modet_attn.cu", "modet_attn.py:56",
-              "K1", g_err, g_ms, g_plain_ms, base_counts),
+              "K1", g_err, g_ms, g_plain_ms, g_work, None, base_counts),
         entry("warp3d_trilinear_fwd (ops.warp impl=pallas|guarded, baselines)", "warp3d.cu",
-              "warp3d.py:52", "K2", f_err, f_ms, f_plain_ms, base_counts),
+              "warp3d.py:52", "K2", f_err, f_ms, f_plain_ms, f_work, f_lib_ms, base_counts),
+        bf16_entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1"),
+        bf16_entry("warp3d_trilinear_fwd", "warp3d.cu", "warp3d_v4.py:104", "K2"),
+        bf16_entry("modet_attn_bwd_dq", "modet_attn_bwd.cu", "modet_attn.py:183", "K3"),
+        bf16_entry("modet_attn_bwd_dk", "modet_attn_bwd.cu", "modet_attn.py:256", "K4"),
+        bf16_entry("warp3d_trilinear_bwd", "warp3d_bwd.cu", "warp3d_v4.py:339", "K5"),
     ]}
     print(card_line())
     print(json.dumps(record))

@@ -7,13 +7,17 @@ Left out: the JAX-only `fast_path` knob (planes-layout TPU decoder),
 does not), `atlas_path` (the atlas dataset is not ported) and, in
 `TrainConfig`, the baselines' knobs (their training is not ported).
 `check_train_config` raises `NotImplementedError` for the training knobs
-whose paths are not ported yet.
+whose paths are not ported yet. Added: ``device`` (both configs), where
+`train.main` and `infer.main` run: "cuda" (the default; they raise without
+a card) or "cpu".
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
+
+COMPUTE_DTYPES = ("", "bfloat16")  # "" = float32
 
 
 @dataclasses.dataclass
@@ -39,9 +43,11 @@ class TrainConfig:
     # "auto": Hopper kernels for tensors on a CUDA device, their plain
     # PyTorch versions for CPU tensors; "plain": the plain versions always
     attn_impl: str = "auto"
-    # "" = float32 ("bfloat16" is not ported yet)
+    # "" = float32; "bfloat16" runs ModeT's feature path in bf16
     compute_dtype: str = ""
     dataset: str = "s2s"  # s2s (half | atlas are not ported yet)
+    # "cuda" runs on the card and raises without one; "cpu" asks for the CPU
+    device: str = "cuda"
     # data-parallel devices and D-axis shards (only 1 is ported)
     dp: int = 1
     spatial: int = 1
@@ -67,9 +73,10 @@ def check_train_config(cfg: TrainConfig) -> None:
     if cfg.dataset != "s2s":
         raise NotImplementedError(f"dataset={cfg.dataset!r} is not ported yet "
                                   "(ROADMAP.md queue 1, item 5)")
-    if cfg.compute_dtype:
-        raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r}: bf16 I/O is not "
-                                  "ported yet (ROADMAP.md queue 1, item 3)")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {cfg.compute_dtype!r}")
+
 
 
 @dataclasses.dataclass
@@ -85,9 +92,12 @@ class InferConfig:
     # "auto": Hopper kernels for tensors on a CUDA device, their plain
     # PyTorch versions for CPU tensors; "plain": the plain versions always
     attn_impl: str = "auto"
-    # "" = float32 ("bfloat16" is not ported yet)
+    # "" = float32; "bfloat16" runs ModeT's feature path in bf16 (other
+    # models: float32 only)
     compute_dtype: str = ""
     dataset: str = "s2s"  # s2s (half | atlas are not ported yet)
+    # "cuda" runs on the card and raises without one; "cpu" asks for the CPU
+    device: str = "cuda"
     # load a reference PyTorch .pth.tar instead of a JAX-format checkpoint
     torch_checkpoint: str = ""
     # structural knobs of the baselines (must match the checkpoint): RCN

@@ -10,8 +10,12 @@
 //             t = (od*3 + oh)*3 + ow
 // The 27-wide attention tensor is never stored.
 //
-// Layout: q, k (B, D, H, W, heads, hd) float32 contiguous; rpb (heads, 27)
-// float32 or null; out (B, D, H, W, heads*3) float32.
+// Layout: q, k (B, D, H, W, heads, hd) contiguous, float32 or bf16 (T, see
+// io_types.cuh); rpb (heads, 27) float32 or null; out (B, D, H, W, heads*3)
+// in T. With bf16 q and k the logits, the online softmax and the
+// accumulators stay float32 and only the output is rounded to bf16, as the
+// JAX forward casts its float32 result to q's dtype (modet_attn.py:180);
+// q is scaled in its own type first, as there (`qs * dtype(scale)`, :132).
 //
 // What bounds it on the H100: memory and latency. Each (voxel, head) reads
 // 27 neighbour k vectors of hd floats (27*hd*4 B, 648 B at hd=6) but only
@@ -26,12 +30,19 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "io_types.cuh"
+
 namespace {
 
-template <int MAX_HD>
+using smilecode::from_f32;
+using smilecode::ldg_f32;
+using smilecode::round_to;
+using smilecode::to_f32;
+
+template <typename T, int MAX_HD>
 __global__ void __launch_bounds__(256)
-modet_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ rpb, float* __restrict__ out,
+modet_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const float* __restrict__ rpb, T* __restrict__ out,
                       int D, int H, int W, int heads, int hd, float scale,
                       long long total) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -46,13 +57,14 @@ modet_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int d = static_cast<int>(v % D);
   const long long b = v / D;
 
-  const long long row = static_cast<long long>(heads) * hd;  // floats per voxel
-  const float* qp = q + idx * hd;
+  const long long row = static_cast<long long>(heads) * hd;  // values per voxel
+  const T* qp = q + idx * hd;
+  const float qscale = round_to<T>(scale);
   float qr[MAX_HD];
 #pragma unroll
-  for (int i = 0; i < MAX_HD; ++i) qr[i] = (i < hd) ? qp[i] * scale : 0.f;
+  for (int i = 0; i < MAX_HD; ++i) qr[i] = (i < hd) ? round_to<T>(to_f32(qp[i]) * qscale) : 0.f;
 
-  const float* kb = k + b * D * H * W * row + static_cast<long long>(head) * hd;
+  const T* kb = k + b * D * H * W * row + static_cast<long long>(head) * hd;
   const float* rp = rpb ? rpb + head * 27 : nullptr;
 
   float m = -INFINITY, s = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
@@ -62,10 +74,10 @@ modet_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int nd = d + od, nh = h + oh, nw = w + ow;
     float logit = 0.f;
     if (nd >= 0 && nd < D && nh >= 0 && nh < H && nw >= 0 && nw < W) {
-      const float* kp = kb + ((static_cast<long long>(nd) * H + nh) * W + nw) * row;
+      const T* kp = kb + ((static_cast<long long>(nd) * H + nh) * W + nw) * row;
 #pragma unroll
       for (int i = 0; i < MAX_HD; ++i)
-        if (i < hd) logit += qr[i] * __ldg(kp + i);
+        if (i < hd) logit += qr[i] * ldg_f32(kp + i);
     }
     if (rp) logit += __ldg(rp + t);
     const float mn = fmaxf(m, logit);
@@ -77,38 +89,51 @@ modet_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     a2 = a2 * corr + e * ow;
     m = mn;
   }
-  float* op = out + idx * 3;
-  op[0] = a0 / s;
-  op[1] = a1 / s;
-  op[2] = a2 / s;
+  T* op = out + idx * 3;
+  op[0] = from_f32<T>(a0 / s);
+  op[1] = from_f32<T>(a1 / s);
+  op[2] = from_f32<T>(a2 / s);
 }
 
-template <int MAX_HD>
-void launch(const float* q, const float* k, const float* rpb, float* out, int D, int H,
-            int W, int heads, int hd, float scale, long long total, cudaStream_t stream) {
+template <typename T, int MAX_HD>
+void launch(const T* q, const T* k, const float* rpb, T* out, int D, int H, int W, int heads,
+            int hd, float scale, long long total, cudaStream_t stream) {
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  modet_attn_fwd_kernel<MAX_HD><<<blocks, threads, 0, stream>>>(
+  modet_attn_fwd_kernel<T, MAX_HD><<<blocks, threads, 0, stream>>>(
       q, k, rpb, out, D, H, W, heads, hd, scale, total);
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int smilecode_modet_attn_fwd(const float* q, const float* k, const float* rpb,
-                                        float* out, long long B, int D, int H, int W,
-                                        int heads, int hd, float scale, void* stream) {
+template <typename T>
+int fwd(const T* q, const T* k, const float* rpb, T* out, long long B, int D, int H, int W,
+        int heads, int hd, float scale, void* stream) {
   const long long total = B * D * H * W * heads;
   if (total <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 8) {
-    launch<8>(q, k, rpb, out, D, H, W, heads, hd, scale, total, st);
+    launch<T, 8>(q, k, rpb, out, D, H, W, heads, hd, scale, total, st);
   } else if (hd <= 16) {
-    launch<16>(q, k, rpb, out, D, H, W, heads, hd, scale, total, st);
+    launch<T, 16>(q, k, rpb, out, D, H, W, heads, hd, scale, total, st);
   } else if (hd <= 32) {
-    launch<32>(q, k, rpb, out, D, H, W, heads, hd, scale, total, st);
+    launch<T, 32>(q, k, rpb, out, D, H, W, heads, hd, scale, total, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Both return cudaGetLastError() after the launch (0 = launched).
+extern "C" int smilecode_modet_attn_fwd(const float* q, const float* k, const float* rpb,
+                                        float* out, long long B, int D, int H, int W,
+                                        int heads, int hd, float scale, void* stream) {
+  return fwd<float>(q, k, rpb, out, B, D, H, W, heads, hd, scale, stream);
+}
+
+extern "C" int smilecode_modet_attn_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                             const float* rpb, __nv_bfloat16* out, long long B,
+                                             int D, int H, int W, int heads, int hd, float scale,
+                                             void* stream) {
+  return fwd<__nv_bfloat16>(q, k, rpb, out, B, D, H, W, heads, hd, scale, stream);
 }

@@ -14,9 +14,16 @@
 // An out-of-volume neighbour stays in the softmax (logit rpb), so its dl_t
 // goes into drpb, but it has no k to give dq nor a k slot to receive dk.
 //
-// Layout: q, k, dq, dk (B, D, H, W, heads, hd) float32 contiguous; rpb
-// (heads, 27) or null; g (B, D, H, W, heads, 3); dl (B, D, H, W, heads, 27)
-// float32 (written by K3, read by K4); drpb_part (gridDim.x, heads, 27).
+// Layout: q, k, dq, dk (B, D, H, W, heads, hd) contiguous; rpb (heads, 27)
+// float32 or null; g (B, D, H, W, heads, 3); dl (B, D, H, W, heads, 27)
+// (written by K3, read by K4); drpb_part (gridDim.x, heads, 27) float32.
+// q, k, g, dq, dl and dk share one storage type T, float32 or bf16
+// (io_types.cuh). With bf16 the softmax is recomputed in float32 from the
+// bf16 q and k (q scaled in bf16 as the forward scales it); dl, dq and the
+// drpb partials come from the float32 dl, and only the stored dl, dq and dk
+// are rounded to bf16: the JAX backward stores dl in its io dtype
+// (modet_attn.py:245, :450) and casts dq and dk back to the input dtype
+// (:360), while drpb stays float32. K4 reads the rounded dl, as C does.
 //
 // What bounds them on the H100: memory. K3 reads q, g and the 27 k
 // neighbours (cache-served, as in K1) and writes dq plus the 27-float dl
@@ -31,16 +38,23 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "io_types.cuh"
+
 namespace {
+
+using smilecode::from_f32;
+using smilecode::ldg_f32;
+using smilecode::round_to;
+using smilecode::to_f32;
 
 constexpr int kThreads = 256;
 constexpr int kPitch = kThreads + 1;  // shared tile row pitch: conflict-free column reads
 
-template <int MAX_HD>
+template <typename T, int MAX_HD>
 __global__ void __launch_bounds__(kThreads)
-modet_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ rpb, const float* __restrict__ g,
-                         float* __restrict__ dq, float* __restrict__ dl,
+modet_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const float* __restrict__ rpb, const T* __restrict__ g,
+                         T* __restrict__ dq, T* __restrict__ dl,
                          float* __restrict__ drpb_part, int D, int H, int W, int heads,
                          int hd, float scale, long long total) {
   __shared__ float tile[27 * kPitch];  // tile[t * kPitch + thread] = dl_t
@@ -62,12 +76,14 @@ modet_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
     const int d = static_cast<int>(v % D);
     const long long b = v / D;
 
-    const long long row = static_cast<long long>(heads) * hd;  // floats per voxel
-    const float* qp = q + idx * hd;
+    const long long row = static_cast<long long>(heads) * hd;  // values per voxel
+    const T* qp = q + idx * hd;
+    const float qscale = round_to<T>(scale);
     float qr[MAX_HD];
 #pragma unroll
-    for (int i = 0; i < MAX_HD; ++i) qr[i] = (i < hd) ? qp[i] * scale : 0.f;  // as K1
-    const float* kb = k + b * D * H * W * row + static_cast<long long>(head) * hd;
+    for (int i = 0; i < MAX_HD; ++i)  // as K1
+      qr[i] = (i < hd) ? round_to<T>(to_f32(qp[i]) * qscale) : 0.f;
+    const T* kb = k + b * D * H * W * row + static_cast<long long>(head) * hd;
     const float* rp = rpb ? rpb + head * 27 : nullptr;
 
     float m = -INFINITY;
@@ -76,10 +92,10 @@ modet_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
       const int nd = d + t / 9 - 1, nh = h + (t / 3) % 3 - 1, nw = w + t % 3 - 1;
       float logit = 0.f;
       if (nd >= 0 && nd < D && nh >= 0 && nh < H && nw >= 0 && nw < W) {
-        const float* kp = kb + ((static_cast<long long>(nd) * H + nh) * W + nw) * row;
+        const T* kp = kb + ((static_cast<long long>(nd) * H + nh) * W + nw) * row;
 #pragma unroll
         for (int i = 0; i < MAX_HD; ++i)
-          if (i < hd) logit += qr[i] * __ldg(kp + i);
+          if (i < hd) logit += qr[i] * ldg_f32(kp + i);
       }
       if (rp) logit += __ldg(rp + t);
       lg[t] = logit;
@@ -92,7 +108,7 @@ modet_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
       s += lg[t];
     }
     const float inv = 1.f / s;
-    const float g0 = g[idx * 3], g1 = g[idx * 3 + 1], g2 = g[idx * 3 + 2];
+    const float g0 = to_f32(g[idx * 3]), g1 = to_f32(g[idx * 3 + 1]), g2 = to_f32(g[idx * 3 + 2]);
     float ssum = 0.f;  // sum_u p_u da_u
 #pragma unroll
     for (int t = 0; t < 27; ++t) {
@@ -109,26 +125,27 @@ modet_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
       const float dlt = lg[t] * inv * (da - ssum);
       lg[t] = dlt;
       if (nd >= 0 && nd < D && nh >= 0 && nh < H && nw >= 0 && nw < W) {
-        const float* kp = kb + ((static_cast<long long>(nd) * H + nh) * W + nw) * row;
+        const T* kp = kb + ((static_cast<long long>(nd) * H + nh) * W + nw) * row;
 #pragma unroll
         for (int i = 0; i < MAX_HD; ++i)
-          if (i < hd) acc[i] += dlt * __ldg(kp + i);
+          if (i < hd) acc[i] += dlt * ldg_f32(kp + i);
       }
     }
-    float* dqp = dq + idx * hd;
+    T* dqp = dq + idx * hd;
 #pragma unroll
     for (int i = 0; i < MAX_HD; ++i)
-      if (i < hd) dqp[i] = scale * acc[i];
+      if (i < hd) dqp[i] = from_f32<T>(scale * acc[i]);
   }
 
 #pragma unroll
   for (int t = 0; t < 27; ++t) tile[t * kPitch + threadIdx.x] = lg[t];  // 0 when inactive
   __syncthreads();
 
-  // the block's dl rows are one contiguous span of n*27 floats
+  // the block's dl rows are one contiguous span of n*27 values
   const int n = total - blk0 < kThreads ? static_cast<int>(total - blk0) : kThreads;
-  float* dlb = dl + blk0 * 27;
-  for (int j = threadIdx.x; j < n * 27; j += kThreads) dlb[j] = tile[(j % 27) * kPitch + j / 27];
+  T* dlb = dl + blk0 * 27;
+  for (int j = threadIdx.x; j < n * 27; j += kThreads)
+    dlb[j] = from_f32<T>(tile[(j % 27) * kPitch + j / 27]);
 
   if (drpb_part) {
     // partial[head, t] = sum of dl_t over this block's rows of that head,
@@ -144,10 +161,10 @@ modet_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
-template <int MAX_HD>
+template <typename T, int MAX_HD>
 __global__ void __launch_bounds__(kThreads)
-modet_attn_bwd_dk_kernel(const float* __restrict__ q, const float* __restrict__ dl,
-                         float* __restrict__ dk, int D, int H, int W, int heads, int hd,
+modet_attn_bwd_dk_kernel(const T* __restrict__ q, const T* __restrict__ dl,
+                         T* __restrict__ dk, int D, int H, int W, int heads, int hd,
                          float scale, long long total) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -170,42 +187,38 @@ modet_attn_bwd_dk_kernel(const float* __restrict__ q, const float* __restrict__ 
     const int sd = d - (t / 9 - 1), sh = h - ((t / 3) % 3 - 1), sw = w - (t % 3 - 1);
     if (sd >= 0 && sd < D && sh >= 0 && sh < H && sw >= 0 && sw < W) {
       const long long src = (base + (static_cast<long long>(sd) * H + sh) * W + sw) * heads + head;
-      const float dlt = __ldg(dl + src * 27 + t);
-      const float* qp = q + src * hd;
+      const float dlt = ldg_f32(dl + src * 27 + t);
+      const T* qp = q + src * hd;
 #pragma unroll
       for (int i = 0; i < MAX_HD; ++i)
-        if (i < hd) acc[i] += dlt * __ldg(qp + i);
+        if (i < hd) acc[i] += dlt * ldg_f32(qp + i);
     }
   }
-  float* dkp = dk + idx * hd;
+  T* dkp = dk + idx * hd;
 #pragma unroll
   for (int i = 0; i < MAX_HD; ++i)
-    if (i < hd) dkp[i] = scale * acc[i];
+    if (i < hd) dkp[i] = from_f32<T>(scale * acc[i]);
 }
 
 unsigned blocks_for(long long total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
 }
 
-}  // namespace
-
-// Both entry points return cudaGetLastError() after the launch (0 = launched).
-extern "C" int smilecode_modet_attn_bwd_dq(const float* q, const float* k, const float* rpb,
-                                           const float* g, float* dq, float* dl,
-                                           float* drpb_part, long long B, int D, int H, int W,
-                                           int heads, int hd, float scale, void* stream) {
+template <typename T>
+int bwd_dq(const T* q, const T* k, const float* rpb, const T* g, T* dq, T* dl, float* drpb_part,
+           long long B, int D, int H, int W, int heads, int hd, float scale, void* stream) {
   const long long total = B * D * H * W * heads;
   if (total <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = blocks_for(total);
   if (hd <= 8) {
-    modet_attn_bwd_dq_kernel<8><<<blocks, kThreads, 0, st>>>(
+    modet_attn_bwd_dq_kernel<T, 8><<<blocks, kThreads, 0, st>>>(
         q, k, rpb, g, dq, dl, drpb_part, D, H, W, heads, hd, scale, total);
   } else if (hd <= 16) {
-    modet_attn_bwd_dq_kernel<16><<<blocks, kThreads, 0, st>>>(
+    modet_attn_bwd_dq_kernel<T, 16><<<blocks, kThreads, 0, st>>>(
         q, k, rpb, g, dq, dl, drpb_part, D, H, W, heads, hd, scale, total);
   } else if (hd <= 32) {
-    modet_attn_bwd_dq_kernel<32><<<blocks, kThreads, 0, st>>>(
+    modet_attn_bwd_dq_kernel<T, 32><<<blocks, kThreads, 0, st>>>(
         q, k, rpb, g, dq, dl, drpb_part, D, H, W, heads, hd, scale, total);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -213,24 +226,57 @@ extern "C" int smilecode_modet_attn_bwd_dq(const float* q, const float* k, const
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int smilecode_modet_attn_bwd_dk(const float* q, const float* dl, float* dk,
-                                           long long B, int D, int H, int W, int heads,
-                                           int hd, float scale, void* stream) {
+template <typename T>
+int bwd_dk(const T* q, const T* dl, T* dk, long long B, int D, int H, int W, int heads, int hd,
+           float scale, void* stream) {
   const long long total = B * D * H * W * heads;
   if (total <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = blocks_for(total);
   if (hd <= 8) {
-    modet_attn_bwd_dk_kernel<8><<<blocks, kThreads, 0, st>>>(q, dl, dk, D, H, W, heads, hd,
-                                                              scale, total);
+    modet_attn_bwd_dk_kernel<T, 8><<<blocks, kThreads, 0, st>>>(q, dl, dk, D, H, W, heads, hd,
+                                                                 scale, total);
   } else if (hd <= 16) {
-    modet_attn_bwd_dk_kernel<16><<<blocks, kThreads, 0, st>>>(q, dl, dk, D, H, W, heads, hd,
-                                                               scale, total);
+    modet_attn_bwd_dk_kernel<T, 16><<<blocks, kThreads, 0, st>>>(q, dl, dk, D, H, W, heads, hd,
+                                                                  scale, total);
   } else if (hd <= 32) {
-    modet_attn_bwd_dk_kernel<32><<<blocks, kThreads, 0, st>>>(q, dl, dk, D, H, W, heads, hd,
-                                                               scale, total);
+    modet_attn_bwd_dk_kernel<T, 32><<<blocks, kThreads, 0, st>>>(q, dl, dk, D, H, W, heads, hd,
+                                                                  scale, total);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Every entry point returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int smilecode_modet_attn_bwd_dq(const float* q, const float* k, const float* rpb,
+                                           const float* g, float* dq, float* dl,
+                                           float* drpb_part, long long B, int D, int H, int W,
+                                           int heads, int hd, float scale, void* stream) {
+  return bwd_dq<float>(q, k, rpb, g, dq, dl, drpb_part, B, D, H, W, heads, hd, scale, stream);
+}
+
+extern "C" int smilecode_modet_attn_bwd_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                                const float* rpb, const __nv_bfloat16* g,
+                                                __nv_bfloat16* dq, __nv_bfloat16* dl,
+                                                float* drpb_part, long long B, int D, int H,
+                                                int W, int heads, int hd, float scale,
+                                                void* stream) {
+  return bwd_dq<__nv_bfloat16>(q, k, rpb, g, dq, dl, drpb_part, B, D, H, W, heads, hd, scale,
+                               stream);
+}
+
+extern "C" int smilecode_modet_attn_bwd_dk(const float* q, const float* dl, float* dk,
+                                           long long B, int D, int H, int W, int heads,
+                                           int hd, float scale, void* stream) {
+  return bwd_dk<float>(q, dl, dk, B, D, H, W, heads, hd, scale, stream);
+}
+
+extern "C" int smilecode_modet_attn_bwd_dk_bf16(const __nv_bfloat16* q, const __nv_bfloat16* dl,
+                                                __nv_bfloat16* dk, long long B, int D, int H,
+                                                int W, int heads, int hd, float scale,
+                                                void* stream) {
+  return bwd_dk<__nv_bfloat16>(q, dl, dk, B, D, H, W, heads, hd, scale, stream);
 }

@@ -9,8 +9,13 @@
 // normalised coordinates imply. Exact for every flow: there is no window
 // budget, so nothing like the TPU guard ladder is needed.
 //
-// Layout: src (B, SD, SH, SW, C) float32 contiguous; flow (B, FD, FH, FW, 3)
-// float32 (dd, dh, dw); out (B, FD, FH, FW, C) float32.
+// Layout: src (B, SD, SH, SW, C) contiguous, float32 or bf16 (T, see
+// io_types.cuh); flow (B, FD, FH, FW, 3) float32 (dd, dh, dw); out
+// (B, FD, FH, FW, C) in T. With a bf16 source (ModeT's feature warps on the
+// bf16 path) coordinates, corner weights and the sum stay float32 and only
+// the output is rounded, as the JAX kernels write float32
+// (warp3d_v4.py:281, :329) and their caller casts back
+// (models/modet_planes.py:256).
 //
 // What bounds it on the H100: memory latency. Each output voxel makes 8
 // data-dependent reads of C contiguous floats. One thread per output voxel
@@ -23,11 +28,17 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "io_types.cuh"
+
 namespace {
 
+using smilecode::from_f32;
+using smilecode::ldg_f32;
+
+template <typename T>
 __global__ void __launch_bounds__(256)
-warp3d_trilinear_fwd_kernel(const float* __restrict__ src, const float* __restrict__ flow,
-                            float* __restrict__ out, int SD, int SH, int SW, int C,
+warp3d_trilinear_fwd_kernel(const T* __restrict__ src, const float* __restrict__ flow,
+                            T* __restrict__ out, int SD, int SH, int SW, int C,
                             int FD, int FH, int FW, float scale_d, float scale_h,
                             float scale_w, long long total) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -62,28 +73,44 @@ warp3d_trilinear_fwd_kernel(const float* __restrict__ src, const float* __restri
                           static_cast<long long>(ih)) * SW + static_cast<long long>(iw)) * C
                       : -1;
   }
-  float* o = out + idx * C;
+  T* o = out + idx * C;
   for (int c = 0; c < C; ++c) {
     float acc = 0.f;
 #pragma unroll
     for (int corner = 0; corner < 8; ++corner)
-      if (off[corner] >= 0) acc += wt[corner] * __ldg(src + off[corner] + c);
-    o[c] = acc;
+      if (off[corner] >= 0) acc += wt[corner] * ldg_f32(src + off[corner] + c);
+    o[c] = from_f32<T>(acc);
   }
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int smilecode_warp3d_trilinear_fwd(const float* src, const float* flow, float* out,
-                                              long long B, int SD, int SH, int SW, int C,
-                                              int FD, int FH, int FW, float scale_d,
-                                              float scale_h, float scale_w, void* stream) {
+template <typename T>
+int fwd(const T* src, const float* flow, T* out, long long B, int SD, int SH, int SW, int C,
+        int FD, int FH, int FW, float scale_d, float scale_h, float scale_w, void* stream) {
   const long long total = B * FD * FH * FW;
   if (total <= 0) return static_cast<int>(cudaSuccess);
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  warp3d_trilinear_fwd_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  warp3d_trilinear_fwd_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       src, flow, out, SD, SH, SW, C, FD, FH, FW, scale_d, scale_h, scale_w, total);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Both return cudaGetLastError() after the launch (0 = launched).
+extern "C" int smilecode_warp3d_trilinear_fwd(const float* src, const float* flow, float* out,
+                                              long long B, int SD, int SH, int SW, int C,
+                                              int FD, int FH, int FW, float scale_d,
+                                              float scale_h, float scale_w, void* stream) {
+  return fwd<float>(src, flow, out, B, SD, SH, SW, C, FD, FH, FW, scale_d, scale_h, scale_w,
+                    stream);
+}
+
+extern "C" int smilecode_warp3d_trilinear_fwd_bf16(const __nv_bfloat16* src, const float* flow,
+                                                   __nv_bfloat16* out, long long B, int SD,
+                                                   int SH, int SW, int C, int FD, int FH, int FW,
+                                                   float scale_d, float scale_h, float scale_w,
+                                                   void* stream) {
+  return fwd<__nv_bfloat16>(src, flow, out, B, SD, SH, SW, C, FD, FH, FW, scale_d, scale_h,
+                            scale_w, stream);
 }

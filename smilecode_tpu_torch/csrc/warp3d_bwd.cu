@@ -15,9 +15,20 @@
 // which is the derivative that autodiff of the gather oracle gives
 // (smilecode_tpu/ops/warp.py:warp_coords), with floor's derivative 0.
 //
-// Layout: src, d_src (B, SD, SH, SW, C) float32 contiguous; flow, d_flow
-// (B, FD, FH, FW, 3); g (B, FD, FH, FW, C). d_src must be zeroed by the
-// caller; pass null to skip the scatter (a source that needs no gradient).
+// Layout: src, d_src (B, SD, SH, SW, C) contiguous; flow, d_flow
+// (B, FD, FH, FW, 3) float32; g (B, FD, FH, FW, C). src and g share one
+// storage type T, float32 or bf16 (io_types.cuh); d_flow and d_src are
+// float32 whatever T is. d_src must be zeroed by the caller; pass null to
+// skip the scatter (a source that needs no gradient).
+//
+// With bf16 src and g (the bf16 feature path) both are read as float32 and
+// d_flow is float32, as G and H give float32 d-coordinates
+// (warp3d_v4.py:521, :537). The d_src scatter of a bf16 source still adds
+// into a float32 buffer, which the caller casts to bf16 once: a bf16
+// atomicAdd would make the sum depend on the order of the additions at an
+// 8-bit mantissa. The TPU path leaves d_src to XLA's scatter
+// (models/modet_planes.py:305-308), so this accumulation type is the
+// port's choice.
 //
 // What bounds it on the H100: memory latency, as in K2: 8 data-dependent
 // reads of C contiguous floats per output voxel, plus 8*C atomic adds when
@@ -32,11 +43,17 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "io_types.cuh"
+
 namespace {
 
+using smilecode::ldg_f32;
+using smilecode::to_f32;
+
+template <typename T>
 __global__ void __launch_bounds__(256)
-warp3d_trilinear_bwd_kernel(const float* __restrict__ src, const float* __restrict__ flow,
-                            const float* __restrict__ g, float* __restrict__ d_src,
+warp3d_trilinear_bwd_kernel(const T* __restrict__ src, const float* __restrict__ flow,
+                            const T* __restrict__ g, float* __restrict__ d_src,
                             float* __restrict__ d_flow, int SD, int SH, int SW, int C, int FD,
                             int FH, int FW, float scale_d, float scale_h, float scale_w,
                             long long total) {
@@ -72,13 +89,13 @@ warp3d_trilinear_bwd_kernel(const float* __restrict__ src, const float* __restri
                       : -1;
     gv[corner] = 0.f;
   }
-  const float* gp = g + idx * C;
+  const T* gp = g + idx * C;
   for (int c = 0; c < C; ++c) {
-    const float gc = gp[c];
+    const float gc = to_f32(gp[c]);
 #pragma unroll
     for (int corner = 0; corner < 8; ++corner) {
       if (off[corner] < 0) continue;
-      gv[corner] += gc * __ldg(src + off[corner] + c);
+      gv[corner] += gc * ldg_f32(src + off[corner] + c);
       if (d_src) atomicAdd(d_src + off[corner] + c, wt[corner] * gc);
     }
   }
@@ -98,19 +115,37 @@ warp3d_trilinear_bwd_kernel(const float* __restrict__ src, const float* __restri
   df[2] = aw * scale_w;
 }
 
+template <typename T>
+int bwd(const T* src, const float* flow, const T* g, float* d_src, float* d_flow, long long B,
+        int SD, int SH, int SW, int C, int FD, int FH, int FW, float scale_d, float scale_h,
+        float scale_w, void* stream) {
+  const long long total = B * FD * FH * FW;
+  if (total <= 0) return static_cast<int>(cudaSuccess);
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  warp3d_trilinear_bwd_kernel<T><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, flow, g, d_src, d_flow, SD, SH, SW, C, FD, FH, FW, scale_d, scale_h, scale_w, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Both return cudaGetLastError() after the launch (0 = launched).
 extern "C" int smilecode_warp3d_trilinear_bwd(const float* src, const float* flow,
                                               const float* g, float* d_src, float* d_flow,
                                               long long B, int SD, int SH, int SW, int C,
                                               int FD, int FH, int FW, float scale_d,
                                               float scale_h, float scale_w, void* stream) {
-  const long long total = B * FD * FH * FW;
-  if (total <= 0) return static_cast<int>(cudaSuccess);
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  warp3d_trilinear_bwd_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, flow, g, d_src, d_flow, SD, SH, SW, C, FD, FH, FW, scale_d, scale_h, scale_w, total);
-  return static_cast<int>(cudaGetLastError());
+  return bwd<float>(src, flow, g, d_src, d_flow, B, SD, SH, SW, C, FD, FH, FW, scale_d,
+                    scale_h, scale_w, stream);
+}
+
+extern "C" int smilecode_warp3d_trilinear_bwd_bf16(const __nv_bfloat16* src, const float* flow,
+                                                   const __nv_bfloat16* g, float* d_src,
+                                                   float* d_flow, long long B, int SD, int SH,
+                                                   int SW, int C, int FD, int FH, int FW,
+                                                   float scale_d, float scale_h, float scale_w,
+                                                   void* stream) {
+  return bwd<__nv_bfloat16>(src, flow, g, d_src, d_flow, B, SD, SH, SW, C, FD, FH, FW, scale_d,
+                            scale_h, scale_w, stream);
 }

@@ -4,15 +4,18 @@ Per ordered test pair: run the model, warp x_seg with the flow (nearest),
 report Dice over the 54 VOI labels (registered and raw), and the fraction of
 voxels with Jacobian determinant <= 0. Prints mean +- std.
 
-Runs on the CUDA card when there is one (the Hopper kernels), else on the
-CPU (their plain versions). float32 throughout, with TF32 off in cuDNN
-convolutions and matmuls, for parity with the JAX package.
+Runs on the CUDA card (``device=cuda``, the default; it raises without a
+card) through the Hopper kernels, or with ``device=cpu`` on the CPU through
+their plain versions. float32, with TF32 off in cuDNN convolutions and
+matmuls, for parity with the JAX package; ModeT takes
+``compute_dtype=bfloat16`` (its feature path in bf16, the flow float32).
 
 Models: modet (modet-cu), im2grid, vtn, rcn, rdn, rdn_share, rdn_diff,
 rdn_diff_share (`models/registry.py`).
 
 Usage: python -m smilecode_tpu_torch.infer test_dir=/data/Test model_dir=experiments/<run>
        [model=rdn stages=4 levels=4,4,4,4] [torch_checkpoint=/path/dsc0.xxx.pth.tar]
+       [compute_dtype=bfloat16] [device=cpu]
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from smilecode_tpu_torch.data import Compose, Loader, LPBABrainInferDatasetS2S, 
 from smilecode_tpu_torch.metrics import dice_val_voi, fold_fraction
 from smilecode_tpu_torch.models.registry import build_model
 from smilecode_tpu_torch.ops.warp import warp
-from smilecode_tpu_torch.utils import AverageMeter, latest_checkpoint, load_checkpoint
+from smilecode_tpu_torch.utils import AverageMeter, latest_checkpoint, load_checkpoint, resolve_device
 
 
 def make_infer_step(model):
@@ -71,9 +74,9 @@ def main(cfg: InferConfig):
     if cfg.dataset != "s2s":
         raise NotImplementedError(f"dataset={cfg.dataset!r} is not ported yet "
                                   "(ROADMAP.md queue 1, item 5)")
+    device = resolve_device(cfg.device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     model = load_weights(build_model(cfg.model, cfg, device=device), cfg).eval()
 
     test_composed = Compose([Seg_norm(), NumpyType((np.float32, np.int16))])

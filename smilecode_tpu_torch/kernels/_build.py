@@ -22,6 +22,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -29,6 +31,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+IO_DTYPES = (torch.float32, torch.bfloat16)  # storage types with a kernel instance
 
 _lib = None
 build_info: dict = {}  # seconds, path and nvcc/ptxas output of the build
@@ -107,3 +111,17 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().smilecode_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def entry(name: str, t) -> str:
+    """The C entry point ``name`` of the instance for tensor ``t``'s storage
+    type: ``<name>_bf16`` for bfloat16, ``name`` for float32."""
+    return f"{name}_bf16" if t.dtype == torch.bfloat16 else name
+
+
+def count(fn, t, what: str = "launches") -> None:
+    """Add one to ``fn.<what>``, and to ``fn.<what>_bf16`` when ``t`` is
+    bfloat16 (the wrappers' launch counters)."""
+    setattr(fn, what, getattr(fn, what) + 1)
+    if t.dtype == torch.bfloat16:
+        setattr(fn, f"{what}_bf16", getattr(fn, f"{what}_bf16") + 1)

@@ -11,6 +11,14 @@ and backward.
 The sources say what bounds each kernel on the H100 and what its design does
 about that.
 
+Each kernel has a float32 and a bf16 instance (the bf16 feature path of
+ModeT, `compute_dtype="bfloat16"`): q and k both float32 or both bf16, rpb
+always float32. The bf16 instances compute in float32 and round only what
+they store, where the JAX package rounds (`csrc/io_types.cuh`): K1's output,
+K3's dq and its stored dl, K4's dk; drpb stays float32. Each wrapper's
+``launches`` counts its launches of both instances, ``launches_bf16`` those
+of the bf16 one.
+
 `modet_attention` runs the plain version (`modet_attention_plain`, the
 oracle in `ops/attention.py`, differentiated by torch autograd) for CPU
 tensors. For CUDA tensors it goes through `ModetAttentionFunction`, whose
@@ -47,7 +55,8 @@ def modet_attention_plain(q, k, rpb, scale: float) -> torch.Tensor:
 
 
 def _check(q, k, rpb, what: str):
-    """Shape checks; returns True for all-CPU tensors (the plain version)."""
+    """Shape and type checks; returns True for all-CPU tensors (the plain
+    version)."""
     if q.ndim != 6 or q.shape != k.shape:
         raise ValueError(f"q, k must be equal (B,D,H,W,heads,hd), got {tuple(q.shape)}, {tuple(k.shape)}")
     heads = q.shape[4]
@@ -59,9 +68,10 @@ def _check(q, k, rpb, what: str):
     if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
         raise ValueError(f"{what}: tensors on {[str(t.device) for t in tensors]}; "
                          "the kernel takes all on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{what}: the kernel takes float32 only "
-                        f"(got {[t.dtype for t in tensors]}); bf16 I/O is not ported yet")
+    if (q.dtype not in _build.IO_DTYPES or k.dtype != q.dtype
+            or (rpb is not None and rpb.dtype != torch.float32)):
+        raise TypeError(f"{what}: the kernel takes q and k both float32 or both bfloat16 and "
+                        f"rpb float32, got {[t.dtype for t in tensors]}")
     if not (q.is_contiguous() and k.is_contiguous()):
         raise ValueError(f"{what}: q and k must be contiguous")
     if q.shape[5] > MAX_HEAD_DIM:
@@ -78,31 +88,32 @@ def _ptr(t):
 
 
 def _launch_fwd(q, k, rpb, scale: float) -> torch.Tensor:
-    """K1: (B, D, H, W, heads*3) float32."""
+    """K1: (B, D, H, W, heads*3) in q's dtype."""
     b, d, h, w, heads, hd = q.shape
-    out = torch.empty((b, d, h, w, heads * 3), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, d, h, w, heads * 3), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     rpb_flat = _rpb_flat(rpb)
-    fn = _build.function("smilecode_modet_attn_fwd", _FWD_ARGTYPES)
+    fn = _build.function(_build.entry("smilecode_modet_attn_fwd", q), _FWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), out.data_ptr(),
                   b, d, h, w, heads, hd, float(scale), stream)
     _build.check(code, "modet_attn_fwd launch")
-    modet_attention.launches += 1
+    _build.count(modet_attention, q)
     return out
 
 
 def modet_attention_bwd_dq(q, k, rpb, scale: float, g):
     """K3 on CUDA tensors: (dq, dl, drpb_partials or None).
 
-    dl is (B, D, H, W, heads, 27) float32, K4's input; the partials are
-    (blocks, heads, 27), summed by the caller. Adds one to
-    ``modet_attention_bwd_dq.launches`` per launch."""
+    dq and dl are in q's dtype (g has it too); dl is (B, D, H, W, heads, 27),
+    K4's input; the partials are (blocks, heads, 27) float32, summed by the
+    caller. Adds one to ``modet_attention_bwd_dq.launches`` (and
+    ``.launches_bf16`` for bf16) per launch."""
     b, d, h, w, heads, hd = q.shape
     dq = torch.empty_like(q)
-    dl = torch.empty((b, d, h, w, heads, 27), dtype=torch.float32, device=q.device)
+    dl = torch.empty((b, d, h, w, heads, 27), dtype=q.dtype, device=q.device)
     rows = b * d * h * w * heads
     blocks = (rows + BLOCK_ROWS - 1) // BLOCK_ROWS
     part = (torch.empty((blocks, heads, 27), dtype=torch.float32, device=q.device)
@@ -110,30 +121,31 @@ def modet_attention_bwd_dq(q, k, rpb, scale: float, g):
     if dq.numel() == 0:
         return dq, dl, part
     rpb_flat = _rpb_flat(rpb)
-    fn = _build.function("smilecode_modet_attn_bwd_dq", _DQ_ARGTYPES)
+    fn = _build.function(_build.entry("smilecode_modet_attn_bwd_dq", q), _DQ_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), g.data_ptr(), dq.data_ptr(),
                   dl.data_ptr(), _ptr(part), b, d, h, w, heads, hd, float(scale), stream)
     _build.check(code, "modet_attn_bwd_dq launch")
-    modet_attention_bwd_dq.launches += 1
+    _build.count(modet_attention_bwd_dq, q)
     return dq, dl, part
 
 
 def modet_attention_bwd_dk(q, dl, scale: float):
-    """K4 on CUDA tensors: dk (B, D, H, W, heads, hd) from K3's dl and the
-    unscaled q. Adds one to ``modet_attention_bwd_dk.launches`` per launch."""
+    """K4 on CUDA tensors: dk (B, D, H, W, heads, hd) in q's dtype from K3's
+    dl and the unscaled q. Adds one to ``modet_attention_bwd_dk.launches``
+    (and ``.launches_bf16`` for bf16) per launch."""
     b, d, h, w, heads, hd = q.shape
     dk = torch.empty_like(q)
     if dk.numel() == 0:
         return dk
-    fn = _build.function("smilecode_modet_attn_bwd_dk", _DK_ARGTYPES)
+    fn = _build.function(_build.entry("smilecode_modet_attn_bwd_dk", q), _DK_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), dl.data_ptr(), dk.data_ptr(), b, d, h, w, heads, hd,
                   float(scale), stream)
     _build.check(code, "modet_attn_bwd_dk launch")
-    modet_attention_bwd_dk.launches += 1
+    _build.count(modet_attention_bwd_dk, q)
     return dk
 
 
@@ -148,10 +160,14 @@ def modet_attention_bwd_dq_plain(q, k, rpb, scale: float, g):
     dq[x] = scale sum_t dl_t[x] k[x + o_t],  drpb[head, t] = sum_x dl_t[x].
 
     An out-of-volume neighbour keeps its dl_t in drpb but gives nothing to
-    dq (the zero-padded key border)."""
+    dq (the zero-padded key border).
+
+    bf16 q and k (and g) are computed on in float32, q scaled in bf16 first;
+    dq and dl come back rounded to bf16, drpb float32, as K3 gives them."""
     b, d, h, w, heads, hd = q.shape
-    kp = F.pad(k, (0, 0, 0, 0, 1, 1, 1, 1, 1, 1))
-    qs = q * torch.as_tensor(scale, dtype=q.dtype)
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    kp = F.pad(k.to(cdt), (0, 0, 0, 0, 1, 1, 1, 1, 1, 1))
+    qs = (q * torch.as_tensor(scale, dtype=q.dtype)).to(cdt)
     logits = torch.stack([(qs * kp[:, od:od + d, oh:oh + h, ow:ow + w]).sum(-1)
                           for od, oh, ow in _WINDOWS], dim=-1)  # (B, D, H, W, heads, 27)
     if rpb is not None:
@@ -165,17 +181,20 @@ def modet_attention_bwd_dq_plain(q, k, rpb, scale: float, g):
     for t, (od, oh, ow) in enumerate(_WINDOWS):
         dq += dl[..., t:t + 1] * kp[:, od:od + d, oh:oh + h, ow:ow + w]
     drpb = dl.sum(dim=(0, 1, 2, 3)).reshape(heads, 3, 3, 3) if rpb is not None else None
-    return dq * scale, dl, drpb
+    return (dq * scale).to(q.dtype), dl.to(q.dtype), drpb
 
 
 def modet_attention_bwd_dk_plain(q, dl, scale: float):
     """K4's plain version: dk[x] = scale sum_t dl_t[x - o_t] q[x - o_t], over
-    in-volume sources x - o_t only."""
+    in-volume sources x - o_t only; summed in float32, returned in q's
+    dtype."""
     b, d, h, w, heads, hd = q.shape
-    dkp = torch.zeros((b, d + 2, h + 2, w + 2, heads, hd), dtype=q.dtype, device=q.device)
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    dl, qc = dl.to(cdt), q.to(cdt)
+    dkp = torch.zeros((b, d + 2, h + 2, w + 2, heads, hd), dtype=cdt, device=q.device)
     for t, (od, oh, ow) in enumerate(_WINDOWS):
-        dkp[:, od:od + d, oh:oh + h, ow:ow + w] += dl[..., t:t + 1] * q
-    return dkp[:, 1:-1, 1:-1, 1:-1] * scale
+        dkp[:, od:od + d, oh:oh + h, ow:ow + w] += dl[..., t:t + 1] * qc
+    return (dkp[:, 1:-1, 1:-1, 1:-1] * scale).to(q.dtype)
 
 
 def modet_attention_bwd_plain(q, k, rpb, scale: float, g):
@@ -194,8 +213,8 @@ def modet_attention_bwd(q, k, rpb, scale: float, g):
     if tuple(g.shape) != (b, d, h, w, heads * 3) or g.device != q.device:
         raise ValueError(f"modet_attention_bwd: g must be {(b, d, h, w, heads * 3)} on "
                          f"{q.device}, got {tuple(g.shape)} on {g.device}")
-    if g.dtype != torch.float32:
-        raise TypeError(f"modet_attention_bwd: g must be float32, got {g.dtype}")
+    if g.dtype != q.dtype:
+        raise TypeError(f"modet_attention_bwd: g must have q's dtype {q.dtype}, got {g.dtype}")
     dq, dl, part = modet_attention_bwd_dq(q, k, rpb, scale, g.contiguous())
     dk = modet_attention_bwd_dk(q, dl, scale)
     # the partials are summed outside the kernel, as the JAX package does
@@ -223,14 +242,15 @@ def modet_attention(q: torch.Tensor, k: torch.Tensor, rpb: torch.Tensor | None,
                     scale: float = 1.0) -> torch.Tensor:
     """q, k: (B, D, H, W, heads, head_dim); rpb: (heads, 3, 3, 3) or None.
 
-    Returns (B, D, H, W, heads*3) float32, differentiable in q, k and rpb.
-    Adds one to ``modet_attention.launches`` per K1 launch.
+    Returns (B, D, H, W, heads*3) in q's dtype (float32 or bf16), computed
+    in float32; differentiable in q, k and rpb. Adds one to
+    ``modet_attention.launches`` per K1 launch, and to
+    ``modet_attention.launches_bf16`` when it was the bf16 instance.
     """
     if _check(q, k, rpb, "modet_attention"):
         return modet_attention_plain(q, k, rpb, scale)
     return ModetAttentionFunction.apply(q, k, rpb, scale)
 
 
-modet_attention.launches = 0
-modet_attention_bwd_dq.launches = 0
-modet_attention_bwd_dk.launches = 0
+for _fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk):
+    _fn.launches = _fn.launches_bf16 = 0

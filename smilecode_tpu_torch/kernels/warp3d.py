@@ -14,6 +14,14 @@
 The sources say what bounds each kernel on the H100 and what its design does
 about that. Both are exact for every flow.
 
+Each kernel has a float32 and a bf16 instance: the source float32 or bf16
+(ModeT's feature warps on the bf16 path), the flow always float32. The bf16
+instances compute in float32; K2's output has the source's dtype, K5's
+d_flow is float32 and its d_src scatter adds in float32 before one cast to
+bf16 (`csrc/warp3d_bwd.cu`). Each wrapper's ``launches`` (and
+``scatters``) counts both instances, ``launches_bf16`` (``scatters_bf16``)
+the bf16 one.
+
 `warp3d_trilinear` runs the plain version (`warp3d_trilinear_plain`,
 `ops/warp.py:_warp_simple`, differentiated by torch autograd) for CPU
 tensors. For CUDA tensors it goes through `Warp3dTrilinearFunction`, whose
@@ -51,9 +59,9 @@ def _check(src, flow, what: str) -> bool:
     if src.device != flow.device or src.device.type != "cuda":
         raise ValueError(f"{what}: src on {src.device}, flow on {flow.device}; "
                          "the kernel takes both on one CUDA device")
-    if src.dtype != torch.float32 or flow.dtype != torch.float32:
-        raise TypeError(f"{what}: the kernel takes float32 only "
-                        f"(got {src.dtype}, {flow.dtype}); bf16 I/O is not ported yet")
+    if src.dtype not in _build.IO_DTYPES or flow.dtype != torch.float32:
+        raise TypeError(f"{what}: the kernel takes a float32 or bfloat16 src and a float32 "
+                        f"flow, got {src.dtype}, {flow.dtype}")
     if not (src.is_contiguous() and flow.is_contiguous()):
         raise ValueError(f"{what}: src and flow must be contiguous")
     return False
@@ -64,40 +72,42 @@ def _scale(src, flow):
 
 
 def _launch_fwd(src, flow) -> torch.Tensor:
-    """K2: (B, FD, FH, FW, C) float32."""
+    """K2: (B, FD, FH, FW, C) in src's dtype."""
     b, sd, sh, sw, c = src.shape
     fd, fh, fw = flow.shape[1:4]
-    out = torch.empty((b, fd, fh, fw, c), dtype=torch.float32, device=src.device)
+    out = torch.empty((b, fd, fh, fw, c), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out
-    fn = _build.function("smilecode_warp3d_trilinear_fwd", _FWD_ARGTYPES)
+    fn = _build.function(_build.entry("smilecode_warp3d_trilinear_fwd", src), _FWD_ARGTYPES)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         code = fn(src.data_ptr(), flow.data_ptr(), out.data_ptr(),
                   b, sd, sh, sw, c, fd, fh, fw, *_scale(src, flow), stream)
     _build.check(code, "warp3d_trilinear_fwd launch")
-    warp3d_trilinear.launches += 1
+    _build.count(warp3d_trilinear, src)
     return out
 
 
 def _launch_bwd(src, flow, g, want_dsrc: bool):
-    """K5: (d_src or None, d_flow)."""
+    """K5: (d_src or None, d_flow); d_src in src's dtype, d_flow float32."""
     b, sd, sh, sw, c = src.shape
     fd, fh, fw = flow.shape[1:4]
     d_flow = torch.empty_like(flow)
-    d_src = torch.zeros_like(src) if want_dsrc else None  # the scatter adds into zeros
+    # the scatter adds into float32 zeros, cast once for a bf16 source
+    d_src = torch.zeros(src.shape, dtype=torch.float32, device=src.device) if want_dsrc else None
     if d_flow.numel() == 0 or c == 0:
-        return d_src, d_flow.zero_()
-    fn = _build.function("smilecode_warp3d_trilinear_bwd", _BWD_ARGTYPES)
+        return None if d_src is None else d_src.to(src.dtype), d_flow.zero_()
+    fn = _build.function(_build.entry("smilecode_warp3d_trilinear_bwd", src), _BWD_ARGTYPES)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         code = fn(src.data_ptr(), flow.data_ptr(), g.data_ptr(),
                   d_src.data_ptr() if want_dsrc else None, d_flow.data_ptr(),
                   b, sd, sh, sw, c, fd, fh, fw, *_scale(src, flow), stream)
     _build.check(code, "warp3d_trilinear_bwd launch")
-    warp3d_trilinear_bwd.launches += 1
+    _build.count(warp3d_trilinear_bwd, src)
     if want_dsrc:
-        warp3d_trilinear_bwd.scatters += 1
+        _build.count(warp3d_trilinear_bwd, src, "scatters")
+        d_src = d_src.to(src.dtype)
     return d_src, d_flow
 
 
@@ -157,7 +167,8 @@ def warp3d_trilinear_bwd(src, flow, g, want_dsrc: bool = True):
     tensors, `warp3d_trilinear_bwd_plain` for CPU tensors.
 
     Adds one to ``warp3d_trilinear_bwd.launches`` per K5 launch, and one to
-    ``warp3d_trilinear_bwd.scatters`` when that launch also scattered d_src.
+    ``warp3d_trilinear_bwd.scatters`` when that launch also scattered d_src
+    (and to ``.launches_bf16``, ``.scatters_bf16`` for a bf16 source).
     """
     if _check(src, flow, "warp3d_trilinear_bwd"):
         return warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc)
@@ -165,8 +176,8 @@ def warp3d_trilinear_bwd(src, flow, g, want_dsrc: bool = True):
     if tuple(g.shape) != out_shape or g.device != src.device:
         raise ValueError(f"warp3d_trilinear_bwd: g must be {out_shape} on {src.device}, "
                          f"got {tuple(g.shape)} on {g.device}")
-    if g.dtype != torch.float32:
-        raise TypeError(f"warp3d_trilinear_bwd: g must be float32, got {g.dtype}")
+    if g.dtype != src.dtype:
+        raise TypeError(f"warp3d_trilinear_bwd: g must have src's dtype {src.dtype}, got {g.dtype}")
     return _launch_bwd(src, flow, g.contiguous(), want_dsrc)
 
 
@@ -186,10 +197,12 @@ class Warp3dTrilinearFunction(torch.autograd.Function):
 
 
 def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """src (B, SD, SH, SW, C), flow (B, FD, FH, FW, 3) -> (B, FD, FH, FW, C),
-    differentiable in both.
+    """src (B, SD, SH, SW, C), flow (B, FD, FH, FW, 3) -> (B, FD, FH, FW, C)
+    in src's dtype (float32 or bf16; the flow is float32), differentiable in
+    both.
 
-    Adds one to ``warp3d_trilinear.launches`` per K2 launch.
+    Adds one to ``warp3d_trilinear.launches`` per K2 launch, and to
+    ``warp3d_trilinear.launches_bf16`` when it was the bf16 instance.
     """
     if _check(src, flow, "warp3d_trilinear"):
         return warp3d_trilinear_plain(src, flow)
@@ -200,6 +213,6 @@ def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 # and launch count, with no fallback
 warp3d_pallas = warp3d_guarded = warp3d_trilinear
 
-warp3d_trilinear.launches = 0
-warp3d_trilinear_bwd.launches = 0
-warp3d_trilinear_bwd.scatters = 0
+warp3d_trilinear.launches = warp3d_trilinear.launches_bf16 = 0
+warp3d_trilinear_bwd.launches = warp3d_trilinear_bwd.launches_bf16 = 0
+warp3d_trilinear_bwd.scatters = warp3d_trilinear_bwd.scatters_bf16 = 0

@@ -18,6 +18,13 @@ Module names follow the reference `state_dict` keys (``encoder.conv0_0.main
 No buffers are registered.
 
 Layout: channels-last NDHWC; flow (B, D, H, W, 3) voxel displacements.
+
+``compute_dtype="bfloat16"`` runs the feature path in bf16, as the JAX
+module does (`smilecode_tpu/models/modet.py:153-210`): the encoder,
+projections, attention inputs, CWM and the feature warps; the CWM outputs
+(levels 5-3) and attention outputs (levels 2-1) are cast to float32, so flow
+composition, upsampling and the final warp of the float32 moving image run
+in float32, and the outputs are float32. Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -27,12 +34,15 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from smilecode_tpu_torch.config import COMPUTE_DTYPES
 from smilecode_tpu_torch.ops.attention import neighborhood_attention_3d
 from smilecode_tpu_torch.ops.blocks import (
     ConvBlock,
     ConvInsBlock,
     channels_last_convs_,
     conv3d_ndhwc,
+    layer_norm,
+    linear,
     normal_,
     reset_conv_,
 )
@@ -79,7 +89,7 @@ class ProjectionLayer(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, feat):
-        return self.norm(self.proj(feat))
+        return layer_norm(self.norm, linear(self.proj, feat))
 
 
 class CWM(nn.Module):
@@ -132,18 +142,26 @@ class ModeT(nn.Module):
     Hopper kernel wrappers (kernels for CUDA tensors, plain versions for CPU
     tensors); "plain" forces the plain PyTorch versions of both.
 
+    compute_dtype: "" (float32) or "bfloat16" (the feature path in bf16; see
+    the module docstring). Per pair the bf16 path runs 5 bf16 attentions and
+    9 warps: 4 of bf16 features, 4 float32 flow compositions and the
+    float32 moved image.
+
     Parameters are created on ``device`` and drawn from ``generator`` on the
     CPU (`ops/blocks.py`), so a seed gives the same weights on every device.
     """
 
     def __init__(self, channels: int = 4, head_dim: int = 6,
                  num_heads: Sequence[int] = (8, 4, 2, 1, 1), qk_scale: float | None = None,
-                 attn_impl: str = "auto", device=None,
+                 attn_impl: str = "auto", compute_dtype: str | None = "", device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         if attn_impl not in IMPLS:
             raise ValueError(f"attn_impl must be one of {IMPLS}, got {attn_impl!r}")
+        if (compute_dtype or "") not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}")
         self.attn_impl = attn_impl
+        self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
         c, nh = channels, tuple(num_heads)
         enc_ch = (2 * c, 4 * c, 8 * c, 16 * c, 32 * c)  # levels 1..5
         with torch.device("meta"):
@@ -178,33 +196,35 @@ class ModeT(nn.Module):
         return warp(src, flow, impl=self.attn_impl)
 
     def forward(self, moving, fixed):
-        m1, m2, m3, m4, m5 = self.encoder(moving)
-        f1, f2, f3, f4, f5 = self.encoder(fixed)
+        cd = self.compute_dtype
+        m1, m2, m3, m4, m5 = self.encoder(moving.to(cd) if cd else moving)
+        f1, f2, f3, f4, f5 = self.encoder(fixed.to(cd) if cd else fixed)
+        f32 = torch.float32
 
         # level 5 (1/16)
         w = self.mdt5(self.projblock5(f5), self.projblock5(m5))
-        flow = self.cwm5(w)  # now at 1/8
+        flow = self.cwm5(w).to(f32)  # now at 1/8
 
         # level 4 (1/8)
         m4 = self._warp(m4, flow)
         w = self.mdt4(self.projblock4(f4), self.projblock4(m4))
-        w = self.cwm4(w)
+        w = self.cwm4(w).to(f32)
         flow = self._warp(upsample2_trilinear(2 * flow), w) + w  # at 1/4
 
         # level 3 (1/4)
         m3 = self._warp(m3, flow)
         w = self.mdt3(self.projblock3(f3), self.projblock3(m3))
-        w = self.cwm3(w)
+        w = self.cwm3(w).to(f32)
         flow = self._warp(upsample2_trilinear(2 * flow), w) + w  # at 1/2
 
         # level 2 (1/2): single head, no CWM; compose THEN upsample
         m2 = self._warp(m2, flow)
-        w = self.mdt2(self.projblock2(f2), self.projblock2(m2))
+        w = self.mdt2(self.projblock2(f2), self.projblock2(m2)).to(f32)
         flow = upsample2_trilinear(2 * (self._warp(flow, w) + w))  # at full res
 
         # level 1 (full res): single head, no CWM
         m1 = self._warp(m1, flow)
-        w = self.mdt1(self.projblock1(f1), self.projblock1(m1))
+        w = self.mdt1(self.projblock1(f1), self.projblock1(m1)).to(f32)
         flow = self._warp(flow, w) + w
 
         y_moved = self._warp(moving, flow)

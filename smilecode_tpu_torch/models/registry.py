@@ -43,12 +43,16 @@ def build_model(name: str, cfg, device=None, generator: torch.Generator | None =
 
     "modet-cu" is the reference's fused-CUDA-operator variant; here it always
     takes the kernel wrappers (attn_impl="auto") whatever ``cfg.attn_impl``.
+    ``cfg.compute_dtype`` "bfloat16" is ModeT's only; the baselines raise
+    for it (the JAX registry hands it to ModeT alone and runs them in
+    float32).
     """
     name = name.lower()
-    if getattr(cfg, "compute_dtype", ""):
+    compute_dtype = getattr(cfg, "compute_dtype", "")
+    if compute_dtype and name not in MODET_NAMES:
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: bf16 I/O is not ported yet "
-            "(ROADMAP.md queue 1, item 3)")
+            f"compute_dtype={compute_dtype!r}: the bf16 path is ModeT's; {name!r} runs in "
+            "float32 only")
     if name in MODET_NAMES:
         from smilecode_tpu_torch.models.modet import ModeT
 
@@ -58,6 +62,7 @@ def build_model(name: str, cfg, device=None, generator: torch.Generator | None =
             num_heads=tuple(cfg.num_heads),
             qk_scale=cfg.qk_scale,
             attn_impl="auto" if name != "modet" else cfg.attn_impl,
+            compute_dtype=compute_dtype,
             device=device,
             generator=generator,
         )

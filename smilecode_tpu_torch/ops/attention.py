@@ -59,12 +59,19 @@ def neighborhood_attention_3d(q, k, rpb, scale: float = 1.0, impl: str = "auto",
 
 def _neighborhood_attention_plain(q, k, rpb, scale, kernel_size: int = 3) -> torch.Tensor:
     """Plain version, mirroring `_neighborhood_attention_xla`: k^3 shifted
-    slices of the zero-padded key volume, softmax, offset contraction."""
+    slices of the zero-padded key volume, softmax, offset contraction.
+
+    bf16 q and k are computed on as kernel A does
+    (`smilecode_tpu/kernels/modet_attn.py:72-77`): q is scaled in its own
+    dtype, then logits, softmax and the contraction run in float32, and the
+    result is cast to q's dtype (`_forward`, `:180`). The XLA oracle of the
+    JAX package would compute bf16 logits, which no kernel does."""
     b, d, h, w, heads, hd = q.shape
     ks = kernel_size
     pad = ks // 2
-    qs = q * torch.as_tensor(scale, dtype=q.dtype)
-    kp = F.pad(k, (0, 0, 0, 0, pad, pad, pad, pad, pad, pad))
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    qs = (q * torch.as_tensor(scale, dtype=q.dtype)).to(cdt)
+    kp = F.pad(k.to(cdt), (0, 0, 0, 0, pad, pad, pad, pad, pad, pad))
     logits = []
     for od in range(ks):
         for oh in range(ks):
@@ -79,4 +86,4 @@ def _neighborhood_attention_plain(q, k, rpb, scale, kernel_size: int = 3) -> tor
     # offsets are small integers: the sum of products is exact per term, so
     # write it out rather than trust a matmul's precision mode (TF32)
     out = torch.stack([(attn * offs[:, i]).sum(dim=-1) for i in range(3)], dim=-1)
-    return out.reshape(b, d, h, w, heads * 3)
+    return out.reshape(b, d, h, w, heads * 3).to(q.dtype)

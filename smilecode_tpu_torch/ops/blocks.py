@@ -13,6 +13,20 @@ contiguous NDHWC tensor permuted that way is ``channels_last_3d`` memory, so
 cuDNN takes it without a copy when the weights are channels_last_3d too
 (the model converts them), and the output permuted back is contiguous NDHWC.
 
+Parameters stay float32 (master weights). A layer run on a bf16 activation
+(ModeT's `compute_dtype="bfloat16"`) casts its weight and bias to the
+activation's dtype at call time, as the JAX layers do
+(`smilecode_tpu/ops/blocks.py:101,107,222,238`), so autograd gives float32
+parameter gradients, as `jax.grad` does through ``astype``. It also rounds
+where the JAX layers round, which XLA on the CPU does after every op: the
+convolution and the matmul, then the bias add (one more rounding than a
+fused bias); LayerNorm as its separate ops, not `F.layer_norm`'s single
+rounding; the leaky slope as a bf16 constant (JAX's weak-typed 0.1).
+Float32 activations take the float32 modules unchanged. No
+``torch.autocast``: its op lists run norms and softmax in float32 at cast
+points of their own, which are not the JAX package's. `instance_norm` and
+`leaky_relu` keep their input's dtype.
+
 Initialisation is drawn on the CPU from an explicit ``torch.Generator``
 (torch-default U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for conv and linear
 layers), then copied to the parameter's device, so one seed gives the same
@@ -22,6 +36,7 @@ weights on every device.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -71,8 +86,28 @@ def channels_last_convs_(model: nn.Module):
 
 def conv3d_ndhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply ``conv`` (a Conv3d, ConvTranspose3d or a Sequential of them)
-    to an NDHWC tensor; returns NDHWC."""
-    return conv(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+    to an NDHWC tensor; returns NDHWC. A Conv3d runs in ``x``'s dtype."""
+    xc = x.permute(0, 4, 1, 2, 3)
+    if not isinstance(conv, nn.Conv3d) or x.dtype == conv.weight.dtype:
+        return conv(xc).permute(0, 2, 3, 4, 1)
+    y = conv._conv_forward(xc, conv.weight.to(x.dtype), None).permute(0, 2, 3, 4, 1)
+    return y if conv.bias is None else y + conv.bias.to(x.dtype)
+
+
+def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin`` applied in ``x``'s dtype."""
+    if x.dtype == lin.weight.dtype:
+        return lin(x)
+    return F.linear(x, lin.weight.to(x.dtype)) + lin.bias.to(x.dtype)
+
+
+def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``norm`` (eps, affine) over the last axis, applied in ``x``'s dtype."""
+    if x.dtype == norm.weight.dtype:
+        return norm(x)
+    var, mean = torch.var_mean(x, dim=-1, correction=0, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + norm.eps)
+    return y * norm.weight.to(x.dtype) + norm.bias.to(x.dtype)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -82,7 +117,7 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.1) -> torch.Tensor:
-    return torch.where(x >= 0, x, alpha * x)
+    return torch.where(x >= 0, x, torch.as_tensor(alpha, dtype=x.dtype) * x)
 
 
 class ConvBlock(nn.Module):

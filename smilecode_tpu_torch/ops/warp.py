@@ -102,7 +102,9 @@ def warp_coords(src: torch.Tensor, coords: torch.Tensor, out_spatial,
     """Sample ``src`` at ABSOLUTE voxel coordinates (B, N, 3) -> out_spatial.
 
     Corner order, weights and their summation order follow
-    `smilecode_tpu/ops/warp.py:warp_coords`."""
+    `smilecode_tpu/ops/warp.py:warp_coords`. A bilinear warp of a bf16
+    source weights and sums in float32 and returns bf16; under autograd its
+    source gradient is then summed in float32 and cast once, as K5 sums it."""
     b, sd, sh, sw, c = src.shape
     fd, fh, fw = out_spatial
     n = fd * fh * fw
@@ -112,18 +114,19 @@ def warp_coords(src: torch.Tensor, coords: torch.Tensor, out_spatial,
     sizes = torch.tensor([sd, sh, sw], dtype=compute_dtype, device=src.device)
     bidx = torch.arange(b, device=src.device)[:, None]
 
-    def gather(idx):
-        """Rows of src at integer (B, N, 3) ``idx``; out-of-volume rows read
-        voxel 0 and are masked by the caller (NaN coordinates included)."""
+    def gather(table, idx):
+        """Rows of ``table`` (B, DHW, C) at integer (B, N, 3) ``idx``;
+        out-of-volume rows read voxel 0 and are masked by the caller (NaN
+        coordinates included)."""
         inb = ((idx >= 0) & (idx <= sizes - 1)).all(dim=-1)
         idxi = torch.where(inb[..., None], idx, torch.zeros((), dtype=idx.dtype,
                                                             device=idx.device)).long()
         lin = (idxi[..., 0] * sh + idxi[..., 1]) * sw + idxi[..., 2]
-        return src_flat[bidx, lin], inb
+        return table[bidx, lin], inb
 
     if mode == "nearest":
         # torch.round rounds half to even, as jnp.rint and grid_sample do
-        vals, inb = gather(torch.round(coords))
+        vals, inb = gather(src_flat, torch.round(coords))
         out = torch.where(inb[..., None], vals, torch.zeros((), dtype=src.dtype,
                                                             device=src.device))
         return out.reshape(b, fd, fh, fw, c)
@@ -133,12 +136,13 @@ def warp_coords(src: torch.Tensor, coords: torch.Tensor, out_spatial,
 
     c0 = torch.floor(coords)
     t = coords - c0
+    table = src_flat.to(compute_dtype)
     out = torch.zeros((b, n, c), dtype=compute_dtype, device=src.device)
     for od in (0, 1):
         for oh in (0, 1):
             for ow in (0, 1):
                 off = torch.tensor([od, oh, ow], dtype=compute_dtype, device=src.device)
-                vals, inb = gather(c0 + off)
+                vals, inb = gather(table, c0 + off)
                 wgt = (
                     (t[..., 0] if od else 1.0 - t[..., 0])
                     * (t[..., 1] if oh else 1.0 - t[..., 1])
@@ -146,5 +150,5 @@ def warp_coords(src: torch.Tensor, coords: torch.Tensor, out_spatial,
                 )
                 wgt = torch.where(inb, wgt, torch.zeros((), dtype=compute_dtype,
                                                         device=src.device))
-                out = out + wgt[..., None] * vals.to(compute_dtype)
+                out = out + wgt[..., None] * vals
     return out.reshape(b, fd, fh, fw, c).to(src.dtype)

@@ -10,14 +10,19 @@
 * stdout tee to ``<log_root>/<save_dir>/logfile.log``, per-step
   ``metrics.jsonl`` and ``losses and dice.txt``.
 
-Runs on the CUDA card when there is one: the forward and backward of the
-attention and the bilinear warps go through the Hopper kernels K1-K5
-(`kernels/`). On the CPU it runs their plain versions under torch autograd.
-float32 throughout, with TF32 off in cuDNN convolutions and matmuls, for
-parity with the JAX package. Weights are drawn from a ``torch.Generator``
-seeded with ``cfg.seed`` (other numbers than JAX's from the same seed).
+Runs on the CUDA card (``device=cuda``, the default; it raises without a
+card): the forward and backward of the attention and the bilinear warps go
+through the Hopper kernels K1-K5 (`kernels/`). With ``device=cpu`` it runs
+their plain versions under torch autograd. float32, with TF32 off in cuDNN
+convolutions and matmuls, for parity with the JAX package; with
+``compute_dtype=bfloat16`` ModeT's feature path runs in bf16 (the kernels'
+bf16 instances) while parameters, gradients, the loss, AMSGrad and the
+checkpoints stay float32, so a checkpoint trained in either dtype loads
+into the other. Weights are drawn from a ``torch.Generator`` seeded with
+``cfg.seed`` (other numbers than JAX's from the same seed).
 
 Usage: python -m smilecode_tpu_torch.train train_dir=/data/Train val_dir=/data/Val
+       [compute_dtype=bfloat16] [device=cpu]
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from smilecode_tpu_torch.utils import (
     MetricsWriter,
     latest_checkpoint,
     load_checkpoint,
+    resolve_device,
     save_checkpoint,
 )
 
@@ -120,6 +126,7 @@ def _resume(cfg, exp_dir, model, optimizer):
 
 def main(cfg: TrainConfig):
     check_train_config(cfg)
+    device = resolve_device(cfg.device)
     log_dir = os.path.join(cfg.log_root, cfg.save_dir)
     exp_dir = os.path.join(cfg.save_root, cfg.save_dir)
     os.makedirs(exp_dir, exist_ok=True)
@@ -128,22 +135,22 @@ def main(cfg: TrainConfig):
     metrics = MetricsWriter(log_dir)
     try:
         with open(os.path.join(log_dir, "losses and dice.txt"), "a") as f:
-            return _train(cfg, exp_dir, metrics, f)
+            return _train(cfg, device, exp_dir, metrics, f)
     finally:
         metrics.close()
         logger.close()
 
 
-def _train(cfg: TrainConfig, exp_dir: str, metrics: MetricsWriter, f):
+def _train(cfg: TrainConfig, device: torch.device, exp_dir: str, metrics: MetricsWriter, f):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     model = build_model(cfg.model, cfg, device=device,
                         generator=torch.Generator().manual_seed(cfg.seed))
     plan = loss_plan(cfg.model)
     n_params = sum(p.numel() for p in model.parameters())
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"model {cfg.model}: {n_params:,} params; device: {device} ({where})")
+    print(f"model {cfg.model}: {n_params:,} params; device: {device} ({where}); "
+          f"compute dtype: {cfg.compute_dtype or 'float32'}")
 
     optimizer = AMSGrad(model.parameters(), lr=cfg.lr)
     epoch_start, best_dsc = cfg.epoch_start, 0.0

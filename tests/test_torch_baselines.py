@@ -328,7 +328,7 @@ def assert_infer_mains_agree(tmp_path, name, seed, **cfg_kw):
     save_checkpoint({"epoch": 1, "params": random_jax_params(jax_template(name), seed),
                      "best_dsc": 0.5}, model_dir, "dsc0.500.ckpt")
     kw = dict(model=name, test_dir=test_dir, model_dir=model_dir, **cfg_kw)
-    dsc, fold = torch_infer.main(InferConfig(**kw))
+    dsc, fold = torch_infer.main(InferConfig(device="cpu", **kw))
     j_dsc, j_fold = jax_infer.main(JaxInferConfig(img_size=shape, **kw))
     assert 0.0 < dsc < 1.0 and 0.0 <= fold < 1.0
     assert dsc == pytest.approx(j_dsc, abs=1e-6)

@@ -10,7 +10,11 @@ Tolerances: attention 1e-5 absolute (outputs in [-1, 1]); warp
 1e-5 * max|src| (FMA contraction on the card, none in the plain version).
 Backward kernels: 1e-5 times the largest |gradient| (27- and 8-term float32
 sums in another order; drpb adds per-block partials, d_src is an atomic
-scatter whose order changes from run to run).
+scatter whose order changes from run to run). The bf16 instances against
+their bf16 plain versions on the same bf16 inputs: bf16 outputs within 2 bf16
+ulps of the largest magnitude, 2^-7 * max|ref| (both compute in float32 and
+round once; a sum in another order can flip the last bit), float32 outputs
+(drpb, d_flow) as above.
 """
 
 import numpy as np
@@ -21,7 +25,9 @@ from smilecode_tpu_torch.kernels.modet_attn import (
     modet_attention,
     modet_attention_bwd,
     modet_attention_bwd_dk,
+    modet_attention_bwd_dk_plain,
     modet_attention_bwd_dq,
+    modet_attention_bwd_dq_plain,
     modet_attention_bwd_plain,
     modet_attention_plain,
 )
@@ -109,9 +115,17 @@ def test_warp_f_entries_launch_k2(dev, impl, src_shape, flow_shape, c, amp):
 
 
 def test_kernels_raise_on_what_they_do_not_take(dev):
+    """bf16 is taken (q and k together, a float32 flow); float16, mixed q/k
+    dtypes, a non-float32 rpb, flow or g raise."""
     q = rand((1, 3, 3, 3, 1, 6), 6).to(dev)
-    with pytest.raises(TypeError, match="bf16"):
-        modet_attention(q.bfloat16(), q.bfloat16(), None)
+    before = modet_attention.launches_bf16
+    assert modet_attention(q.bfloat16(), q.bfloat16(), None).dtype == torch.bfloat16
+    assert modet_attention.launches_bf16 == before + 1
+    for a, b in ((q.half(), q.half()), (q, q.bfloat16()), (q.bfloat16(), q)):
+        with pytest.raises(TypeError, match="float32 or both bfloat16"):
+            modet_attention(a, b, None)
+    with pytest.raises(TypeError, match="rpb float32"):
+        modet_attention(q.bfloat16(), q.bfloat16(), torch.zeros((1, 3, 3, 3), device=dev).bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         modet_attention(q.transpose(1, 2), q.transpose(1, 2), None)
     with pytest.raises(ValueError, match="CUDA device"):
@@ -119,13 +133,17 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim"):
         big = rand((1, 2, 2, 2, 1, 33), 7).to(dev)
         modet_attention(big, big, None)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="q's dtype"):
         modet_attention_bwd(q, q, None, 1.0, torch.zeros((1, 3, 3, 3, 3), device=dev).double())
     src, flow = rand((1, 4, 4, 4, 2), 8).to(dev), torch.zeros((1, 4, 4, 4, 3), device=dev)
     with pytest.raises(ValueError, match="g must be"):
         warp3d_trilinear_bwd(src, flow, torch.zeros((1, 4, 4, 4, 3), device=dev))
-    with pytest.raises(TypeError, match="bf16"):
-        warp3d_trilinear(src.bfloat16(), flow)
+    assert warp3d_trilinear(src.bfloat16(), flow).dtype == torch.bfloat16
+    for s_, f_ in ((src.half(), flow), (src.bfloat16(), flow.bfloat16()), (src.double(), flow)):
+        with pytest.raises(TypeError, match="float32 or bfloat16 src and a float32 flow"):
+            warp3d_trilinear(s_, f_)
+    with pytest.raises(TypeError, match="g must have src's dtype"):
+        warp3d_trilinear_bwd(src.bfloat16(), flow, torch.zeros((1, 4, 4, 4, 2), device=dev))
     with pytest.raises(ValueError, match="contiguous"):
         warp3d_trilinear(src.transpose(1, 2), flow)
 
@@ -222,3 +240,93 @@ def test_warp_autograd_scatters_only_when_src_needs_grad(dev):
             assert_scaled_close(s.grad, ref_src, "d_src")
         else:
             assert s.grad is None
+
+
+BF16 = torch.bfloat16
+
+
+def assert_bf16_close(got, want, what):
+    """2 bf16 ulps of the largest magnitude, 2^-7 * max|want|."""
+    assert got.dtype == want.dtype, what
+    want = want.float()
+    atol = 2.0 ** -7 * max(float(want.abs().max()), 1e-3)
+    torch.testing.assert_close(got.float().cpu(), want.cpu(), rtol=0, atol=atol, msg=what)
+
+
+@pytest.mark.parametrize("shape,heads,hd,scale,with_rpb", [
+    ((5, 7, 6), 1, 6, 1.0, True),
+    ((3, 4, 5), 8, 6, 1.0, True),
+    ((4, 5, 3), 2, 16, 0.4, True),  # a scale that bf16 rounds
+    ((10, 12, 10), 1, 6, 1.0, False),
+])
+def test_bf16_attention_kernels_match_plain(dev, shape, heads, hd, scale, with_rpb):
+    """K1, K3 and K4 on bf16 q and k vs their plain versions on the card:
+    out, dq, dl, dk in bf16; drpb float32."""
+    q, k = (rand((2, *shape, heads, hd), s).to(dev).to(BF16) for s in (31, 32))
+    rpb = rand((heads, 3, 3, 3), 33).to(dev) if with_rpb else None
+    g = rand((2, *shape, heads * 3), 34).to(dev).to(BF16)
+    counts = (modet_attention.launches_bf16, modet_attention_bwd_dq.launches_bf16,
+              modet_attention_bwd_dk.launches_bf16)
+    assert_bf16_close(modet_attention(q, k, rpb, scale), modet_attention_plain(q, k, rpb, scale),
+                      "out")
+    dq, dl, part = modet_attention_bwd_dq(q, k, rpb, scale, g)
+    p_dq, p_dl, p_drpb = modet_attention_bwd_dq_plain(q, k, rpb, scale, g)
+    assert_bf16_close(dq, p_dq, "dq")
+    assert_bf16_close(dl, p_dl, "dl")
+    assert_bf16_close(modet_attention_bwd_dk(q, p_dl, scale), modet_attention_bwd_dk_plain(q, p_dl, scale),
+                      "dk")
+    if with_rpb:
+        drpb = part.sum(0).reshape(heads, 3, 3, 3)
+        assert drpb.dtype == torch.float32
+        atol = 1e-6 * float(p_dl.float().abs().sum(dim=(0, 1, 2, 3)).max())
+        torch.testing.assert_close(drpb.cpu(), p_drpb.cpu(), rtol=0, atol=atol)
+    torch.cuda.synchronize()
+    assert (modet_attention.launches_bf16, modet_attention_bwd_dq.launches_bf16,
+            modet_attention_bwd_dk.launches_bf16) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.parametrize("src_shape,flow_shape,c,amp", [
+    ((6, 7, 8), (6, 7, 8), 8, 2.0),
+    ((5, 7, 6), (5, 7, 6), 16, 20.0),
+    ((9, 11, 7), (5, 6, 4), 3, 1.0),  # shape-mismatch rescale
+    ((4, 5, 3), (4, 5, 3), 64, 3.0),
+])
+def test_bf16_warp_kernels_match_plain(dev, src_shape, flow_shape, c, amp):
+    """K2 and K5 on a bf16 source and a float32 flow vs their plain
+    versions: out and d_src bf16 (the scatter sums in float32), d_flow
+    float32; the F entries of ``ops.warp`` take bf16 too."""
+    from smilecode_tpu_torch.ops.warp import warp
+
+    src = rand((2, *src_shape, c), 35).to(dev).to(BF16)
+    flow = rand((2, *flow_shape, 3), 36, amp).to(dev)
+    g = rand((2, *flow_shape, c), 37).to(dev).to(BF16)
+    ref = warp3d_trilinear_plain(src, flow)
+    for impl in ("auto", "pallas", "guarded"):
+        assert_bf16_close(warp(src, flow, impl=impl), ref, f"out ({impl})")
+    counts = (warp3d_trilinear_bwd.launches_bf16, warp3d_trilinear_bwd.scatters_bf16)
+    d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, True)
+    p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, True)
+    assert d_flow.dtype == torch.float32
+    assert_bf16_close(d_src, p_src, "d_src")
+    assert_scaled_close(d_flow, p_flow.cpu(), "d_flow")
+    torch.cuda.synchronize()
+    assert (warp3d_trilinear_bwd.launches_bf16, warp3d_trilinear_bwd.scatters_bf16) == (
+        counts[0] + 1, counts[1] + 1)
+
+
+def test_bf16_autograd_runs_the_bf16_kernels(dev):
+    """Autograd through K1 and K2 on bf16 inputs launches the bf16 K3, K4 and
+    K5 and gives gradients in the inputs' dtypes."""
+    q, k = (rand((1, 4, 5, 3, 2, 6), s).to(dev).to(BF16).requires_grad_() for s in (38, 39))
+    rpb = rand((2, 3, 3, 3), 40).to(dev).requires_grad_()
+    src = rand((1, 4, 5, 3, 4), 41).to(dev).to(BF16).requires_grad_()
+    flow = rand((1, 4, 5, 3, 3), 42, 2.0).to(dev).requires_grad_()
+    before = {fn: fn.launches_bf16 for fn in (modet_attention, modet_attention_bwd_dq,
+                                                modet_attention_bwd_dk, warp3d_trilinear,
+                                                warp3d_trilinear_bwd)}
+    loss = modet_attention(q, k, rpb, 1.0).float().sum() + warp3d_trilinear(src, flow).float().sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert all(fn.launches_bf16 == n + 1 for fn, n in before.items())
+    assert (q.grad.dtype, k.grad.dtype, rpb.grad.dtype) == (BF16, BF16, torch.float32)
+    assert (src.grad.dtype, flow.grad.dtype) == (BF16, torch.float32)

@@ -153,8 +153,13 @@ def test_registry():
         build_model("prnet++", cfg)
     assert type(build_model("rdn-diff", InferConfig(stages=1, levels=(1, 1, 1, 1)))).__name__ == "RDN"
     assert type(build_model("im2grid", cfg)).__name__ == "Im2grid"
-    with pytest.raises(NotImplementedError, match="bf16"):
-        build_model("modet", InferConfig(compute_dtype="bfloat16"))
+    bf16 = build_model("modet", InferConfig(compute_dtype="bfloat16"))
+    assert bf16.compute_dtype == torch.bfloat16 and build_model("modet", cfg).compute_dtype is None
+    vol = torch.rand(1, 16, 16, 16, 1)
+    with torch.no_grad():
+        assert all(o.dtype == torch.float32 and bool(o.isfinite().all()) for o in bf16(vol, vol))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        build_model("modet", InferConfig(compute_dtype="float16"))
     with pytest.raises(ValueError, match="unknown"):
         build_model("nope", cfg)
 
@@ -197,7 +202,8 @@ def test_infer_main_matches_jax_driver(infer_setup):
     from smilecode_tpu_torch import infer as torch_infer
 
     test_dir, model_dir, _ = infer_setup
-    dsc, fold = torch_infer.main(InferConfig(test_dir=str(test_dir), model_dir=str(model_dir)))
+    dsc, fold = torch_infer.main(InferConfig(test_dir=str(test_dir), model_dir=str(model_dir),
+                                             device="cpu"))
     j_dsc, j_fold = jax_infer.main(JaxInferConfig(
         test_dir=str(test_dir), model_dir=str(model_dir), img_size=SHAPE,
         fast_path="off", attn_impl="xla"))
@@ -206,7 +212,8 @@ def test_infer_main_matches_jax_driver(infer_setup):
     assert fold == pytest.approx(j_fold, abs=1e-6)
     # the same weights as a reference-format .pth.tar
     t_dsc, t_fold = torch_infer.main(InferConfig(
-        test_dir=str(test_dir), torch_checkpoint=str(model_dir.parent / "dsc0.500.pth.tar")))
+        test_dir=str(test_dir), torch_checkpoint=str(model_dir.parent / "dsc0.500.pth.tar"),
+        device="cpu"))
     assert (t_dsc, t_fold) == (dsc, fold)
 
 
@@ -214,9 +221,9 @@ def test_infer_main_rejects_unported_modes(infer_setup):
     from smilecode_tpu_torch import infer as torch_infer
 
     with pytest.raises(NotImplementedError, match="MC"):
-        torch_infer.main(InferConfig(mc_iter=2))
+        torch_infer.main(InferConfig(mc_iter=2, device="cpu"))
     with pytest.raises(NotImplementedError, match="half"):
-        torch_infer.main(InferConfig(dataset="half"))
+        torch_infer.main(InferConfig(dataset="half", device="cpu"))
 
 
 _NO_JAX = r"""

@@ -34,7 +34,7 @@ from smilecode_tpu.train import resolve_weights as jax_resolve_weights
 from smilecode_tpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from smilecode_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
 from smilecode_tpu_torch import train
-from smilecode_tpu_torch.config import TrainConfig, check_train_config
+from smilecode_tpu_torch.config import InferConfig, TrainConfig, check_train_config
 from smilecode_tpu_torch.convert import params_from_state_dict, state_dict_from_jax
 from smilecode_tpu_torch.data import Loader
 from smilecode_tpu_torch.data.trans import LPBA_SEG_TABLE
@@ -193,6 +193,7 @@ def write_subjects(root, n_train=3, n_val=2, seed=41):
 
 def config(root, **kw):
     kw.setdefault("num_workers", 2)
+    kw.setdefault("device", "cpu")
     return TrainConfig(train_dir=str(root / "Train"), val_dir=str(root / "Val"),
                        save_root=str(root / "experiments"), log_root=str(root / "logs"), **kw)
 
@@ -291,6 +292,23 @@ def test_loss_decreases_on_one_pair():
 
 def test_unported_knobs_raise():
     for kw, match in (({"dp": 2}, "multi-GPU"), ({"spatial": 2}, "multi-GPU"),
-                      ({"dataset": "half"}, "half"), ({"compute_dtype": "bfloat16"}, "bf16")):
+                      ({"dataset": "half"}, "half")):
         with pytest.raises(NotImplementedError, match=match):
             check_train_config(TrainConfig(**kw))
+    check_train_config(TrainConfig(compute_dtype="bfloat16"))  # the bf16 path is ported
+    with pytest.raises(ValueError, match="compute_dtype"):
+        check_train_config(TrainConfig(compute_dtype="float16"))
+
+
+def test_entry_points_raise_without_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """``device`` defaults to "cuda": without a card `train.main` and
+    `infer.main` raise, and never fall back to the CPU unasked."""
+    from smilecode_tpu_torch import infer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert TrainConfig().device == "cuda" and InferConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        train.main(config(tmp_path, device="cuda"))
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        infer.main(InferConfig(test_dir=str(tmp_path), model_dir=str(tmp_path), device="cuda"))
+    assert not (tmp_path / "experiments").exists()
