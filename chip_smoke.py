@@ -11,7 +11,13 @@ It builds the Hopper kernels from `smilecode_tpu_torch/csrc/` and then:
    level shapes of a 160x192x160 pair; max abs error <= 1e-5.
 2. K2 (trilinear warp) vs its plain version at the nine warp shapes of a
    pair, each with a smooth +-5 voxel flow and a wild uniform +-20 voxel
-   flow; max abs error <= 1e-5 * max|src|.
+   flow; max abs error <= 1e-5 * max|src|. Each call must take the vector
+   path (a lane group per voxel, 16-byte loads) where a row of C values is a
+   whole number of 16-byte vectors, else the scalar path (the wrappers'
+   ``launches_vector``). Per shape: the kernel's ms per call (CUDA events,
+   the wrapper's host time included), its device ms (the calls queued
+   behind a spin kernel, so that the events time the kernels alone),
+   `F.grid_sample`'s of both, the bound and the path.
 3. The slice through its entry point: `smilecode_tpu_torch.infer.main` on 3
    synthetic 160x192x160 subjects (6 ordered pairs) with seeded full-width
    ModeT weights saved as a JAX-format checkpoint. The kernels' launch
@@ -24,7 +30,9 @@ It builds the Hopper kernels from `smilecode_tpu_torch/csrc/` and then:
 6. K3 and K4 (attention backward) vs their plain versions at the five level
    shapes: dq, dl, drpb (K3) and dk (K4, on the plain dl).
 7. K5 (warp adjoint) vs its plain version at the nine warp shapes, smooth
-   +-5 and wild +-20 voxel flows: d_flow and the d_src scatter.
+   +-5 and wild +-20 voxel flows: d_flow and the d_src scatter; path and
+   per-shape times as phase 2, and each scatter shape's time without the
+   scatter.
 8. The training slice through its entry point:
    `smilecode_tpu_torch.train.main` on synthetic 160x192x160 subjects (6
    steps, then validation on 2 pairs and a checkpoint), which
@@ -49,7 +57,7 @@ The baseline-serving slice (Im2grid, RCN, RDN):
    ``"guarded"``, at the baselines' warp shapes (RDN features C=16..128,
    C=3 flows, RCN's 128x192x128 image and flow, one source/flow shape
    mismatch), smooth +-5 and wild +-20 voxel flows, vs plain; one launch
-   per call.
+   per call; path and per-shape times as phase 2.
 13. `smilecode_tpu_torch.infer.main` for im2grid, rdn and rdn_diff_share on
    the 160x192x160 subjects and rcn on 3 synthetic 128x192x128 subjects
    (VTN needs axes that are multiples of 64), with seeded weights whose
@@ -70,7 +78,7 @@ The bf16 feature path (ModeT's ``compute_dtype="bfloat16"``):
    output's largest magnitude, float32 outputs (drpb, d_flow) as the
    float32 gates; CUDA-event ms of each beside its plain version, the f32
    kernel at the same shapes and, for K2 and K5, `F.grid_sample` and its
-   backward.
+   backward; K2 and K5 on the path each row calls for, with device ms.
 16. `infer.main` with ``compute_dtype=bfloat16`` on the phase-3 subjects and
    checkpoint: exactly 5 bf16 K1 and 4 bf16 + 5 f32 K2 launches per pair;
    the plain run launches nothing; Dice and fold beside the f32 run's.
@@ -99,8 +107,12 @@ Im2grid runs it and K2 as kernel F's counterpart with their launches in the
 kernel runs of phase 13, then the bf16 K1-K5 with their launches in the
 training run of phase 18; each with its bound (bytes or float32 operations
 at the card's published peaks) and, for K2 and K5, the time of
-`F.grid_sample` (forward or backward) on the same inputs. The last two
-lines are that record and ``{"ok": true, "device": {...}}``.
+`F.grid_sample` (forward or backward) on the same inputs, and per distinct
+shape (``ms_by_shape``, ``library_ms_by_shape``, ``bound_ms_by_shape``,
+``variant_by_shape``, ``device_ms_by_shape``,
+``library_device_ms_by_shape``; ms per call). The `infer.main` and
+`train.main` runs print how many K2 and K5 launches took the vector path. The last two lines are that
+record and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -134,6 +146,7 @@ N_VAL_SUBJECTS = 2
 N_TIMED_STEPS = 5
 RCN_SIZE = (128, 192, 128)  # the largest crop of 160x192x160 whose axes are multiples of 64
 N_TIMED_BASELINE = 5
+SPIN_CYCLES = 40_000_000  # ~20 ms of `torch.cuda._sleep` at the H100's ~1.98 GHz
 # the card's published peaks (H100 SXM, dense): HBM bytes/s and float32
 # operations/s outside the tensor cores; every kernel computes in float32,
 # its bf16 instances included, so float32 is their operations' type
@@ -203,6 +216,35 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device ms per call of ``fn`` with the host's time left out: a
+    spin kernel (`torch.cuda._sleep`, ~20 ms) holds the stream while the
+    host queues the ``iters`` calls, so the events time their kernels back
+    to back. `event_ms` includes the host's time between launches, which
+    sets a call's pace when its kernels take less time than its Python
+    side. Raises if the host took longer to queue the calls than the spin
+    lasted."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spin_start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    spin_start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    spin_ms = spin_start.elapsed_time(start)
+    require(host_ms < spin_ms, f"device_ms: queueing took {host_ms:.3f} ms, the spin {spin_ms:.3f}")
+    return start.elapsed_time(end) / iters
+
+
 def bound(nbytes: float, ops: float):
     """(ms, "bytes" | "operations"): the least time the card could take to
     move ``nbytes`` (each input read once, each output written once) and do
@@ -258,33 +300,51 @@ def grid_sample_args(src, flow, requires_grad=False):
     return inp.requires_grad_(requires_grad), grid.requires_grad_(requires_grad)
 
 
-def library_warp_ms(src, flow, g=None, want_dsrc=True, iters=10):
-    """CUDA-event ms of `F.grid_sample` on (src, flow), or with ``g`` of its
-    backward (d_input only when ``want_dsrc``, and d_grid); a bf16 source
-    takes a bf16 grid, which grid_sample requires. Timed here as a
-    yardstick only: the port never calls it. None when this torch build has
-    no such call for src's dtype."""
+def library_warp_ms(src, flow, g=None, want_dsrc=True, iters=10, timer=None):
+    """CUDA-event ms (or ``timer``'s, e.g. `device_ms`) of `F.grid_sample`
+    on (src, flow), or with ``g`` of its backward (d_input only when
+    ``want_dsrc``, and d_grid); a bf16 source takes a bf16 grid, which
+    grid_sample requires. Timed here as a yardstick only: the port never
+    calls it. None when this torch build has no such call for src's dtype."""
     try:
-        return _library_warp_ms(src, flow, g, want_dsrc, iters)
+        return _library_warp_ms(src, flow, g, want_dsrc, iters, timer or event_ms)
     except (RuntimeError, NotImplementedError) as e:
         print(f"  F.grid_sample on {src.dtype}: not available ({str(e).splitlines()[0]})")
         return None
 
 
-def _library_warp_ms(src, flow, g, want_dsrc, iters):
+def _library_warp_ms(src, flow, g, want_dsrc, iters, timer):
     import torch
     import torch.nn.functional as F
 
     inp, grid = grid_sample_args(src, flow)
     if g is None:
-        return event_ms(lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
-                                              align_corners=True), iters)
+        return timer(lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
+                                           align_corners=True), iters)
     inp.requires_grad_(want_dsrc)
     grid.requires_grad_()
     out = F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
     gl = g.permute(0, 4, 1, 2, 3).contiguous()
     wrt = (inp, grid) if want_dsrc else (grid,)
-    return event_ms(lambda: torch.autograd.grad(out, wrt, gl, retain_graph=True), iters)
+    return timer(lambda: torch.autograd.grad(out, wrt, gl, retain_graph=True), iters)
+
+
+def warp_path(fn, before, c, src, what):
+    """The path that the last call of K2 or K5 (wrapper ``fn``, whose
+    ``launches_vector`` was ``before``) took: "vector G=<lanes per voxel>"
+    or "scalar". Every tensor here is a fresh, 16-byte aligned allocation, so
+    the vector path is required exactly where a row of C values is a whole
+    number of 16-byte vectors."""
+    from smilecode_tpu_torch.kernels.warp3d import _lanes_per_voxel
+
+    vector = (c * src.element_size()) % 16 == 0
+    took = fn.launches_vector - before
+    require(took == int(vector), f"{what}: {took} vector-path launches, expected {int(vector)}")
+    return f"vector G={_lanes_per_voxel(c, src.element_size(), 0)}" if vector else "scalar"
+
+
+def shape_label(c, shape, extra=""):
+    return f"C={c} {'x'.join(map(str, shape))}{extra}"
 
 
 def level_shape(level: int, size=SIZE):
@@ -347,39 +407,52 @@ def check_attention(device, size=SIZE, timed=True, num_heads=NUM_HEADS, with_rpb
 
 
 def check_warp(device, size=SIZE, timed=True):
-    """K2 vs plain at the pair's warp shapes, smooth and wild flows;
-    returns (max_err, ms, plain_ms, grid_sample ms, (bytes, operations))
-    summed over the nine calls of a pair (smooth flows)."""
+    """K2 vs plain at the pair's warp shapes, smooth and wild flows, each
+    on the path its row calls for; returns (max_err, ms, plain_ms,
+    grid_sample ms, (bytes, operations)) summed over the nine calls of a pair
+    (smooth flows), and per distinct shape {label: dict(ms, library_ms,
+    bound_ms, variant)}, ms per call."""
     import torch
 
     from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_plain
 
     rng = np.random.default_rng(2)
-    worst, times = 0.0, {}
+    worst, times, by_shape = 0.0, {}, {}
     for _, c, level in warp_calls():
         key = (c, level)
         if key in times:
             continue
         shape = level_shape(level, size)
+        vox = int(np.prod(shape))
+        bound_ms = bound(*warp_work("K2", vox, vox, c, 4))[0]
         src = torch.from_numpy(rng.standard_normal((1, *shape, c), dtype=np.float32)).to(device)
         flows = {"smooth +-5": smooth_flow(shape, 5.0, device),
                  "wild +-20": torch.from_numpy(
                      rng.uniform(-20, 20, (1, *shape, 3)).astype(np.float32)).to(device)}
         tol = WARP_TOL * float(src.abs().max())
         for name, flow in flows.items():
+            before = warp3d_trilinear.launches_vector
             out = warp3d_trilinear(src, flow)
+            variant = warp_path(warp3d_trilinear, before, c, src, f"warp C={c} {shape}")
             err = float((out - warp3d_trilinear_plain(src, flow)).abs().max())
             require(bool(torch.isfinite(out).all()), f"warp C={c} {shape} {name}: not finite")
             require(err <= tol, f"warp C={c} {shape} {name}: max abs err {err} > {tol}")
             worst = max(worst, err)
-            line = f"K2 warp C={c} {shape} {name}: max_abs_err {err:.3e} (tol {tol:.3e})"
+            line = f"K2 warp C={c} {shape} {name} ({variant}): max_abs_err {err:.3e} (tol {tol:.3e})"
             if timed:
                 t = event_ms(lambda: warp3d_trilinear(src, flow), 20)
                 tp = event_ms(lambda: warp3d_trilinear_plain(src, flow), 5)
                 lib = library_warp_ms(src, flow)
-                line += f", kernel {t:.4f} ms, plain {tp:.4f} ms, F.grid_sample {lib:.4f} ms"
+                line += (f", kernel {t:.4f} ms, plain {tp:.4f} ms, F.grid_sample {lib:.4f} ms, "
+                         f"bound {bound_ms:.4f} ms")
                 if name.startswith("smooth"):
                     times[key] = (t, tp, lib)
+                    dev = (device_ms(lambda: warp3d_trilinear(src, flow)),
+                           library_warp_ms(src, flow, timer=device_ms))
+                    line += f"; device ms kernel {dev[0]:.4f}, F.grid_sample {fmt_ms(dev[1])}"
+                    by_shape[shape_label(c, shape)] = {
+                        "ms": t, "library_ms": lib, "bound_ms": bound_ms, "variant": variant,
+                        "device_ms": dev[0], "library_device_ms": dev[1]}
             print(line, flush=True)
         times.setdefault(key, (0.0, 0.0, 0.0))
     calls = [(c, level) for _, c, level in warp_calls()]
@@ -388,7 +461,7 @@ def check_warp(device, size=SIZE, timed=True):
     for c, level in calls:
         vox = int(np.prod(level_shape(level, size)))
         work += warp_work("K2", vox, vox, c, 4)
-    return worst, ms, plain_ms, lib_ms, tuple(work)
+    return worst, ms, plain_ms, lib_ms, tuple(work), by_shape
 
 
 def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_HEADS)),
@@ -462,17 +535,21 @@ def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_
 def check_warp_f(device):
     """K2 through kernel F's entries, ``ops.warp(impl="pallas" | "guarded")``,
     vs plain at `F_CASES`, smooth and wild flows; exactly one launch per
-    call. Returns (max_err, ms, plain_ms, grid_sample ms, (bytes,
-    operations)), summed over the smooth cases of "pallas", one call each."""
+    call, on the path its row calls for. Returns (max_err, ms, plain_ms,
+    grid_sample ms, (bytes, operations)), summed over the smooth cases of
+    "pallas", one call each, and per case {label: dict(ms, library_ms,
+    bound_ms, variant)}."""
     import torch
 
     from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_plain
     from smilecode_tpu_torch.ops.warp import warp
 
     rng = np.random.default_rng(8)
-    worst, ms, plain_ms, lib_ms, work = 0.0, 0.0, 0.0, 0.0, np.zeros(2)
+    worst, ms, plain_ms, lib_ms, work, by_shape = 0.0, 0.0, 0.0, 0.0, np.zeros(2), {}
     for what, src_shape, flow_shape, c in F_CASES:
-        work += warp_work("K2", int(np.prod(src_shape)), int(np.prod(flow_shape)), c, 4)
+        case_work = warp_work("K2", int(np.prod(src_shape)), int(np.prod(flow_shape)), c, 4)
+        work += case_work
+        bound_ms = bound(*case_work)[0]
         src = torch.from_numpy(rng.standard_normal((1, *src_shape, c), dtype=np.float32)).to(device)
         flows = {"smooth +-5": smooth_flow(flow_shape, 5.0, device),
                  "wild +-20": torch.from_numpy(
@@ -482,10 +559,11 @@ def check_warp_f(device):
             ref = warp3d_trilinear_plain(src, flow)
             line = f"K2 via ops.warp {what} C={c} src {src_shape} flow {flow_shape} {name}:"
             for impl in ("pallas", "guarded"):
-                before = warp3d_trilinear.launches
+                before, vectors = warp3d_trilinear.launches, warp3d_trilinear.launches_vector
                 out = warp(src, flow, impl=impl)
                 require(warp3d_trilinear.launches == before + 1, f"warp(impl={impl!r}) did not "
                                                                  "launch K2 exactly once")
+                variant = warp_path(warp3d_trilinear, vectors, c, src, f"{line} impl={impl}")
                 err = float((out - ref).abs().max())
                 require(bool(torch.isfinite(out).all()) and out.shape == (1, *flow_shape, c),
                         f"{line} impl={impl}: output not finite or of the wrong shape")
@@ -495,13 +573,20 @@ def check_warp_f(device):
             t = event_ms(lambda: warp(src, flow, impl="pallas"), 20)
             tp = event_ms(lambda: warp3d_trilinear_plain(src, flow), 5)
             lib = library_warp_ms(src, flow)
+            line = (f"{line} (tol {tol:.3e}; {variant}), kernel {t:.4f} ms, plain {tp:.4f} ms, "
+                    f"F.grid_sample {lib:.4f} ms, bound {bound_ms:.4f} ms")
             if name.startswith("smooth"):
                 ms, plain_ms, lib_ms = ms + t, plain_ms + tp, lib_ms + lib
-            print(f"{line} (tol {tol:.3e}), kernel {t:.4f} ms, plain {tp:.4f} ms, F.grid_sample "
-                  f"{lib:.4f} ms", flush=True)
+                dev = (device_ms(lambda: warp(src, flow, impl="pallas")),
+                       library_warp_ms(src, flow, timer=device_ms))
+                line += f"; device ms kernel {dev[0]:.4f}, F.grid_sample {fmt_ms(dev[1])}"
+                by_shape[f"{what} {shape_label(c, flow_shape)}"] = {
+                    "ms": t, "library_ms": lib, "bound_ms": bound_ms, "variant": variant,
+                    "device_ms": dev[0], "library_device_ms": dev[1]}
+            print(line, flush=True)
         del src, flows, ref, out
         torch.cuda.empty_cache()
-    return worst, ms, plain_ms, lib_ms, tuple(work)
+    return worst, ms, plain_ms, lib_ms, tuple(work), by_shape
 
 
 def fmt_ms(t):
@@ -530,8 +615,10 @@ def check_bf16_kernels(device):
     Times per pair (K1, K2) or per training step (K3, K4, K5) over the bf16
     calls of the path, on the smooth flows: the kernel, its plain version,
     the float32 kernel at the same shapes and, for K2 and K5,
-    `F.grid_sample` and its backward on the bf16 source. Returns
-    {kernel: dict(err, ms, plain_ms, f32_ms, library_ms, work)}."""
+    `F.grid_sample` and its backward on the bf16 source; K2 and K5 on the
+    path each row calls for, with per-shape times in ``by_shape`` (ms per
+    call). Returns {kernel: dict(err, ms, plain_ms, f32_ms, library_ms,
+    work, by_shape)}."""
     import torch
 
     from smilecode_tpu_torch.kernels.modet_attn import (
@@ -551,7 +638,7 @@ def check_bf16_kernels(device):
 
     bf16 = torch.bfloat16
     res = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "f32_ms": 0.0, "library_ms": None,
-               "work": np.zeros(2)} for k in ("K1", "K2", "K3", "K4", "K5")}
+               "work": np.zeros(2), "by_shape": {}} for k in ("K1", "K2", "K3", "K4", "K5")}
 
     def add(key, err, t, tp, t32, lib=None):
         r = res[key]
@@ -619,12 +706,17 @@ def check_bf16_kernels(device):
         flows = {"smooth +-5": smooth_flow(shape, 5.0, device),
                  "wild +-20": torch.from_numpy(
                      rng.uniform(-20, 20, (1, *shape, 3)).astype(np.float32)).to(device)}
+        work = {"K2": warp_work("K2", vox, vox, c, 2), "K5": warp_work("K5", vox, vox, c, 2, True)}
+        bound_ms = {key: bound(*w)[0] for key, w in work.items()}
         for name, flow in flows.items():
             line = f"bf16 K2/K5 {what} C={c} {shape} {name}:"
+            before = warp3d_trilinear.launches_vector, warp3d_trilinear_bwd.launches_vector
             out = warp3d_trilinear(src, flow)
+            variant = warp_path(warp3d_trilinear, before[0], c, src, f"{line} K2")
             require(out.dtype == bf16, f"{line} K2 output {out.dtype}")
             e2 = bf16_err(out, warp3d_trilinear_plain(src, flow), f"{line} K2")
             d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, True)
+            warp_path(warp3d_trilinear_bwd, before[1], c, src, f"{line} K5")
             p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, True)
             require(d_src.dtype == bf16 and d_flow.dtype == torch.float32,
                     f"{line} K5 dtypes {d_src.dtype}, {d_flow.dtype}")
@@ -642,17 +734,28 @@ def check_bf16_kernels(device):
                   event_ms(lambda: warp3d_trilinear_bwd_plain(src, flow, g, True), 2),
                   event_ms(lambda: warp3d_trilinear_bwd(src32, flow, g32, True), 10),
                   library_warp_ms(src, flow, g, True))
-            print(f"{line}; ms bf16 / plain bf16 / f32 kernel / F.grid_sample bf16: K2 "
-                  + " / ".join(map(fmt_ms, t2)) + ", K5 with d_src " + " / ".join(map(fmt_ms, t5)),
-                  flush=True)
+            print(f"{line} {variant}; ms bf16 / plain bf16 / f32 kernel / F.grid_sample bf16: K2 "
+                  + " / ".join(map(fmt_ms, t2)) + f" (bound {bound_ms['K2']:.4f}), K5 with d_src "
+                  + " / ".join(map(fmt_ms, t5)) + f" (bound {bound_ms['K5']:.4f})", flush=True)
             if name.startswith("smooth"):
                 add("K2", e2[0], *t2)
                 add("K5", max(e_src[0], e_flow), *t5)
+                dev = {"K2": (device_ms(lambda: warp3d_trilinear(src, flow)),
+                              library_warp_ms(src, flow, timer=device_ms)),
+                       "K5": (device_ms(lambda: warp3d_trilinear_bwd(src, flow, g, True)),
+                              library_warp_ms(src, flow, g, True, timer=device_ms))}
+                print(f"  device ms, kernel / F.grid_sample bf16: " + ", ".join(
+                    f"{key} {v[0]:.4f} / {fmt_ms(v[1])}" for key, v in dev.items()), flush=True)
+                for key, t in (("K2", t2), ("K5", t5)):
+                    res[key]["by_shape"][shape_label(c, shape)] = {
+                        "ms": t[0], "library_ms": t[3], "bound_ms": bound_ms[key],
+                        "variant": variant, "device_ms": dev[key][0],
+                        "library_device_ms": dev[key][1]}
             else:
                 for key, err in (("K2", e2[0]), ("K5", max(e_src[0], e_flow))):
                     res[key]["err"] = max(res[key]["err"], err)
-        res["K2"]["work"] += warp_work("K2", vox, vox, c, 2)
-        res["K5"]["work"] += warp_work("K5", vox, vox, c, 2, scatter=True)
+        for key, w in work.items():
+            res[key]["work"] += w
         del src, g, src32, g32, flows, out, d_src, d_flow, p_src, p_flow
         torch.cuda.empty_cache()
     return res
@@ -727,30 +830,36 @@ def check_warp_bwd(device, size=SIZE):
     """K5 vs its plain version at the pair's warp shapes, smooth and wild
     flows; d_flow within BWD_TOL of the plain version's largest |d_flow|,
     d_src (an atomic scatter, order-dependent) within BWD_TOL of its largest
-    |d_src|. Returns (max_err, ms, plain_ms, grid_sample backward ms,
-    (bytes, operations)) per training step: eight warps with the scatter,
-    the moved image's without (on the smooth flows)."""
+    |d_src|; each on the path its row calls for. Returns (max_err, ms,
+    plain_ms, grid_sample backward ms, (bytes, operations)) per training
+    step: eight warps with the scatter, the moved image's without (on the
+    smooth flows); and per distinct call {label: dict(ms, library_ms,
+    bound_ms, variant)}, ms per call."""
     import torch
 
     from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear_bwd, warp3d_trilinear_bwd_plain
 
     rng = np.random.default_rng(6)
-    worst, times = 0.0, {}
+    worst, times, by_shape = 0.0, {}, {}
     for what, c, level in warp_calls():
         want_dsrc = what != "moved image"
         key = (c, level, want_dsrc)
         if key in times:
             continue
         shape = level_shape(level, size)
+        vox = int(np.prod(shape))
+        bound_ms = bound(*warp_work("K5", vox, vox, c, 4, want_dsrc))[0]
         src = torch.from_numpy(rng.standard_normal((1, *shape, c), dtype=np.float32)).to(device)
         g = torch.from_numpy(rng.standard_normal((1, *shape, c), dtype=np.float32)).to(device)
         flows = {"smooth +-5": smooth_flow(shape, 5.0, device),
                  "wild +-20": torch.from_numpy(
                      rng.uniform(-20, 20, (1, *shape, 3)).astype(np.float32)).to(device)}
         for name, flow in flows.items():
+            before = warp3d_trilinear_bwd.launches_vector
             d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, True)
+            variant = warp_path(warp3d_trilinear_bwd, before, c, src, f"warp bwd C={c} {shape}")
             p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, True)
-            line = f"K5 warp bwd C={c} {shape} {name}:"
+            line = f"K5 warp bwd C={c} {shape} {name} ({variant}):"
             for what_, a, b in (("d_flow", d_flow, p_flow), ("d_src", d_src, p_src)):
                 require(bool(torch.isfinite(a).all()), f"warp bwd C={c} {shape} {name}: {what_}")
                 err = float((a - b).abs().max())
@@ -763,9 +872,19 @@ def check_warp_bwd(device, size=SIZE):
             tp = event_ms(lambda: warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc), 3)
             lib = library_warp_ms(src, flow, g, want_dsrc)
             line += (f"; {'with' if want_dsrc else 'without'} d_src {t:.4f} ms (plain {tp:.4f}, "
-                     f"F.grid_sample backward {lib:.4f})")
+                     f"F.grid_sample backward {lib:.4f}, bound {bound_ms:.4f})")
+            if want_dsrc:  # the scatter's share of K5's time
+                line += (f"; without d_src "
+                         f"{event_ms(lambda: warp3d_trilinear_bwd(src, flow, g, False), 10):.4f} ms")
             if name.startswith("smooth"):
                 times[key] = (t, tp, lib)
+                dev = (device_ms(lambda: warp3d_trilinear_bwd(src, flow, g, want_dsrc)),
+                       library_warp_ms(src, flow, g, want_dsrc, timer=device_ms))
+                line += f"; device ms kernel {dev[0]:.4f}, F.grid_sample backward {fmt_ms(dev[1])}"
+                label = shape_label(c, shape, "" if want_dsrc else " without d_src")
+                by_shape[label] = {"ms": t, "library_ms": lib, "bound_ms": bound_ms,
+                                   "variant": variant, "device_ms": dev[0],
+                                   "library_device_ms": dev[1]}
             print(line, flush=True)
         del src, g, flows, d_src, d_flow, p_src, p_flow
         torch.cuda.empty_cache()
@@ -774,7 +893,7 @@ def check_warp_bwd(device, size=SIZE):
     for c, level, scatter in keys:
         vox = int(np.prod(level_shape(level, size)))
         work += warp_work("K5", vox, vox, c, 4, scatter)
-    return (worst, *(sum(times[k][i] for k in keys) for i in range(3)), tuple(work))
+    return (worst, *(sum(times[k][i] for k in keys) for i in range(3)), tuple(work), by_shape)
 
 
 def launch_counts():
@@ -809,6 +928,16 @@ def reset_launch_counts():
                warp3d_trilinear, warp3d_trilinear_bwd):
         fn.launches = fn.launches_bf16 = 0
     warp3d_trilinear_bwd.scatters = warp3d_trilinear_bwd.scatters_bf16 = 0
+    warp3d_trilinear.launches_vector = warp3d_trilinear_bwd.launches_vector = 0
+
+
+def vector_counts() -> str:
+    """K2's and K5's vector-path launches since the last reset (the rest
+    took the scalar path)."""
+    from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_bwd
+
+    return (f"vector path: K2 {warp3d_trilinear.launches_vector}, "
+            f"K5 {warp3d_trilinear_bwd.launches_vector}")
 
 
 def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype=""):
@@ -828,6 +957,7 @@ def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype=""):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
+    print(f"train.main ({attn_impl}, {compute_dtype or 'float32'}): {vector_counts()}", flush=True)
     with open(os.path.join(cfg.log_root, cfg.save_dir, "metrics.jsonl")) as f:
         losses = [json.loads(line)["loss"] for line in f if '"iter"' in line]
     return best, os.path.join(cfg.save_root, cfg.save_dir), losses, counts, seconds
@@ -1064,6 +1194,8 @@ def run_infer(test_dir, model_dir, attn_impl="auto", model="modet", compute_dtyp
     dsc, fold = infer.main(cfg)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    print(f"infer.main {model} ({attn_impl}, {compute_dtype or 'float32'}): {vector_counts()}",
+          flush=True)
     return dsc, fold, launch_counts(), seconds
 
 
@@ -1219,7 +1351,7 @@ def main() -> int:
     print("== phase 1: K1 attention vs plain", flush=True)
     k1_err, k1_ms, k1_plain_ms, k1_work = check_attention(device)
     print("== phase 2: K2 warp vs plain", flush=True)
-    k2_err, k2_ms, k2_plain_ms, k2_lib_ms, k2_work = check_warp(device)
+    k2_err, k2_ms, k2_plain_ms, k2_lib_ms, k2_work, k2_shapes = check_warp(device)
 
     print("== phase 3: infer.main on synthetic 160x192x160 pairs", flush=True)
     n_pairs = N_SUBJECTS * (N_SUBJECTS - 1)
@@ -1276,7 +1408,7 @@ def main() -> int:
         print("== phase 6: K3/K4 attention backward vs plain", flush=True)
         bwd = check_attention_bwd(device)
         print("== phase 7: K5 warp adjoint vs plain", flush=True)
-        k5_err, k5_ms, k5_plain_ms, k5_lib_ms, k5_work = check_warp_bwd(device)
+        k5_err, k5_ms, k5_plain_ms, k5_lib_ms, k5_work, k5_shapes = check_warp_bwd(device)
 
         print("== phase 8: train.main on synthetic 160x192x160 subjects", flush=True)
         val_dir = os.path.join(tmp, "Val")
@@ -1332,7 +1464,7 @@ def main() -> int:
                                                           with_rpb=False)
         check_attention_bwd(device, specs=((1, 1),), with_rpb=False)
         print("== phase 12: K2 through kernel F's entries at the baselines' shapes", flush=True)
-        f_err, f_ms, f_plain_ms, f_lib_ms, f_work = check_warp_f(device)
+        f_err, f_ms, f_plain_ms, f_lib_ms, f_work, f_shapes = check_warp_f(device)
 
         print("== phase 13: infer.main for the baselines", flush=True)
         rcn_dir = os.path.join(tmp, "TestRCN")
@@ -1399,32 +1531,40 @@ def main() -> int:
 
         bf16, bf16_train_counts = run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer)
 
-    def entry(name, source, line, key, err, ms, plain_ms, work, library_ms=None, counts=None):
+    def entry(name, source, line, key, err, ms, plain_ms, work, library_ms=None, counts=None,
+              by_shape=None):
         bound_ms, bound_by = bound(*work)
-        return {"name": name, "route": "cuda", "source": f"smilecode_tpu_torch/csrc/{source}",
-                "replaces": f"smilecode_tpu/kernels/{line}",
-                "launches": (counts or train_counts)[key],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+        rec = {"name": name, "route": "cuda", "source": f"smilecode_tpu_torch/csrc/{source}",
+               "replaces": f"smilecode_tpu/kernels/{line}",
+               "launches": (counts or train_counts)[key],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms}
+        if by_shape:  # K2, K5 per distinct shape: ms per call, the path it took
+            for field in ("ms", "library_ms", "bound_ms", "variant", "device_ms",
+                          "library_device_ms"):
+                rec[f"{field}_by_shape"] = {k: v[field] for k, v in by_shape.items()}
+        return rec
 
     def bf16_entry(name, source, line, key):
         r = bf16[key]
         return entry(f"{name} (bf16)", source, line, f"{key} bf16", r["err"], r["ms"],
-                     r["plain_ms"], tuple(r["work"]), r["library_ms"], bf16_train_counts)
+                     r["plain_ms"], tuple(r["work"]), r["library_ms"], bf16_train_counts,
+                     r["by_shape"])
 
     record = {"kernels": [
         entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1", k1_err, k1_ms,
               k1_plain_ms, k1_work),
         entry("warp3d_trilinear_fwd", "warp3d.cu", "warp3d_v4.py:104", "K2", k2_err, k2_ms,
-              k2_plain_ms, k2_work, k2_lib_ms),
+              k2_plain_ms, k2_work, k2_lib_ms, by_shape=k2_shapes),
         entry("modet_attn_bwd_dq", "modet_attn_bwd.cu", "modet_attn.py:183", "K3", *bwd["K3"]),
         entry("modet_attn_bwd_dk", "modet_attn_bwd.cu", "modet_attn.py:256", "K4", *bwd["K4"]),
         entry("warp3d_trilinear_bwd", "warp3d_bwd.cu", "warp3d_v4.py:339", "K5", k5_err, k5_ms,
-              k5_plain_ms, k5_work, k5_lib_ms),
+              k5_plain_ms, k5_work, k5_lib_ms, by_shape=k5_shapes),
         entry("modet_attn_fwd (Im2grid: 1 head, no rpb)", "modet_attn.cu", "modet_attn.py:56",
               "K1", g_err, g_ms, g_plain_ms, g_work, None, base_counts),
         entry("warp3d_trilinear_fwd (ops.warp impl=pallas|guarded, baselines)", "warp3d.cu",
-              "warp3d.py:52", "K2", f_err, f_ms, f_plain_ms, f_work, f_lib_ms, base_counts),
+              "warp3d.py:52", "K2", f_err, f_ms, f_plain_ms, f_work, f_lib_ms, base_counts,
+              f_shapes),
         bf16_entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1"),
         bf16_entry("warp3d_trilinear_fwd", "warp3d.cu", "warp3d_v4.py:104", "K2"),
         bf16_entry("modet_attn_bwd_dq", "modet_attn_bwd.cu", "modet_attn.py:183", "K3"),

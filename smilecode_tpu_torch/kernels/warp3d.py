@@ -22,13 +22,21 @@ bf16 (`csrc/warp3d_bwd.cu`). Each wrapper's ``launches`` (and
 ``scatters``) counts both instances, ``launches_bf16`` (``scatters_bf16``)
 the bf16 one.
 
+Each kernel has a vector path, a group of lanes per output voxel with
+16-byte loads and stores (and vector atomics in K5's scatter), and a scalar
+path, one thread per voxel; `_lanes_per_voxel` picks one per call from C,
+the element size and the pointers' alignment, and ``launches_vector``
+counts the calls that took the vector path. Either is the hand-written
+kernel, with one launch per call.
+
 `warp3d_trilinear` runs the plain version (`warp3d_trilinear_plain`,
 `ops/warp.py:_warp_simple`, differentiated by torch autograd) for CPU
 tensors. For CUDA tensors it goes through `Warp3dTrilinearFunction`, whose
 forward launches K2 and whose backward launches K5, with the scatter half
-only when the source needs a gradient. It never falls back from the card to
-the plain version. `warp3d_trilinear_bwd_plain` writes the adjoint out
-explicitly; it is K5's oracle on the card.
+only when the source needs a gradient; when no gradient is wanted it
+launches K2 directly, without the autograd Function's host time. It never
+falls back from the card to the plain version. `warp3d_trilinear_bwd_plain`
+writes the adjoint out explicitly; it is K5's oracle on the card.
 """
 
 from __future__ import annotations
@@ -40,9 +48,9 @@ import torch
 from smilecode_tpu_torch.kernels import _build
 from smilecode_tpu_torch.ops.warp import _warp_simple, base_grid, check_warp_args, rescale_factors
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
     ctypes.c_float] * 3 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
     ctypes.c_float] * 3 + [ctypes.c_void_p]
 
 
@@ -71,6 +79,23 @@ def _scale(src, flow):
     return rescale_factors(src.shape[1:4], flow.shape[1:4]) or (1.0, 1.0, 1.0)
 
 
+def _lanes_per_voxel(c: int, itemsize: int, *ptrs: int) -> int:
+    """Lanes per output voxel of K2's and K5's vector path, or 0 for their
+    scalar path (one thread per voxel).
+
+    A row of ``c`` values of ``itemsize`` bytes takes the vector path when it
+    is a whole number of 16-byte vectors and every pointer in ``ptrs`` is
+    16-byte aligned. Its lanes are then the largest power of two, up to 32,
+    that divides the row's vector count, so C * itemsize / 16 for the rows
+    of 1 to 32 vectors that ModeT and the baselines warp; each lane takes
+    every G-th vector of the row."""
+    row = c * itemsize
+    if row == 0 or row % 16 or any(p % 16 for p in ptrs):
+        return 0
+    vectors = row // 16
+    return min(vectors & -vectors, 32)
+
+
 def _launch_fwd(src, flow) -> torch.Tensor:
     """K2: (B, FD, FH, FW, C) in src's dtype."""
     b, sd, sh, sw, c = src.shape
@@ -78,13 +103,15 @@ def _launch_fwd(src, flow) -> torch.Tensor:
     out = torch.empty((b, fd, fh, fw, c), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out
+    lanes = _lanes_per_voxel(c, src.element_size(), src.data_ptr(), out.data_ptr())
     fn = _build.function(_build.entry("smilecode_warp3d_trilinear_fwd", src), _FWD_ARGTYPES)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         code = fn(src.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                  b, sd, sh, sw, c, fd, fh, fw, *_scale(src, flow), stream)
+                  b, sd, sh, sw, c, lanes, fd, fh, fw, *_scale(src, flow), stream)
     _build.check(code, "warp3d_trilinear_fwd launch")
     _build.count(warp3d_trilinear, src)
+    warp3d_trilinear.launches_vector += bool(lanes)
     return out
 
 
@@ -97,14 +124,17 @@ def _launch_bwd(src, flow, g, want_dsrc: bool):
     d_src = torch.zeros(src.shape, dtype=torch.float32, device=src.device) if want_dsrc else None
     if d_flow.numel() == 0 or c == 0:
         return None if d_src is None else d_src.to(src.dtype), d_flow.zero_()
+    ptrs = (src.data_ptr(), g.data_ptr()) + ((d_src.data_ptr(),) if want_dsrc else ())
+    lanes = _lanes_per_voxel(c, src.element_size(), *ptrs)
     fn = _build.function(_build.entry("smilecode_warp3d_trilinear_bwd", src), _BWD_ARGTYPES)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         code = fn(src.data_ptr(), flow.data_ptr(), g.data_ptr(),
                   d_src.data_ptr() if want_dsrc else None, d_flow.data_ptr(),
-                  b, sd, sh, sw, c, fd, fh, fw, *_scale(src, flow), stream)
+                  b, sd, sh, sw, c, lanes, fd, fh, fw, *_scale(src, flow), stream)
     _build.check(code, "warp3d_trilinear_bwd launch")
     _build.count(warp3d_trilinear_bwd, src)
+    warp3d_trilinear_bwd.launches_vector += bool(lanes)
     if want_dsrc:
         _build.count(warp3d_trilinear_bwd, src, "scatters")
         d_src = d_src.to(src.dtype)
@@ -168,7 +198,8 @@ def warp3d_trilinear_bwd(src, flow, g, want_dsrc: bool = True):
 
     Adds one to ``warp3d_trilinear_bwd.launches`` per K5 launch, and one to
     ``warp3d_trilinear_bwd.scatters`` when that launch also scattered d_src
-    (and to ``.launches_bf16``, ``.scatters_bf16`` for a bf16 source).
+    (and to ``.launches_bf16``, ``.scatters_bf16`` for a bf16 source, and to
+    ``.launches_vector`` when it took the vector path).
     """
     if _check(src, flow, "warp3d_trilinear_bwd"):
         return warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc)
@@ -201,18 +232,22 @@ def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     in src's dtype (float32 or bf16; the flow is float32), differentiable in
     both.
 
-    Adds one to ``warp3d_trilinear.launches`` per K2 launch, and to
-    ``warp3d_trilinear.launches_bf16`` when it was the bf16 instance.
+    Adds one to ``warp3d_trilinear.launches`` per K2 launch, to
+    ``warp3d_trilinear.launches_bf16`` when it was the bf16 instance, and to
+    ``warp3d_trilinear.launches_vector`` when it took the vector path.
     """
     if _check(src, flow, "warp3d_trilinear"):
         return warp3d_trilinear_plain(src, flow)
-    return Warp3dTrilinearFunction.apply(src, flow)
+    if torch.is_grad_enabled() and (src.requires_grad or flow.requires_grad):
+        return Warp3dTrilinearFunction.apply(src, flow)
+    return _launch_fwd(src, flow)
 
 
 # F's entries (`smilecode_tpu/kernels/warp3d.py:238,259`): the same K2 wrapper
 # and launch count, with no fallback
 warp3d_pallas = warp3d_guarded = warp3d_trilinear
 
-warp3d_trilinear.launches = warp3d_trilinear.launches_bf16 = 0
+warp3d_trilinear.launches = warp3d_trilinear.launches_bf16 = warp3d_trilinear.launches_vector = 0
 warp3d_trilinear_bwd.launches = warp3d_trilinear_bwd.launches_bf16 = 0
+warp3d_trilinear_bwd.launches_vector = 0
 warp3d_trilinear_bwd.scatters = warp3d_trilinear_bwd.scatters_bf16 = 0

@@ -73,20 +73,70 @@ def test_attention_kernel_matches_plain(dev, shape, heads, hd, scale, with_rpb):
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("src_shape,flow_shape,c,amp", [
-    ((6, 7, 8), (6, 7, 8), 1, 2.0),
-    ((6, 7, 8), (6, 7, 8), 5, 20.0),
-    ((9, 11, 7), (5, 6, 4), 3, 1.0),  # shape-mismatch rescale
-    ((4, 4, 4), (4, 4, 4), 64, 3.0),
-])
-def test_warp_kernel_matches_plain(dev, src_shape, flow_shape, c, amp):
+def warp_flow(shape, kind, seed):
+    """(2, *shape, 3) float32 flow: a number is the scale of a N(0, 1) flow;
+    "wild" is uniform in +-20 voxels, "far" puts every sample 100 voxels
+    outside the volume, "nan" is NaN everywhere."""
+    if kind == "wild":
+        return torch.from_numpy(np.random.default_rng(seed).uniform(-20, 20, (2, *shape, 3))
+                                .astype(np.float32))
+    if kind in ("far", "nan"):
+        return torch.full((2, *shape, 3), 100.0 if kind == "far" else float("nan"))
+    return rand((2, *shape, 3), seed, kind)
+
+
+def on_card(t, dev, misaligned=False):
+    """``t`` on the card; with ``misaligned``, as a contiguous view one
+    element into a buffer, so that its data pointer is not 16-byte aligned."""
+    if not misaligned:
+        return t.to(dev)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+def vector_path(c, dtype, misaligned):
+    """Whether K2 and K5 take their vector path: a row of whole 16-byte
+    vectors from aligned pointers."""
+    return (c * torch.tensor([], dtype=dtype).element_size()) % 16 == 0 and not misaligned
+
+
+# (source shape, flow shape, C, flow kind, misaligned source): C = 1, 3, 5
+# and misaligned sources take the scalar path, the rest the vector path
+# (16 bytes: 1 lane per voxel; 8..128 channels: 2..32 lanes; 12: one lane
+# over 3 vectors; 256: 32 lanes over 2 vectors each)
+WARP_CASES = [
+    ((6, 7, 8), (6, 7, 8), 1, 2.0, False),
+    ((6, 7, 8), (6, 7, 8), 5, 20.0, False),
+    ((9, 11, 7), (5, 6, 4), 3, 1.0, False),  # shape-mismatch rescale
+    ((4, 4, 4), (4, 4, 4), 64, 3.0, False),
+    ((5, 6, 7), (5, 6, 7), 8, "wild", False),
+    ((9, 11, 7), (5, 6, 4), 16, 1.0, False),  # shape-mismatch rescale
+    ((5, 4, 6), (5, 4, 6), 4, 2.0, False),
+    ((4, 5, 6), (4, 5, 6), 12, 2.0, False),
+    ((3, 4, 3), (3, 4, 3), 128, "wild", False),
+    ((3, 3, 4), (3, 3, 4), 256, 2.0, False),
+    ((5, 6, 7), (5, 6, 7), 8, "far", False),
+    ((5, 6, 7), (5, 6, 7), 16, "nan", False),
+    ((5, 6, 7), (5, 6, 7), 3, "nan", False),
+    ((5, 6, 7), (5, 6, 7), 8, 2.0, True),  # misaligned view: scalar path
+]
+
+
+@pytest.mark.parametrize("src_shape,flow_shape,c,kind,misaligned", WARP_CASES)
+def test_warp_kernel_matches_plain(dev, src_shape, flow_shape, c, kind, misaligned):
     src = rand((2, *src_shape, c), 4)
-    flow = rand((2, *flow_shape, 3), 5, amp)
+    flow = warp_flow(flow_shape, kind, 5)
     ref = warp3d_trilinear_plain(src, flow)
-    before = warp3d_trilinear.launches
-    out = warp3d_trilinear(src.to(dev), flow.to(dev))
+    if kind in ("far", "nan"):
+        assert torch.count_nonzero(ref) == 0
+    before = (warp3d_trilinear.launches, warp3d_trilinear.launches_vector)
+    out = warp3d_trilinear(on_card(src, dev, misaligned), flow.to(dev))
     torch.cuda.synchronize()
-    assert warp3d_trilinear.launches == before + 1
+    assert (warp3d_trilinear.launches, warp3d_trilinear.launches_vector) == (
+        before[0] + 1, before[1] + vector_path(c, src.dtype, misaligned))
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5 * float(src.abs().max()))
 
 
@@ -198,23 +248,26 @@ def test_attention_autograd_runs_k1_k3_k4(dev):
         assert_scaled_close(leaf.grad, b, name)
 
 
-@pytest.mark.parametrize("src_shape,flow_shape,c,amp", [
-    ((6, 7, 5), (6, 7, 5), 1, 2.0),
-    ((5, 7, 6), (5, 7, 6), 3, 20.0),
-    ((9, 11, 7), (5, 6, 4), 3, 1.0),  # shape-mismatch rescale
-    ((4, 5, 3), (4, 5, 3), 64, 3.0),
-])
-def test_warp_backward_kernel_matches_plain(dev, src_shape, flow_shape, c, amp):
+@pytest.mark.parametrize("src_shape,flow_shape,c,kind,misaligned", WARP_CASES)
+def test_warp_backward_kernel_matches_plain(dev, src_shape, flow_shape, c, kind, misaligned):
+    """K5 vs its plain version; for a NaN flow (where the plain version's
+    arithmetic gives NaN) every corner is outside the volume, so d_src and
+    d_flow are 0."""
     src = rand((2, *src_shape, c), 19)
-    flow = rand((2, *flow_shape, 3), 20, amp)
+    flow = warp_flow(flow_shape, kind, 20)
     g = rand((2, *flow_shape, c), 21)
     for want_dsrc in (True, False):
         ref = warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc)
-        before = (warp3d_trilinear_bwd.launches, warp3d_trilinear_bwd.scatters)
-        d_src, d_flow = warp3d_trilinear_bwd(src.to(dev), flow.to(dev), g.to(dev), want_dsrc)
+        if kind == "nan":
+            ref = tuple(None if r is None else torch.zeros_like(r) for r in ref)
+        counters = ("launches", "scatters", "launches_vector")
+        before = [getattr(warp3d_trilinear_bwd, k) for k in counters]
+        d_src, d_flow = warp3d_trilinear_bwd(on_card(src, dev, misaligned), flow.to(dev),
+                                             on_card(g, dev, misaligned), want_dsrc)
         torch.cuda.synchronize()
-        assert (warp3d_trilinear_bwd.launches, warp3d_trilinear_bwd.scatters) == (
-            before[0] + 1, before[1] + int(want_dsrc))
+        assert [getattr(warp3d_trilinear_bwd, k) for k in counters] == [
+            before[0] + 1, before[1] + int(want_dsrc),
+            before[2] + vector_path(c, src.dtype, misaligned)]
         assert_scaled_close(d_flow, ref[1], "d_flow")
         if want_dsrc:
             assert_scaled_close(d_src, ref[0], "d_src")
@@ -285,33 +338,74 @@ def test_bf16_attention_kernels_match_plain(dev, shape, heads, hd, scale, with_r
             modet_attention_bwd_dk.launches_bf16) == tuple(c + 1 for c in counts)
 
 
-@pytest.mark.parametrize("src_shape,flow_shape,c,amp", [
-    ((6, 7, 8), (6, 7, 8), 8, 2.0),
-    ((5, 7, 6), (5, 7, 6), 16, 20.0),
-    ((9, 11, 7), (5, 6, 4), 3, 1.0),  # shape-mismatch rescale
-    ((4, 5, 3), (4, 5, 3), 64, 3.0),
+@pytest.mark.parametrize("src_shape,flow_shape,c,kind,misaligned", [
+    ((6, 7, 8), (6, 7, 8), 8, 2.0, False),
+    ((5, 7, 6), (5, 7, 6), 16, 20.0, False),
+    ((9, 11, 7), (5, 6, 4), 3, 1.0, False),  # shape-mismatch rescale
+    ((9, 11, 7), (5, 6, 4), 8, 1.0, False),  # shape-mismatch rescale
+    ((4, 5, 3), (4, 5, 3), 64, 3.0, False),
+    ((5, 6, 4), (5, 6, 4), 4, "wild", False),  # 8-byte rows: scalar path
+    ((5, 6, 4), (5, 6, 4), 16, "wild", False),
+    ((5, 6, 4), (5, 6, 4), 8, "far", False),
+    ((5, 6, 4), (5, 6, 4), 16, "nan", False),
+    ((5, 6, 4), (5, 6, 4), 16, 2.0, True),  # misaligned view: scalar path
 ])
-def test_bf16_warp_kernels_match_plain(dev, src_shape, flow_shape, c, amp):
+def test_bf16_warp_kernels_match_plain(dev, src_shape, flow_shape, c, kind, misaligned):
     """K2 and K5 on a bf16 source and a float32 flow vs their plain
     versions: out and d_src bf16 (the scatter sums in float32), d_flow
-    float32; the F entries of ``ops.warp`` take bf16 too."""
+    float32; the F entries of ``ops.warp`` take bf16 too. A NaN flow gives
+    zeros (every corner outside the volume)."""
     from smilecode_tpu_torch.ops.warp import warp
 
-    src = rand((2, *src_shape, c), 35).to(dev).to(BF16)
-    flow = rand((2, *flow_shape, 3), 36, amp).to(dev)
-    g = rand((2, *flow_shape, c), 37).to(dev).to(BF16)
+    src = on_card(rand((2, *src_shape, c), 35).to(BF16), dev, misaligned)
+    flow = warp_flow(flow_shape, kind, 36).to(dev)
+    g = on_card(rand((2, *flow_shape, c), 37).to(BF16), dev, misaligned)
+    vector = vector_path(c, BF16, misaligned)
     ref = warp3d_trilinear_plain(src, flow)
     for impl in ("auto", "pallas", "guarded"):
+        before = (warp3d_trilinear.launches_bf16, warp3d_trilinear.launches_vector)
         assert_bf16_close(warp(src, flow, impl=impl), ref, f"out ({impl})")
-    counts = (warp3d_trilinear_bwd.launches_bf16, warp3d_trilinear_bwd.scatters_bf16)
+        assert (warp3d_trilinear.launches_bf16, warp3d_trilinear.launches_vector) == (
+            before[0] + 1, before[1] + vector)
+    counters = ("launches_bf16", "scatters_bf16", "launches_vector")
+    before = [getattr(warp3d_trilinear_bwd, k) for k in counters]
     d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, True)
     p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, True)
+    if kind == "nan":
+        p_src, p_flow = torch.zeros_like(p_src), torch.zeros_like(p_flow)
     assert d_flow.dtype == torch.float32
     assert_bf16_close(d_src, p_src, "d_src")
     assert_scaled_close(d_flow, p_flow.cpu(), "d_flow")
     torch.cuda.synchronize()
-    assert (warp3d_trilinear_bwd.launches_bf16, warp3d_trilinear_bwd.scatters_bf16) == (
-        counts[0] + 1, counts[1] + 1)
+    assert [getattr(warp3d_trilinear_bwd, k) for k in counters] == [
+        before[0] + 1, before[1] + 1, before[2] + vector]
+
+
+def test_warp_kernels_index_past_2_31(dev):
+    """A bf16 source of 3 * 2^30 elements (6 GiB, B=2) takes the 64-bit
+    instances of K2 and K5 (vector path, C=8): an 8^3 flow grid, rescaled to
+    the source, samples corners across both volumes, the second of which
+    lies mostly past element 2^31."""
+    gen = torch.Generator(dev).manual_seed(0)
+    src = torch.randn((2, 384, 512, 1024, 8), generator=gen, device=dev).to(BF16)
+    flow = torch.rand((2, 8, 8, 8, 3), generator=gen, device=dev) * 8 - 4
+    g = torch.randn((2, 8, 8, 8, 8), generator=gen, device=dev).to(BF16)
+    vectors = warp3d_trilinear.launches_vector, warp3d_trilinear_bwd.launches_vector
+    assert_bf16_close(warp3d_trilinear(src, flow), warp3d_trilinear_plain(src, flow), "out")
+    torch.cuda.empty_cache()
+    _, d_flow = warp3d_trilinear_bwd(src, flow, g, False)
+    _, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, False)
+    assert_scaled_close(d_flow, p_flow.cpu(), "d_flow")
+    torch.cuda.empty_cache()
+    d_src, _ = warp3d_trilinear_bwd(src, flow, g, True)
+    p_src, _ = warp3d_trilinear_bwd_plain(src, flow, g, True)
+    chunks = list(zip(d_src.view(-1).split(2 ** 28), p_src.view(-1).split(2 ** 28)))
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in chunks)
+    scale = max(float(b.float().abs().max()) for _, b in chunks)
+    assert 0 < scale and err <= 2.0 ** -7 * scale, (err, scale)
+    torch.cuda.synchronize()
+    assert (warp3d_trilinear.launches_vector, warp3d_trilinear_bwd.launches_vector) == (
+        vectors[0] + 1, vectors[1] + 2)
 
 
 def test_bf16_autograd_runs_the_bf16_kernels(dev):

@@ -115,10 +115,28 @@ def test_shape_mismatch_rescale_matches_jax(mode):
 
 def test_wrapper_on_cpu_runs_plain_without_launch():
     src, fl = torch.from_numpy(source((5, 6, 7), 3, 7)), torch.from_numpy(wild_flow((5, 6, 7), 4, 8))
-    before = warp3d_trilinear.launches
+    before = warp3d_trilinear.launches, warp3d_trilinear.launches_vector
     out = warp(src, fl)
-    assert warp3d_trilinear.launches == before
+    assert (warp3d_trilinear.launches, warp3d_trilinear.launches_vector) == before
     torch.testing.assert_close(out, _warp_simple(src, fl), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c,itemsize,ptrs,lanes", [
+    # f32 rows of 1..32 whole 16-byte vectors: C * 4 / 16 lanes per voxel
+    (4, 4, (0, 4096), 1), (8, 4, (0, 4096), 2), (16, 4, (256,), 4), (32, 4, (16,), 8),
+    (64, 4, (0, 16), 16), (128, 4, (0,), 32),
+    (256, 4, (0,), 32),  # 64 vectors: 32 lanes take two each
+    (12, 4, (0,), 1),  # 3 vectors: one lane takes all three
+    # bf16
+    (8, 2, (0, 64), 1), (16, 2, (0,), 2), (32, 2, (0,), 4), (64, 2, (0, 16, 32), 8),
+    # the scalar path: rows that are not whole vectors, misaligned pointers
+    (1, 4, (0,), 0), (3, 4, (0,), 0), (5, 4, (0,), 0), (4, 2, (0,), 0), (3, 2, (0,), 0),
+    (8, 4, (0, 4), 0), (64, 4, (8, 0), 0), (16, 2, (0, 0, 2), 0),
+])
+def test_lanes_per_voxel_picks_the_vector_path(c, itemsize, ptrs, lanes):
+    """K2's and K5's lanes per output voxel (0: the scalar path) from C, the
+    element size and the data pointers, as the wrappers pass it."""
+    assert port_warp3d._lanes_per_voxel(c, itemsize, *ptrs) == lanes
 
 
 def test_wrapper_never_takes_the_plain_path_off_the_cpu():
