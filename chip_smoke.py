@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 It builds the Hopper kernels from `smilecode_tpu_torch/csrc/` and then:
 
 1. K1 (neighborhood attention) vs its plain PyTorch version at ModeT's five
-   level shapes of a 160x192x160 pair; max abs error <= 1e-5.
+   level shapes of a 160x192x160 pair; max abs error <= 1e-5. Per shape:
+   ms per call (CUDA events, the wrapper's host time included), device ms
+   (`device_ms`, below) and the bound.
 2. K2 (trilinear warp) vs its plain version at the nine warp shapes of a
    pair, each with a smooth +-5 voxel flow and a wild uniform +-20 voxel
    flow; max abs error <= 1e-5 * max|src|. Each call must take the vector
@@ -28,7 +30,8 @@ It builds the Hopper kernels from `smilecode_tpu_torch/csrc/` and then:
 5. Times: median ms per pair over 12 forwards each (kernels, plain), and
    each kernel beside its plain version, per pair.
 6. K3 and K4 (attention backward) vs their plain versions at the five level
-   shapes: dq, dl, drpb (K3) and dk (K4, on the plain dl).
+   shapes: dq, dl, drpb (K3) and dk (K4, on the plain dl); per shape call ms,
+   device ms and bound of each.
 7. K5 (warp adjoint) vs its plain version at the nine warp shapes, smooth
    +-5 and wild +-20 voxel flows: d_flow and the d_src scatter; path and
    per-shape times as phase 2, and each scatter shape's time without the
@@ -52,7 +55,7 @@ The baseline-serving slice (Im2grid, RCN, RDN):
 
 11. K1 at Im2grid's five level shapes with one head, head_dim 6 and no
    rpb (its `cotr`) vs plain, max abs error <= 1e-5; K3 and K4 without rpb
-   at level 1 vs plain.
+   at level 1 vs plain; call and device ms per shape as phases 1 and 6.
 12. K2 through kernel F's entries, ``ops.warp(impl="pallas")`` and
    ``"guarded"``, at the baselines' warp shapes (RDN features C=16..128,
    C=3 flows, RCN's 128x192x128 image and flow, one source/flow shape
@@ -78,7 +81,8 @@ The bf16 feature path (ModeT's ``compute_dtype="bfloat16"``):
    output's largest magnitude, float32 outputs (drpb, d_flow) as the
    float32 gates; CUDA-event ms of each beside its plain version, the f32
    kernel at the same shapes and, for K2 and K5, `F.grid_sample` and its
-   backward; K2 and K5 on the path each row calls for, with device ms.
+   backward; K2 and K5 on the path each row calls for; device ms of each
+   kernel per shape.
 16. `infer.main` with ``compute_dtype=bfloat16`` on the phase-3 subjects and
    checkpoint: exactly 5 bf16 K1 and 4 bf16 + 5 f32 K2 launches per pair;
    the plain run launches nothing; Dice and fold beside the f32 run's.
@@ -108,9 +112,12 @@ kernel runs of phase 13, then the bf16 K1-K5 with their launches in the
 training run of phase 18; each with its bound (bytes or float32 operations
 at the card's published peaks) and, for K2 and K5, the time of
 `F.grid_sample` (forward or backward) on the same inputs, and per distinct
-shape (``ms_by_shape``, ``library_ms_by_shape``, ``bound_ms_by_shape``,
-``variant_by_shape``, ``device_ms_by_shape``,
-``library_device_ms_by_shape``; ms per call). The `infer.main` and
+shape (``ms_by_shape``, ``bound_ms_by_shape``, ``device_ms_by_shape``; for
+K2 and K5 also ``library_ms_by_shape``, ``variant_by_shape``,
+``library_device_ms_by_shape``; ms per call). K1, K3 and K4 also carry
+``device_ms``, their device time over the path's five level shapes. Device
+ms: the calls queued behind a spin kernel, so that CUDA events time the
+kernels alone, without the wrapper's host time. The `infer.main` and
 `train.main` runs print how many K2 and K5 launches took the vector path. The last two lines are that
 record and ``{"ok": true, "device": {...}}``.
 """
@@ -253,19 +260,24 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attn_work(kernel: str, voxels: int, heads: int, hd: int, isz: int, with_rpb=True):
-    """(bytes, float32 operations) of one attention kernel call on ``voxels``
-    voxels of ``heads`` heads with ``isz``-byte q and k (K1 forward, K3 dq/dl/
-    drpb partials, K4 dk). Operations per (voxel, head): 27 tokens of a
-    head_dim dot product (2*hd), the bias add, exp and the online softmax
-    (~10); K3 adds the dl arithmetic and the dq contraction (2*hd + 6); K4
-    is the 27-token dk contraction alone."""
+def attn_work(kernel: str, shape, isz: int, with_rpb=True):
+    """(bytes, float32 operations) of one attention kernel call on q and k of
+    ``shape`` (B, D, H, W, heads, hd) with ``isz``-byte values (K1 forward,
+    K3 dq/dl/drpb partials, K4 dk). Operations per (voxel, head): 27 tokens
+    of a head_dim dot product (2*hd), the bias add, exp and the online
+    softmax (~10); K3 adds the dl arithmetic and the dq contraction (2*hd +
+    6); K4 is the 27-token dk contraction alone."""
+    from smilecode_tpu_torch.kernels.modet_attn import attn_geometry
+
+    voxels, heads, hd = int(np.prod(shape[:4])), shape[4], shape[5]
     rows = voxels * heads
     rpb = heads * 27 * 4 if with_rpb else 0
     if kernel == "K1":
         return rows * (2 * hd + 3) * isz + rpb, rows * (27 * (2 * hd + 10) + 3)
     if kernel == "K3":
-        parts = -(-rows // 256) * heads * 27 * 4 if with_rpb else 0
+        # the drpb partials: one (heads, 27) float32 row per block of K3's grid
+        blocks = attn_geometry(shape, isz)[3] if with_rpb else 0
+        parts = blocks * heads * 27 * 4
         return (rows * (3 * hd + 3 + 27) * isz + rpb + parts,
                 rows * 27 * (4 * hd + 16))
     return rows * (2 * hd + 27) * isz, rows * 27 * 2 * hd  # K4
@@ -371,19 +383,25 @@ def smooth_flow(shape, amp, device):
     return (amp * torch.stack(comps, -1))[None].contiguous()
 
 
+def attn_label(level, shape):
+    return f"level {level} {'x'.join(map(str, shape[1:4]))} heads {shape[4]}"
+
+
 def check_attention(device, size=SIZE, timed=True, num_heads=NUM_HEADS, with_rpb=True):
     """K1 vs plain at every level shape (heads per level 5..1, with or
-    without rpb); returns (max_err, ms, plain_ms, (bytes, operations)) per
-    pair."""
+    without rpb); returns (max_err, ms, plain_ms, (bytes, operations),
+    device_ms) per pair and per level shape {label: dict(ms, device_ms,
+    bound_ms)}, ms per call."""
     import torch
 
     from smilecode_tpu_torch.kernels.modet_attn import modet_attention, modet_attention_plain
 
     rng = np.random.default_rng(1)
-    worst, ms, plain_ms, work = 0.0, 0.0, 0.0, np.zeros(2)
+    worst, ms, plain_ms, dev_ms, work, by_shape = 0.0, 0.0, 0.0, 0.0, np.zeros(2), {}
     for level, heads in zip((5, 4, 3, 2, 1), num_heads):
         shape = (1, *level_shape(level, size), heads, HEAD_DIM)
-        work += attn_work("K1", int(np.prod(shape[1:4])), heads, HEAD_DIM, 4, with_rpb)
+        shape_work = attn_work("K1", shape, 4, with_rpb)
+        work += shape_work
         q = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
         k = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
         rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(
@@ -400,10 +418,14 @@ def check_attention(device, size=SIZE, timed=True, num_heads=NUM_HEADS, with_rpb
         if timed:
             t = event_ms(lambda: modet_attention(q, k, rpb, 1.0), 20)
             tp = event_ms(lambda: modet_attention_plain(q, k, rpb, 1.0), 5)
-            ms, plain_ms = ms + t, plain_ms + tp
-            line += f", kernel {t:.4f} ms, plain {tp:.4f} ms"
+            dev = device_ms(lambda: modet_attention(q, k, rpb, 1.0))
+            bound_ms = bound(*shape_work)[0]
+            ms, plain_ms, dev_ms = ms + t, plain_ms + tp, dev_ms + dev
+            by_shape[attn_label(level, shape)] = {"ms": t, "device_ms": dev, "bound_ms": bound_ms}
+            line += (f", kernel {t:.4f} ms, device {dev:.4f} ms, plain {tp:.4f} ms, bound "
+                     f"{bound_ms:.4f} ms")
         print(line, flush=True)
-    return worst, ms, plain_ms, tuple(work)
+    return worst, ms, plain_ms, tuple(work), dev_ms, by_shape
 
 
 def check_warp(device, size=SIZE, timed=True):
@@ -467,16 +489,17 @@ def check_warp(device, size=SIZE, timed=True):
 def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_HEADS)),
                         with_rpb=True):
     """K3, K4 vs their plain versions at every level shape; returns
-    {kernel: (max_err, ms, plain_ms, (bytes, operations))} summed over the
-    five calls of a training step.
+    {kernel: (max_err, ms, plain_ms, (bytes, operations), device_ms,
+    by_shape)} summed over the five calls of a training step, with per level
+    shape {label: dict(ms, device_ms, bound_ms)}, ms per call.
 
     Tolerances: dq, dl and dk within BWD_TOL of the plain version's largest
     magnitude (27-term float32 sums in another order). drpb sums dl_t over
     every voxel, and the terms cancel (sum_t dl_t = 0 at each voxel), so its
     rounding scales with sum_x |dl_t|, not with drpb: it is held within
-    DRPB_TOL of the largest sum_x |dl_t| of the plain dl (K3 adds 256-row
-    blocks in order, then torch adds the blocks; a dropped block would be off
-    by ~256 |dl| and fail)."""
+    DRPB_TOL of the largest sum_x |dl_t| of the plain dl (K3 adds each
+    block's rows in a fixed order, then torch adds the blocks; a dropped
+    block would be off by hundreds of |dl| and fail)."""
     import torch
 
     from smilecode_tpu_torch.kernels.modet_attn import (
@@ -487,11 +510,12 @@ def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_
     )
 
     rng = np.random.default_rng(5)
-    res = {"K3": [0.0, 0.0, 0.0, np.zeros(2)], "K4": [0.0, 0.0, 0.0, np.zeros(2)]}
+    res = {key: [0.0, 0.0, 0.0, np.zeros(2), 0.0, {}] for key in ("K3", "K4")}
     for level, heads in specs:
         shape = (1, *level_shape(level, size), heads, HEAD_DIM)
+        works = {key: attn_work(key, shape, 4, with_rpb) for key in res}
         for key in res:
-            res[key][3] += attn_work(key, int(np.prod(shape[1:4])), heads, HEAD_DIM, 4, with_rpb)
+            res[key][3] += works[key]
         q, k = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
                 for _ in range(2))
         rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(
@@ -520,16 +544,24 @@ def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_
         t4 = event_ms(lambda: modet_attention_bwd_dk(q, p_dl, 1.0), 10)
         p3 = event_ms(lambda: modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g), 3)
         p4 = event_ms(lambda: modet_attention_bwd_dk_plain(q, p_dl, 1.0), 3)
+        d3 = device_ms(lambda: modet_attention_bwd_dq(q, k, rpb, 1.0, g))
+        d4 = device_ms(lambda: modet_attention_bwd_dk(q, p_dl, 1.0))
         k3_err = max(e for n, (e, _) in errs.items() if n != "dk")
-        for key, err, t, tp in (("K3", k3_err, t3, p3), ("K4", errs["dk"][0], t4, p4)):
-            res[key][:3] = [max(res[key][0], err), res[key][1] + t, res[key][2] + tp]
+        for key, err, t, tp, dev in (("K3", k3_err, t3, p3, d3), ("K4", errs["dk"][0], t4, p4, d4)):
+            r = res[key]
+            r[:3] = [max(r[0], err), r[1] + t, r[2] + tp]
+            r[4] += dev
+            r[5][attn_label(level, shape)] = {"ms": t, "device_ms": dev,
+                                              "bound_ms": bound(*works[key])[0]}
         print(f"K3/K4 attention bwd level {level} q,k {shape}, rpb "
               f"{'yes' if with_rpb else 'none'}: max_abs_err "
               + ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in errs.items())
-              + f"; K3 {t3:.4f} ms (plain {p3:.4f}), K4 {t4:.4f} ms (plain {p4:.4f})", flush=True)
+              + f"; K3 {t3:.4f} ms, device {d3:.4f} (plain {p3:.4f}, bound "
+              f"{bound(*works['K3'])[0]:.4f}), K4 {t4:.4f} ms, device {d4:.4f} (plain {p4:.4f}, "
+              f"bound {bound(*works['K4'])[0]:.4f})", flush=True)
         del q, k, g, dq, dl, part, p_dq, p_dl, p_drpb, dk, p_dk, checks
         torch.cuda.empty_cache()
-    return {key: (*v[:3], tuple(v[3])) for key, v in res.items()}
+    return {key: (*v[:3], tuple(v[3]), *v[4:]) for key, v in res.items()}
 
 
 def check_warp_f(device):
@@ -638,7 +670,8 @@ def check_bf16_kernels(device):
 
     bf16 = torch.bfloat16
     res = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "f32_ms": 0.0, "library_ms": None,
-               "work": np.zeros(2), "by_shape": {}} for k in ("K1", "K2", "K3", "K4", "K5")}
+               "work": np.zeros(2), "by_shape": {}, "device_ms": None}
+           for k in ("K1", "K2", "K3", "K4", "K5")}
 
     def add(key, err, t, tp, t32, lib=None):
         r = res[key]
@@ -650,7 +683,6 @@ def check_bf16_kernels(device):
     rng = np.random.default_rng(10)
     for level, heads in zip((5, 4, 3, 2, 1), NUM_HEADS):
         shape = (1, *level_shape(level), heads, HEAD_DIM)
-        vox = int(np.prod(shape[1:4]))
         q32, k32 = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
                     for _ in range(2))
         rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(device)
@@ -684,15 +716,23 @@ def check_bf16_kernels(device):
                    event_ms(lambda: modet_attention_bwd_dk_plain(q, p_dl, 1.0), 2),
                    event_ms(lambda: modet_attention_bwd_dk(q32, p_dl32, 1.0), 10)),
         }
+        devs = {"K1": device_ms(lambda: modet_attention(q, k, rpb, 1.0)),
+                "K3": device_ms(lambda: modet_attention_bwd_dq(q, k, rpb, 1.0, g)),
+                "K4": device_ms(lambda: modet_attention_bwd_dk(q, p_dl, 1.0))}
         errs = {"K1": e1[0], "K3": max(e_dq[0], e_dl[0], e_drpb), "K4": e_dk[0]}
         for key, (t, tp, t32) in times.items():
             add(key, errs[key], t, tp, t32)
-            res[key]["work"] += attn_work(key, vox, heads, HEAD_DIM, 2)
+            work = attn_work(key, shape, 2)
+            res[key]["work"] += work
+            res[key]["device_ms"] = (res[key]["device_ms"] or 0.0) + devs[key]
+            res[key]["by_shape"][attn_label(level, shape)] = {
+                "ms": t, "device_ms": devs[key], "bound_ms": bound(*work)[0]}
         print(f"bf16 K1/K3/K4 level {level} q,k {shape}: max_abs_err out {e1[0]:.3e} (tol "
               f"{e1[1]:.3e}), dq {e_dq[0]:.3e} ({e_dq[1]:.3e}), dl {e_dl[0]:.3e} ({e_dl[1]:.3e}), "
               f"drpb {e_drpb:.3e} ({drpb_tol:.3e}), dk {e_dk[0]:.3e} ({e_dk[1]:.3e}); ms bf16 / "
               f"plain bf16 / f32 kernel: " + ", ".join(
-                  f"{key} {t:.4f} / {tp:.4f} / {t32:.4f}" for key, (t, tp, t32) in times.items()),
+                  f"{key} {t:.4f} / {tp:.4f} / {t32:.4f}" for key, (t, tp, t32) in times.items())
+              + "; device ms bf16: " + ", ".join(f"{key} {v:.4f}" for key, v in devs.items()),
               flush=True)
         del q, k, g, q32, k32, g32, out, dq, dl, part, p_dq, p_dl, p_drpb, p_dl32
         torch.cuda.empty_cache()
@@ -1218,8 +1258,9 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
     res = check_bf16_kernels(device)
     for key, r in res.items():
         lib = "" if r["library_ms"] is None else f", F.grid_sample bf16 {r['library_ms']:.4f}"
+        dev = "" if r["device_ms"] is None else f", device {r['device_ms']:.4f}"
         print(f"[{card}] bf16 {key} per {'pair' if key in ('K1', 'K2') else 'step'} over its bf16 "
-              f"calls: {r['ms']:.4f} ms (plain bf16 {r['plain_ms']:.4f}, f32 kernel "
+              f"calls: {r['ms']:.4f} ms{dev} (plain bf16 {r['plain_ms']:.4f}, f32 kernel "
               f"{r['f32_ms']:.4f}{lib}); bound {bound(*r['work'])[0]:.4f} ms "
               f"({bound(*r['work'])[1]}); max_abs_err {r['err']:.3e}", flush=True)
 
@@ -1349,7 +1390,7 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     print("== phase 1: K1 attention vs plain", flush=True)
-    k1_err, k1_ms, k1_plain_ms, k1_work = check_attention(device)
+    k1_err, k1_ms, k1_plain_ms, k1_work, k1_dev, k1_shapes = check_attention(device)
     print("== phase 2: K2 warp vs plain", flush=True)
     k2_err, k2_ms, k2_plain_ms, k2_lib_ms, k2_work, k2_shapes = check_warp(device)
 
@@ -1399,7 +1440,7 @@ def main() -> int:
         print(f"[{card}] ModeT 160x192x160 forward, median of {N_TIMED}: "
               f"kernels {med['kernels']:.3f} ms/pair, plain {med['plain']:.3f} ms/pair "
               f"(min {min(times['kernels']):.3f} / {min(times['plain']):.3f})")
-        print(f"[{card}] per pair: K1 {k1_ms:.4f} ms (plain {k1_plain_ms:.4f}), "
+        print(f"[{card}] per pair: K1 {k1_ms:.4f} ms, device {k1_dev:.4f} (plain {k1_plain_ms:.4f}), "
               f"K2 {k2_ms:.4f} ms (plain {k2_plain_ms:.4f}); "
               f"peak memory kernels {peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB")
         del moved, flow, p_moved, p_flow
@@ -1452,16 +1493,17 @@ def main() -> int:
               f"{N_TIMED_STEPS}: kernels {med['kernels']:.3f} ms, plain {med['plain']:.3f} ms "
               f"(min {min(times['kernels']):.3f} / {min(times['plain']):.3f}); peak memory "
               f"kernels {peak['kernels']:.2f} GiB, plain {peak['plain']:.2f} GiB")
-        print(f"[{card}] backward kernels per step: K3 {bwd['K3'][1]:.4f} ms (plain "
-              f"{bwd['K3'][2]:.4f}), K4 {bwd['K4'][1]:.4f} ms (plain {bwd['K4'][2]:.4f}), "
+        print(f"[{card}] backward kernels per step: K3 {bwd['K3'][1]:.4f} ms, device "
+              f"{bwd['K3'][4]:.4f} (plain {bwd['K3'][2]:.4f}), K4 {bwd['K4'][1]:.4f} ms, device "
+              f"{bwd['K4'][4]:.4f} (plain {bwd['K4'][2]:.4f}), "
               f"K5 {k5_ms:.4f} ms (plain {k5_plain_ms:.4f})")
         profile_step(kernel_step, x, y)
         del model, plain, kernel_step, steps, x, y
         torch.cuda.empty_cache()
 
         print("== phase 11: K1 as Im2grid runs it (1 head, no rpb); K3/K4 without rpb", flush=True)
-        g_err, g_ms, g_plain_ms, g_work = check_attention(device, num_heads=(1,) * 5,
-                                                          with_rpb=False)
+        g_err, g_ms, g_plain_ms, g_work, g_dev, g_shapes = check_attention(
+            device, num_heads=(1,) * 5, with_rpb=False)
         check_attention_bwd(device, specs=((1, 1),), with_rpb=False)
         print("== phase 12: K2 through kernel F's entries at the baselines' shapes", flush=True)
         f_err, f_ms, f_plain_ms, f_lib_ms, f_work, f_shapes = check_warp_f(device)
@@ -1525,23 +1567,26 @@ def main() -> int:
                 profile_step(model, x, y, top=8, what=f"{name} kernel forward")
             del model, plain, x, y
             torch.cuda.empty_cache()
-        print(f"[{card}] K1 as Im2grid runs it, per pair: {g_ms:.4f} ms (plain {g_plain_ms:.4f}); "
+        print(f"[{card}] K1 as Im2grid runs it, per pair: {g_ms:.4f} ms, device {g_dev:.4f} "
+              f"(plain {g_plain_ms:.4f}); "
               f"K2 via ops.warp over the smooth cases of phase 12: {f_ms:.4f} ms (plain "
               f"{f_plain_ms:.4f})")
 
         bf16, bf16_train_counts = run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer)
 
     def entry(name, source, line, key, err, ms, plain_ms, work, library_ms=None, counts=None,
-              by_shape=None):
+              by_shape=None, device=None):
         bound_ms, bound_by = bound(*work)
         rec = {"name": name, "route": "cuda", "source": f"smilecode_tpu_torch/csrc/{source}",
                "replaces": f"smilecode_tpu/kernels/{line}",
                "launches": (counts or train_counts)[key],
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library_ms}
-        if by_shape:  # K2, K5 per distinct shape: ms per call, the path it took
-            for field in ("ms", "library_ms", "bound_ms", "variant", "device_ms",
-                          "library_device_ms"):
+        if device is not None:  # K1, K3, K4: device ms over the path's calls
+            rec["device_ms"] = device
+        if by_shape:  # per distinct shape, ms per call; K2, K5 also the path it took
+            fields = dict.fromkeys(f for v in by_shape.values() for f in v)
+            for field in fields:
                 rec[f"{field}_by_shape"] = {k: v[field] for k, v in by_shape.items()}
         return rec
 
@@ -1549,19 +1594,24 @@ def main() -> int:
         r = bf16[key]
         return entry(f"{name} (bf16)", source, line, f"{key} bf16", r["err"], r["ms"],
                      r["plain_ms"], tuple(r["work"]), r["library_ms"], bf16_train_counts,
-                     r["by_shape"])
+                     r["by_shape"], r["device_ms"])
+
+    def bwd_entry(name, line, key):
+        err, ms, plain_ms, work, device, by_shape = bwd[key]
+        return entry(name, "modet_attn_bwd.cu", line, key, err, ms, plain_ms, work,
+                     by_shape=by_shape, device=device)
 
     record = {"kernels": [
         entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1", k1_err, k1_ms,
-              k1_plain_ms, k1_work),
+              k1_plain_ms, k1_work, by_shape=k1_shapes, device=k1_dev),
         entry("warp3d_trilinear_fwd", "warp3d.cu", "warp3d_v4.py:104", "K2", k2_err, k2_ms,
               k2_plain_ms, k2_work, k2_lib_ms, by_shape=k2_shapes),
-        entry("modet_attn_bwd_dq", "modet_attn_bwd.cu", "modet_attn.py:183", "K3", *bwd["K3"]),
-        entry("modet_attn_bwd_dk", "modet_attn_bwd.cu", "modet_attn.py:256", "K4", *bwd["K4"]),
+        bwd_entry("modet_attn_bwd_dq", "modet_attn.py:183", "K3"),
+        bwd_entry("modet_attn_bwd_dk", "modet_attn.py:256", "K4"),
         entry("warp3d_trilinear_bwd", "warp3d_bwd.cu", "warp3d_v4.py:339", "K5", k5_err, k5_ms,
               k5_plain_ms, k5_work, k5_lib_ms, by_shape=k5_shapes),
         entry("modet_attn_fwd (Im2grid: 1 head, no rpb)", "modet_attn.cu", "modet_attn.py:56",
-              "K1", g_err, g_ms, g_plain_ms, g_work, None, base_counts),
+              "K1", g_err, g_ms, g_plain_ms, g_work, None, base_counts, g_shapes, g_dev),
         entry("warp3d_trilinear_fwd (ops.warp impl=pallas|guarded, baselines)", "warp3d.cu",
               "warp3d.py:52", "K2", f_err, f_ms, f_plain_ms, f_work, f_lib_ms, base_counts,
               f_shapes),

@@ -12,128 +12,145 @@
 //
 // Layout: q, k (B, D, H, W, heads, hd) contiguous, float32 or bf16 (T, see
 // io_types.cuh); rpb (heads, 27) float32 or null; out (B, D, H, W, heads*3)
-// in T. With bf16 q and k the logits, the online softmax and the
+// in T. With bf16 q and k the logits, the softmax and the
 // accumulators stay float32 and only the output is rounded to bf16, as the
 // JAX forward casts its float32 result to q's dtype (modet_attn.py:180);
 // q is scaled in its own type first, as there (`qs * dtype(scale)`, :132).
 //
-// What bounds it on the H100: memory and latency. Each (voxel, head) reads
-// 27 neighbour k vectors of hd floats (27*hd*4 B, 648 B at hd=6) but only
-// hd*4 B of them are new per voxel: the rest are re-reads that L1/L2 serve.
-// The design keeps that reuse in the caches rather than staging a halo tile:
-// one thread per (voxel, head), neighbouring threads on neighbouring heads
-// and w, so a warp's 27 window reads fall on a few contiguous rows; q sits in
-// registers (hd bounded by the template MAX_HD, predicated above hd); the
-// softmax is online over the 27 tokens, so no logit array is kept; the offset
-// contraction is three +/- accumulators.
+// What bounds it on the H100: memory. A (voxel, head) reads its q row and
+// writes 3 values; its 27 neighbour k rows are 27 reads of one staged tile.
+// Measured on the H100 (PERF.md), it runs at ~0.4 of that bound at level 1:
+// the 27 shared-memory row reads (~3.2 GB per level-1 call, f32) and the
+// logit and softmax instructions, not device memory, set its pace, which is
+// also why bf16 is no faster. The design (attn_tile.cuh): a block stages the
+// k neighbourhood of its brick in a shared-memory ring, zero-filled outside
+// the volume, copied with cp.async one d-slice ahead of the compute; one
+// thread per (voxel, head) of a slice walks the brick's d range, reading
+// each neighbour row from shared memory (two values per load where hd is
+// even) with no bounds checks; the 27 logits stay in registers for the
+// softmax (max, then one exp2 each, `exp_minus`); the offset contraction is
+// three +/- accumulators.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_tile.cuh"
 #include "io_types.cuh"
 
 namespace {
 
+using namespace smilecode::attn;
 using smilecode::from_f32;
-using smilecode::ldg_f32;
 using smilecode::round_to;
-using smilecode::to_f32;
 
-template <typename T, int MAX_HD>
-__global__ void __launch_bounds__(256)
+template <typename T, int MAX_HD, bool PAIRS>
+__global__ void __launch_bounds__(kMaxThreads)
 modet_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const float* __restrict__ rpb, T* __restrict__ out,
-                      int D, int H, int W, int heads, int hd, float scale,
-                      long long total) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  // idx = (((b*D + d)*H + h)*W + w)*heads + head
-  const int head = static_cast<int>(idx % heads);
-  long long v = idx / heads;
-  const int w = static_cast<int>(v % W);
-  v /= W;
-  const int h = static_cast<int>(v % H);
-  v /= H;
-  const int d = static_cast<int>(v % D);
-  const long long b = v / D;
-
-  const long long row = static_cast<long long>(heads) * hd;  // values per voxel
-  const T* qp = q + idx * hd;
+                      const float* __restrict__ rpb, T* __restrict__ out, Brick g,
+                      float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  float* bias = reinterpret_cast<float*>(smem + kRing * g.slot_elems * sizeof(T));
+  const Origin o = origin(g);
+  const long long bd = static_cast<long long>(o.b) * g.D;
+  stage_prologue(ring, bias, k, rpb, bd, o, g);
+  const Seat me = seat(o.h0, o.w0, g);
   const float qscale = round_to<T>(scale);
-  float qr[MAX_HD];
-#pragma unroll
-  for (int i = 0; i < MAX_HD; ++i) qr[i] = (i < hd) ? round_to<T>(to_f32(qp[i]) * qscale) : 0.f;
+  const float* bs = bias + me.head * 27;
+  const long long step = static_cast<long long>(g.H) * g.W * g.heads;  // rows per d-slice
+  long long idx = (((bd + o.d0) * g.H + me.h) * g.W + me.w) * g.heads + me.head;
+  float qn[MAX_HD];  // the q row of the slice to come
+  if (me.active) fetch_row<T, MAX_HD>(qn, q + idx * g.hd, g.hd);
 
-  const T* kb = k + b * D * H * W * row + static_cast<long long>(head) * hd;
-  const float* rp = rpb ? rpb + head * 27 : nullptr;
-
-  float m = -INFINITY, s = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
+  for (int d = o.d0; d < o.d1; ++d, idx += step) {
+    const int j = d - o.d0;  // slots j, j+1, j+2 hold slices d-1, d, d+1
+    if (d + 2 <= o.d1) load_slice(ring + ((j + 3) % kRing) * g.slot_elems, k, bd, d + 2, o.h0, o.w0, g);
+    cp_async_commit();
+    if (me.active) {
+      float qr[MAX_HD];
+      scale_q<T, MAX_HD>(qr, qn, qscale);
+      if (d + 1 < o.d1) fetch_row<T, MAX_HD>(qn, q + (idx + step) * g.hd, g.hd);
+      const T* slots[3];
 #pragma unroll
-  for (int t = 0; t < 27; ++t) {
-    const int od = t / 9 - 1, oh = (t / 3) % 3 - 1, ow = t % 3 - 1;
-    const int nd = d + od, nh = h + oh, nw = w + ow;
-    float logit = 0.f;
-    if (nd >= 0 && nd < D && nh >= 0 && nh < H && nw >= 0 && nw < W) {
-      const T* kp = kb + ((static_cast<long long>(nd) * H + nh) * W + nw) * row;
+      for (int od = 0; od < 3; ++od) slots[od] = ring + ((j + od) % kRing) * g.slot_elems + me.own;
+      float lg[27];
+      float m = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < MAX_HD; ++i)
-        if (i < hd) logit += qr[i] * ldg_f32(kp + i);
+      for (int t = 0; t < 27; ++t) {
+        lg[t] = logit<T, MAX_HD, PAIRS>(qr, slots[t / 9] + token_offset(t % 9, g), g.hd, bs[t]);
+        m = fmaxf(m, lg[t]);
+      }
+      float s = 0.f, a0 = 0.f, a1 = 0.f, a2 = 0.f;
+      const float m_log2e = m * kLog2e;
+#pragma unroll
+      for (int t = 0; t < 27; ++t) {
+        const float e = exp_minus(lg[t], m_log2e);
+        s += e;
+        a0 += e * (t / 9 - 1);
+        a1 += e * ((t / 3) % 3 - 1);
+        a2 += e * (t % 3 - 1);
+      }
+      T* op = out + idx * 3;
+      op[0] = from_f32<T>(a0 / s);
+      op[1] = from_f32<T>(a1 / s);
+      op[2] = from_f32<T>(a2 / s);
     }
-    if (rp) logit += __ldg(rp + t);
-    const float mn = fmaxf(m, logit);
-    const float corr = expf(m - mn);  // 0 on the first token (m = -inf)
-    const float e = expf(logit - mn);
-    s = s * corr + e;
-    a0 = a0 * corr + e * od;
-    a1 = a1 * corr + e * oh;
-    a2 = a2 * corr + e * ow;
-    m = mn;
+    cp_async_wait_all();
+    __syncthreads();
   }
-  T* op = out + idx * 3;
-  op[0] = from_f32<T>(a0 / s);
-  op[1] = from_f32<T>(a1 / s);
-  op[2] = from_f32<T>(a2 / s);
 }
 
-template <typename T, int MAX_HD>
-void launch(const T* q, const T* k, const float* rpb, T* out, int D, int H, int W, int heads,
-            int hd, float scale, long long total, cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  modet_attn_fwd_kernel<T, MAX_HD><<<blocks, threads, 0, stream>>>(
-      q, k, rpb, out, D, H, W, heads, hd, scale, total);
+template <typename T, int MAX_HD, bool PAIRS>
+int launch(const T* q, const T* k, const float* rpb, T* out, long long B, const Brick& g,
+           float scale, cudaStream_t stream) {
+  const size_t smem = kRing * g.slot_elems * sizeof(T) + g.heads * 27 * sizeof(float);
+  if (smem > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = modet_attn_fwd_kernel<T, MAX_HD, PAIRS>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid_of(B, g), g.bh * g.bw * g.heads, smem, stream>>>(q, k, rpb, out, g, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int fwd(const T* q, const T* k, const float* rpb, T* out, long long B, int D, int H, int W,
-        int heads, int hd, float scale, void* stream) {
-  const long long total = B * D * H * W * heads;
-  if (total <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 8) {
-    launch<T, 8>(q, k, rpb, out, D, H, W, heads, hd, scale, total, st);
-  } else if (hd <= 16) {
-    launch<T, 16>(q, k, rpb, out, D, H, W, heads, hd, scale, total, st);
-  } else if (hd <= 32) {
-    launch<T, 32>(q, k, rpb, out, D, H, W, heads, hd, scale, total, st);
-  } else {
+        int heads, int hd, float scale, int bh, int bw, int cd, int unit, void* stream) {
+  if (B * D * H * W * heads == 0) return static_cast<int>(cudaSuccess);
+  Brick g;
+  if (B < 0 || !make_brick<T>(g, D, H, W, heads, hd, bh, bw, cd, unit, k))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool pairs = hd % 2 == 0;
+  if (hd <= 8) {
+    return pairs ? launch<T, 8, true>(q, k, rpb, out, B, g, scale, st)
+                 : launch<T, 8, false>(q, k, rpb, out, B, g, scale, st);
+  } else if (hd <= 16) {
+    return pairs ? launch<T, 16, true>(q, k, rpb, out, B, g, scale, st)
+                 : launch<T, 16, false>(q, k, rpb, out, B, g, scale, st);
+  } else if (hd <= 32) {
+    return pairs ? launch<T, 32, true>(q, k, rpb, out, B, g, scale, st)
+                 : launch<T, 32, false>(q, k, rpb, out, B, g, scale, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Both return cudaGetLastError() after the launch (0 = launched).
+// Both return cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a brick (bh, bw, cd) or copy width (unit bytes)
+// the shapes or k's address do not allow (kernels/modet_attn.py:attn_geometry).
 extern "C" int smilecode_modet_attn_fwd(const float* q, const float* k, const float* rpb,
                                         float* out, long long B, int D, int H, int W,
-                                        int heads, int hd, float scale, void* stream) {
-  return fwd<float>(q, k, rpb, out, B, D, H, W, heads, hd, scale, stream);
+                                        int heads, int hd, float scale, int bh, int bw, int cd,
+                                        int unit, void* stream) {
+  return fwd<float>(q, k, rpb, out, B, D, H, W, heads, hd, scale, bh, bw, cd, unit, stream);
 }
 
 extern "C" int smilecode_modet_attn_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                              const float* rpb, __nv_bfloat16* out, long long B,
                                              int D, int H, int W, int heads, int hd, float scale,
-                                             void* stream) {
-  return fwd<__nv_bfloat16>(q, k, rpb, out, B, D, H, W, heads, hd, scale, stream);
+                                             int bh, int bw, int cd, int unit, void* stream) {
+  return fwd<__nv_bfloat16>(q, k, rpb, out, B, D, H, W, heads, hd, scale, bh, bw, cd, unit,
+                            stream);
 }

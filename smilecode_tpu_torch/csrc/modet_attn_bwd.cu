@@ -12,11 +12,12 @@
 //   dk[x]  = scale * sum_t dl_t[x - o_t] * q[x - o_t]     (K4, a gather: no atomics)
 //   drpb[head, t] = sum_x dl_t[x]                          (K3 per block, torch sums blocks)
 // An out-of-volume neighbour stays in the softmax (logit rpb), so its dl_t
-// goes into drpb, but it has no k to give dq nor a k slot to receive dk.
+// goes into drpb, but its zero k gives dq nothing and it has no k slot to
+// receive dk.
 //
 // Layout: q, k, dq, dk (B, D, H, W, heads, hd) contiguous; rpb (heads, 27)
 // float32 or null; g (B, D, H, W, heads, 3); dl (B, D, H, W, heads, 27)
-// (written by K3, read by K4); drpb_part (gridDim.x, heads, 27) float32.
+// (written by K3, read by K4); drpb_part (K3's blocks, heads, 27) float32.
 // q, k, g, dq, dl and dk share one storage type T, float32 or bf16
 // (io_types.cuh). With bf16 the softmax is recomputed in float32 from the
 // bf16 q and k (q scaled in bf16 as the forward scales it); dl, dq and the
@@ -25,138 +26,202 @@
 // (modet_attn.py:245, :450) and casts dq and dk back to the input dtype
 // (:360), while drpb stays float32. K4 reads the rounded dl, as C does.
 //
-// What bounds them on the H100: memory. K3 reads q, g and the 27 k
-// neighbours (cache-served, as in K1) and writes dq plus the 27-float dl
-// row of each (voxel, head): dl dominates (531 MB at level 1 of a
-// 160x192x160 pair). K3 stages its block's dl rows in shared memory and
-// writes them back as one contiguous, coalesced span (a block's 256 rows
-// are adjacent in memory); the same tile gives the block's drpb partial
-// with a fixed summation order, so drpb is deterministic. K4 is one
-// thread per (voxel, head) gathering 27 dl values and q rows of its inverse
-// window, like K1's forward window.
+// What bounds them on the H100: memory. K3 reads q, g and k and writes dq
+// plus the 27-value dl row of each (voxel, head): dl dominates (531 MB at
+// level 1 of a 160x192x160 pair, f32). K3 stands on K1's stage
+// (attn_tile.cuh): its block stages the k neighbourhood of a brick in a
+// zero-filled shared-memory ring, one d-slice ahead of the compute, and one
+// thread per (voxel, head) reads q and g once, computes the 27 logits with
+// K1's function (bit for bit K1's) into registers, then the probabilities,
+// writes dl into a shared dl tile, and reads the 27 neighbour k rows from
+// the ring a second time for dq; no bounds checks, no second pass of global
+// loads. A w-row of the brick's dl is one contiguous span of bw*heads*27
+// values in memory: the tile lays each row out at the span's alignment, so
+// it leaves as 16-byte vector stores. Each thread sums its dl_t over the
+// block's d range in registers; at the end the block adds them in a fixed
+// order (groups of voxels, then the groups) into its drpb partial, so drpb
+// is deterministic. Measured on the H100 (PERF.md), K3 runs at about half
+// of its bound at level 1 (f32): the two passes over the 27 staged rows and
+// the dl stores take instruction issue and shared-memory time that device
+// memory does not. K4 is one thread per (voxel, head) gathering 27 dl
+// values and q rows of its inverse window, like the old K1's forward window.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_tile.cuh"
 #include "io_types.cuh"
 
 namespace {
 
+using namespace smilecode::attn;
 using smilecode::from_f32;
+using smilecode::kVec16;
 using smilecode::ldg_f32;
 using smilecode::round_to;
+using smilecode::st_vec16;
 using smilecode::to_f32;
 
-constexpr int kThreads = 256;
-constexpr int kPitch = kThreads + 1;  // shared tile row pitch: conflict-free column reads
+constexpr int kThreads = 256;  // K4
 
-template <typename T, int MAX_HD>
-__global__ void __launch_bounds__(kThreads)
+// floats of a K3 dl-tile row: one brick w-row of dl (bw*heads*27), shifted
+// by up to V-1 to the global span's 16-byte alignment, rounded to V
+template <typename T>
+__host__ __device__ inline int dl_stride(const Brick& g) {
+  constexpr int V = kVec16<T>;
+  return (g.bw * g.heads * 27 + 2 * V - 1) / V * V;
+}
+
+constexpr int kGroups = 8;  // voxel groups of K3's drpb reduction
+
+template <typename T>
+size_t dq_smem_bytes(const Brick& g) {
+  return kRing * g.slot_elems * sizeof(T) +
+         (static_cast<size_t>(g.bh) * dl_stride<T>(g) + g.heads * 27 * (1 + kGroups)) *
+             sizeof(float);
+}
+
+// at most 128 registers (two blocks per SM): left alone, ptxas takes 185-255
+// for the unrolled passes, one block per SM
+template <typename T, int MAX_HD, bool PAIRS>
+__global__ void __launch_bounds__(kMaxThreads, 2)
 modet_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const float* __restrict__ rpb, const T* __restrict__ g,
+                         const float* __restrict__ rpb, const T* __restrict__ g_out,
                          T* __restrict__ dq, T* __restrict__ dl,
-                         float* __restrict__ drpb_part, int D, int H, int W, int heads,
-                         int hd, float scale, long long total) {
-  __shared__ float tile[27 * kPitch];  // tile[t * kPitch + thread] = dl_t
-  const long long blk0 = static_cast<long long>(blockIdx.x) * kThreads;
-  const long long idx = blk0 + threadIdx.x;
-  const bool active = idx < total;
-  float lg[27];  // logits, then exp, then dl
+                         float* __restrict__ drpb_part, Brick g, float scale) {
+  constexpr int V = kVec16<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  float* tile = reinterpret_cast<float*>(smem + kRing * g.slot_elems * sizeof(T));
+  const int stride = dl_stride<T>(g);
+  const int cols = g.heads * 27;
+  float* bias = tile + g.bh * stride;  // cols
+  float* gsum = bias + cols;            // cols * kGroups: the drpb group sums
+  float part[27];  // this thread's sum of dl_t over the block's d range
 #pragma unroll
-  for (int t = 0; t < 27; ++t) lg[t] = 0.f;
-
-  if (active) {
-    // idx = (((b*D + d)*H + h)*W + w)*heads + head
-    const int head = static_cast<int>(idx % heads);
-    long long v = idx / heads;
-    const int w = static_cast<int>(v % W);
-    v /= W;
-    const int h = static_cast<int>(v % H);
-    v /= H;
-    const int d = static_cast<int>(v % D);
-    const long long b = v / D;
-
-    const long long row = static_cast<long long>(heads) * hd;  // values per voxel
-    const T* qp = q + idx * hd;
-    const float qscale = round_to<T>(scale);
-    float qr[MAX_HD];
-#pragma unroll
-    for (int i = 0; i < MAX_HD; ++i)  // as K1
-      qr[i] = (i < hd) ? round_to<T>(to_f32(qp[i]) * qscale) : 0.f;
-    const T* kb = k + b * D * H * W * row + static_cast<long long>(head) * hd;
-    const float* rp = rpb ? rpb + head * 27 : nullptr;
-
-    float m = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < 27; ++t) {
-      const int nd = d + t / 9 - 1, nh = h + (t / 3) % 3 - 1, nw = w + t % 3 - 1;
-      float logit = 0.f;
-      if (nd >= 0 && nd < D && nh >= 0 && nh < H && nw >= 0 && nw < W) {
-        const T* kp = kb + ((static_cast<long long>(nd) * H + nh) * W + nw) * row;
-#pragma unroll
-        for (int i = 0; i < MAX_HD; ++i)
-          if (i < hd) logit += qr[i] * ldg_f32(kp + i);
-      }
-      if (rp) logit += __ldg(rp + t);
-      lg[t] = logit;
-      m = fmaxf(m, logit);
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < 27; ++t) {
-      lg[t] = expf(lg[t] - m);
-      s += lg[t];
-    }
-    const float inv = 1.f / s;
-    const float g0 = to_f32(g[idx * 3]), g1 = to_f32(g[idx * 3 + 1]), g2 = to_f32(g[idx * 3 + 2]);
-    float ssum = 0.f;  // sum_u p_u da_u
-#pragma unroll
-    for (int t = 0; t < 27; ++t) {
-      const float da = (t / 9 - 1) * g0 + ((t / 3) % 3 - 1) * g1 + (t % 3 - 1) * g2;
-      ssum += lg[t] * inv * da;
-    }
-    float acc[MAX_HD];
-#pragma unroll
-    for (int i = 0; i < MAX_HD; ++i) acc[i] = 0.f;
-#pragma unroll
-    for (int t = 0; t < 27; ++t) {
-      const int nd = d + t / 9 - 1, nh = h + (t / 3) % 3 - 1, nw = w + t % 3 - 1;
-      const float da = (t / 9 - 1) * g0 + ((t / 3) % 3 - 1) * g1 + (t % 3 - 1) * g2;
-      const float dlt = lg[t] * inv * (da - ssum);
-      lg[t] = dlt;
-      if (nd >= 0 && nd < D && nh >= 0 && nh < H && nw >= 0 && nw < W) {
-        const T* kp = kb + ((static_cast<long long>(nd) * H + nh) * W + nw) * row;
-#pragma unroll
-        for (int i = 0; i < MAX_HD; ++i)
-          if (i < hd) acc[i] += dlt * ldg_f32(kp + i);
-      }
-    }
-    T* dqp = dq + idx * hd;
-#pragma unroll
-    for (int i = 0; i < MAX_HD; ++i)
-      if (i < hd) dqp[i] = from_f32<T>(scale * acc[i]);
+  for (int t = 0; t < 27; ++t) part[t] = 0.f;
+  const Origin o = origin(g);
+  const long long bd = static_cast<long long>(o.b) * g.D;
+  stage_prologue(ring, bias, k, rpb, bd, o, g);
+  const Seat me = seat(o.h0, o.w0, g);
+  const float qscale = round_to<T>(scale);
+  const float* bs = bias + me.head * 27;
+  const int nw = min(g.bw, g.W - o.w0);  // voxels of a brick w-row inside the volume
+  const int rows = min(g.bh, g.H - o.h0);
+  const int span = nw * cols;            // dl values of a brick w-row
+  const long long hstep = static_cast<long long>(g.W) * cols;
+  const long long step = static_cast<long long>(g.H) * g.W * g.heads;  // rows per d-slice
+  long long idx = (((bd + o.d0) * g.H + me.h) * g.W + me.w) * g.heads + me.head;
+  float qn[MAX_HD], gn[3];  // the q and g rows of the slice to come
+  if (me.active) {
+    fetch_row<T, MAX_HD>(qn, q + idx * g.hd, g.hd);
+    fetch_row<T, 3>(gn, g_out + idx * 3, 3);
   }
 
+  for (int d = o.d0; d < o.d1; ++d, idx += step) {
+    const int j = d - o.d0;  // slots j, j+1, j+2 hold slices d-1, d, d+1
+    if (d + 2 <= o.d1) load_slice(ring + ((j + 3) % kRing) * g.slot_elems, k, bd, d + 2, o.h0, o.w0, g);
+    cp_async_commit();
+    // index of the first dl value of the slice's brick w-row 0; row hl
+    // starts hl*hstep later, and its tile row holds it from position
+    // (its start mod V) on
+    const long long row0 = (((bd + d) * g.H + o.h0) * g.W + o.w0) * cols;
+    if (me.active) {
+      float qr[MAX_HD];
+      scale_q<T, MAX_HD>(qr, qn, qscale);
+      const float g0 = gn[0], g1 = gn[1], g2 = gn[2];
+      if (d + 1 < o.d1) {
+        fetch_row<T, MAX_HD>(qn, q + (idx + step) * g.hd, g.hd);
+        fetch_row<T, 3>(gn, g_out + (idx + step) * 3, 3);
+      }
+      const T* slots[3];
 #pragma unroll
-  for (int t = 0; t < 27; ++t) tile[t * kPitch + threadIdx.x] = lg[t];  // 0 when inactive
-  __syncthreads();
+      for (int od = 0; od < 3; ++od) slots[od] = ring + ((j + od) % kRing) * g.slot_elems + me.own;
+      float e[27];  // logits, then exp(logit - max)
+      float m = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < 27; ++t) {
+        e[t] = logit<T, MAX_HD, PAIRS>(qr, slots[t / 9] + token_offset(t % 9, g), g.hd, bs[t]);
+        m = fmaxf(m, e[t]);
+      }
+      float s = 0.f, sda = 0.f;
+      const float m_log2e = m * kLog2e;
+#pragma unroll
+      for (int t = 0; t < 27; ++t) {
+        e[t] = exp_minus(e[t], m_log2e);
+        s += e[t];
+        sda += e[t] * ((t / 9 - 1) * g0 + ((t / 3) % 3 - 1) * g1 + (t % 3 - 1) * g2);
+      }
+      const float inv = 1.f / s;
+      const float ssum = sda * inv;  // sum_u p_u da_u
+      float* tl = tile + me.hl * stride + static_cast<int>((row0 + me.hl * hstep) & (V - 1)) +
+                  (me.wl * g.heads + me.head) * 27;  // this thread's 27 dl values
+      float acc[MAX_HD];
+#pragma unroll
+      for (int i = 0; i < MAX_HD; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int t = 0; t < 27; ++t) {
+        const float da = (t / 9 - 1) * g0 + ((t / 3) % 3 - 1) * g1 + (t % 3 - 1) * g2;
+        const float dlt = e[t] * inv * (da - ssum);
+        tl[t] = dlt;
+        part[t] += dlt;
+        axpy<T, MAX_HD, PAIRS>(acc, dlt, slots[t / 9] + token_offset(t % 9, g), g.hd);
+      }
+      T* dqp = dq + idx * g.hd;
+#pragma unroll
+      for (int i = 0; i < MAX_HD; ++i)
+        if (i < g.hd) dqp[i] = from_f32<T>(scale * acc[i]);
+    }
+    __syncthreads();
 
-  // the block's dl rows are one contiguous span of n*27 values
-  const int n = total - blk0 < kThreads ? static_cast<int>(total - blk0) : kThreads;
-  T* dlb = dl + blk0 * 27;
-  for (int j = threadIdx.x; j < n * 27; j += kThreads)
-    dlb[j] = from_f32<T>(tile[(j % 27) * kPitch + j / 27]);
+    // the slice's dl leaves row by row: tile position p of row hl and dl
+    // index r0 - r0 % V + p agree modulo V, so whole V-vectors are 16-byte
+    // stores, the partial first and last ones scalar stores
+    const int nvec = (span + 2 * V - 2) / V;  // vectors of a row, at most
+    for (int u = threadIdx.x; u < rows * nvec; u += blockDim.x) {
+      const int hl = u / nvec, vi = u - hl * nvec;
+      const long long r0 = row0 + hl * hstep;
+      const int shift = static_cast<int>(r0 & (V - 1));
+      const int lo = vi * V, hi = lo + V;  // tile positions of this vector
+      if (lo >= shift + span) continue;
+      const float* src = tile + hl * stride + lo;
+      T* dst = dl + (r0 - shift + lo);
+      if (lo >= shift && hi <= shift + span) {
+        float v[V];
+#pragma unroll
+        for (int x = 0; x < V; ++x) v[x] = src[x];
+        st_vec16(dst, v);
+      } else {
+        for (int x = max(0, shift - lo); x < V && lo + x < shift + span; ++x)
+          dst[x] = from_f32<T>(src[x]);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
 
   if (drpb_part) {
-    // partial[head, t] = sum of dl_t over this block's rows of that head,
-    // rows in ascending order: (blk0 + i) % heads == head
-    const int first = static_cast<int>(blk0 % heads);
-    float* part = drpb_part + static_cast<long long>(blockIdx.x) * heads * 27;
-    for (int o = threadIdx.x; o < heads * 27; o += kThreads) {
-      const int head = o / 27, t = o % 27;
+    // partial[head, t] = the threads' sums part[t] over the brick's voxels
+    // v, added in a fixed order: ascending v within kGroups groups, then the
+    // groups in order
+#pragma unroll
+    for (int t = 0; t < 27; ++t) tile[threadIdx.x * 27 + t] = part[t];
+    __syncthreads();
+    const int nv = g.bh * g.bw, per = (nv + kGroups - 1) / kGroups;
+    for (int w = threadIdx.x; w < cols * kGroups; w += blockDim.x) {
+      const int grp = w % kGroups, c = w / kGroups, head = c / 27, t = c % 27;
       float sum = 0.f;
-      for (int i = (head - first + heads) % heads; i < n; i += heads) sum += tile[t * kPitch + i];
-      part[o] = sum;
+      for (int v = grp * per; v < min(nv, (grp + 1) * per); ++v)
+        sum += tile[(v * g.heads + head) * 27 + t];
+      gsum[w] = sum;
+    }
+    __syncthreads();
+    const long long blk =
+        (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+    for (int c = threadIdx.x; c < cols; c += blockDim.x) {
+      float sum = 0.f;
+      for (int grp = 0; grp < kGroups; ++grp) sum += gsum[c * kGroups + grp];
+      drpb_part[blk * cols + c] = sum;
     }
   }
 }
@@ -204,26 +269,42 @@ unsigned blocks_for(long long total) {
   return static_cast<unsigned>((total + kThreads - 1) / kThreads);
 }
 
+template <typename T, int MAX_HD, bool PAIRS>
+int launch_dq(const T* q, const T* k, const float* rpb, const T* g, T* dq, T* dl, float* part,
+              long long B, const Brick& geo, float scale, cudaStream_t stream) {
+  const size_t smem = dq_smem_bytes<T>(geo);
+  if (smem > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = modet_attn_bwd_dq_kernel<T, MAX_HD, PAIRS>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid_of(B, geo), geo.bh * geo.bw * geo.heads, smem, stream>>>(q, k, rpb, g, dq, dl,
+                                                                         part, geo, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int bwd_dq(const T* q, const T* k, const float* rpb, const T* g, T* dq, T* dl, float* drpb_part,
-           long long B, int D, int H, int W, int heads, int hd, float scale, void* stream) {
-  const long long total = B * D * H * W * heads;
-  if (total <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = blocks_for(total);
-  if (hd <= 8) {
-    modet_attn_bwd_dq_kernel<T, 8><<<blocks, kThreads, 0, st>>>(
-        q, k, rpb, g, dq, dl, drpb_part, D, H, W, heads, hd, scale, total);
-  } else if (hd <= 16) {
-    modet_attn_bwd_dq_kernel<T, 16><<<blocks, kThreads, 0, st>>>(
-        q, k, rpb, g, dq, dl, drpb_part, D, H, W, heads, hd, scale, total);
-  } else if (hd <= 32) {
-    modet_attn_bwd_dq_kernel<T, 32><<<blocks, kThreads, 0, st>>>(
-        q, k, rpb, g, dq, dl, drpb_part, D, H, W, heads, hd, scale, total);
-  } else {
+           long long B, int D, int H, int W, int heads, int hd, float scale, int bh, int bw,
+           int cd, int unit, void* stream) {
+  if (B * D * H * W * heads == 0) return static_cast<int>(cudaSuccess);
+  Brick geo;
+  if (B < 0 || !make_brick<T>(geo, D, H, W, heads, hd, bh, bw, cd, unit, k) ||
+      reinterpret_cast<unsigned long long>(dl) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool pairs = hd % 2 == 0;
+  if (hd <= 8) {
+    return pairs ? launch_dq<T, 8, true>(q, k, rpb, g, dq, dl, drpb_part, B, geo, scale, st)
+                 : launch_dq<T, 8, false>(q, k, rpb, g, dq, dl, drpb_part, B, geo, scale, st);
+  } else if (hd <= 16) {
+    return pairs ? launch_dq<T, 16, true>(q, k, rpb, g, dq, dl, drpb_part, B, geo, scale, st)
+                 : launch_dq<T, 16, false>(q, k, rpb, g, dq, dl, drpb_part, B, geo, scale, st);
+  } else if (hd <= 32) {
+    return pairs ? launch_dq<T, 32, true>(q, k, rpb, g, dq, dl, drpb_part, B, geo, scale, st)
+                 : launch_dq<T, 32, false>(q, k, rpb, g, dq, dl, drpb_part, B, geo, scale, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
@@ -251,21 +332,27 @@ int bwd_dk(const T* q, const T* dl, T* dk, long long B, int D, int H, int W, int
 }  // namespace
 
 // Every entry point returns cudaGetLastError() after the launch (0 = launched).
+// K3 returns cudaErrorInvalidValue for a brick (bh, bw, cd) or copy width
+// (unit bytes) the shapes or k's address do not allow, or a dl that is not
+// 16-byte aligned (kernels/modet_attn.py:attn_geometry); its drpb_part is
+// (blocks of that brick's grid, heads, 27).
 extern "C" int smilecode_modet_attn_bwd_dq(const float* q, const float* k, const float* rpb,
                                            const float* g, float* dq, float* dl,
                                            float* drpb_part, long long B, int D, int H, int W,
-                                           int heads, int hd, float scale, void* stream) {
-  return bwd_dq<float>(q, k, rpb, g, dq, dl, drpb_part, B, D, H, W, heads, hd, scale, stream);
+                                           int heads, int hd, float scale, int bh, int bw, int cd,
+                                           int unit, void* stream) {
+  return bwd_dq<float>(q, k, rpb, g, dq, dl, drpb_part, B, D, H, W, heads, hd, scale, bh, bw, cd,
+                       unit, stream);
 }
 
 extern "C" int smilecode_modet_attn_bwd_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                                 const float* rpb, const __nv_bfloat16* g,
                                                 __nv_bfloat16* dq, __nv_bfloat16* dl,
                                                 float* drpb_part, long long B, int D, int H,
-                                                int W, int heads, int hd, float scale,
-                                                void* stream) {
-  return bwd_dq<__nv_bfloat16>(q, k, rpb, g, dq, dl, drpb_part, B, D, H, W, heads, hd, scale,
-                               stream);
+                                                int W, int heads, int hd, float scale, int bh,
+                                                int bw, int cd, int unit, void* stream) {
+  return bwd_dq<__nv_bfloat16>(q, k, rpb, g, dq, dl, drpb_part, B, D, H, W, heads, hd, scale, bh,
+                               bw, cd, unit, stream);
 }
 
 extern "C" int smilecode_modet_attn_bwd_dk(const float* q, const float* dl, float* dk,

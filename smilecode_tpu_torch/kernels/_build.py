@@ -35,7 +35,7 @@ NVCC_FLAGS = [
 IO_DTYPES = (torch.float32, torch.bfloat16)  # storage types with a kernel instance
 
 _lib = None
-build_info: dict = {}  # seconds, path and nvcc/ptxas output of the build
+build_info: dict = {}  # seconds, path and nvcc/ptxas output of the build (kept beside it)
 
 
 def _nvcc() -> str:
@@ -90,7 +90,12 @@ def library() -> ctypes.CDLL:
         log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         for o in objs:
             os.remove(o)
+        with open(f"{path}.log", "w") as f:
+            f.write(log)
         os.replace(tmp, path)  # atomic: a concurrent build never loads half a file
+    elif os.path.exists(f"{path}.log"):  # built by an earlier process: its ptxas report
+        with open(f"{path}.log") as f:
+            log = f.read()
     lib = ctypes.CDLL(path)
     lib.smilecode_error_string.argtypes = [ctypes.c_int]
     lib.smilecode_error_string.restype = ctypes.c_char_p

@@ -9,7 +9,10 @@ and backward.
   dk over the inverse window.
 
 The sources say what bounds each kernel on the H100 and what its design does
-about that.
+about that. K1 and K3 stand on one shared-memory stage (`csrc/attn_tile.cuh`):
+a block stages the zero-filled k neighbourhood of a brick of voxels in a ring
+of d-slices; `attn_geometry` sizes the brick and the grid, and with it the
+number of K3's drpb partials.
 
 Each kernel has a float32 and a bf16 instance (the bf16 feature path of
 ModeT, `compute_dtype="bfloat16"`): q and k both float32 or both bf16, rpb
@@ -22,9 +25,10 @@ of the bf16 one.
 `modet_attention` runs the plain version (`modet_attention_plain`, the
 oracle in `ops/attention.py`, differentiated by torch autograd) for CPU
 tensors. For CUDA tensors it goes through `ModetAttentionFunction`, whose
-forward launches K1 and whose backward launches K3 and K4. It never falls
-back from the card to the plain version: a tensor it does not take, or a
-failed build or launch, raises. `modet_attention_bwd_plain` writes the
+forward launches K1 and whose backward launches K3 and K4; when no gradient
+is wanted it launches K1 directly, without the autograd Function's host
+time. It never falls back from the card to the plain version: a tensor it
+does not take, or a failed build or launch, raises. `modet_attention_bwd_plain` writes the
 backward out explicitly; it is the backward kernels' oracle on the card.
 """
 
@@ -39,14 +43,79 @@ from smilecode_tpu_torch.kernels import _build
 from smilecode_tpu_torch.ops.attention import _neighborhood_attention_plain, offset_grid
 
 MAX_HEAD_DIM = 32  # largest template instance in csrc/modet_attn*.cu
-BLOCK_ROWS = 256  # (voxel, head) rows per K3 block, kThreads in csrc/modet_attn_bwd.cu
+# K1/K3 bricks (csrc/attn_tile.cuh): at most ATTN_MAX_BH x ATTN_MAX_BW voxels
+# and ATTN_THREADS (voxel, head) rows per slice (kMaxThreads), a k ring of at
+# most ATTN_RING_BYTES where the row allows, and D cut into chunks until the
+# grid has about ATTN_TARGET_BLOCKS blocks (several per SM on the H100's 132
+# even at level 1's single head). The caps are `attn_ab.py --sweep`'s best
+# on the H100 at levels 1 and 2 (PERF.md)
+ATTN_THREADS = 256
+ATTN_MAX_BH, ATTN_MAX_BW = 8, 32
+ATTN_RING_BYTES = 64 * 1024
+ATTN_TARGET_BLOCKS = 2048
+_RING_SLOTS = 4  # kRing
+_SMEM_MAX = 232448  # kSmemMax: shared memory a block can use on the H100
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_void_p]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def attn_geometry(shape, itemsize: int):
+    """(bh, bw, cd, blocks): the brick and grid of K1's and K3's launch for
+    q of ``shape`` (B, D, H, W, heads, hd) with ``itemsize``-byte values.
+
+    A block takes bh x bw voxels of (h, w), one thread per (voxel, head), and
+    walks cd slices of d; its k ring holds 4 slices of (bh+2) x (bw+2) voxel
+    rows of heads*hd values. bh and bw are at most ATTN_MAX_BH and ATTN_MAX_BW
+    voxels and bh*bw*heads at most ATTN_THREADS, bw the full cap only where
+    it divides W (else at most 16, so that a row of 80 takes 5 bricks, not
+    2.5); bh (then bw) shrinks until the ring fits ATTN_RING_BYTES;
+    no side exceeds the volume's. D is cut into the fewest chunks that give
+    about ATTN_TARGET_BLOCKS blocks. ``blocks`` = B * ceil(H/bh) * ceil(W/bw)
+    * ceil(D/cd) is also the number of K3's drpb partials. Pure Python: the
+    wrapper and `chip_smoke.attn_work` both use it."""
+    b, d, h, w, heads, hd = (int(n) for n in shape)
+    if heads > ATTN_THREADS:  # one thread per (voxel, head) of a block
+        raise ValueError(f"attention kernels take at most {ATTN_THREADS} heads, got {heads}")
+    row = heads * hd * itemsize
+
+    def ring(bh, bw):
+        return _RING_SLOTS * _cdiv((bh + 2) * (bw + 2) * row, 16) * 16
+
+    voxels = max(1, ATTN_THREADS // heads)
+    bw = max(1, min(ATTN_MAX_BW if w % ATTN_MAX_BW == 0 else 16, voxels, w))
+    bh = max(1, min(voxels // bw, ATTN_MAX_BH, h))
+    while ring(bh, bw) > ATTN_RING_BYTES and bh > 1:
+        bh -= 1
+    while ring(bh, bw) > ATTN_RING_BYTES and bw > 1:
+        bw -= 1
+    if ring(bh, bw) > _SMEM_MAX // 2:
+        raise ValueError(f"attention kernels: a voxel row of {heads}x{hd} values is too wide "
+                         "for the shared-memory k ring")
+    cols = b * _cdiv(h, bh) * _cdiv(w, bw)
+    chunks = max(1, min(d, _cdiv(ATTN_TARGET_BLOCKS, max(cols, 1))))
+    cd = max(1, _cdiv(d, chunks))
+    return bh, bw, cd, cols * _cdiv(d, cd)
+
+
+def _copy_unit(row_bytes: int, ptr: int) -> int:
+    """Bytes per copy into the k ring: the widest of 16, 8, 4 and 2 that
+    divides a voxel row and k's address (csrc/attn_tile.cuh)."""
+    return next(u for u in (16, 8, 4, 2) if row_bytes % u == 0 and ptr % u == 0)
+
+
+def _launch_args(q, k):
+    """(bh, bw, cd, unit) of a K1 or K3 launch on q and k."""
+    bh, bw, cd, _ = attn_geometry(q.shape, q.element_size())
+    return bh, bw, cd, _copy_unit(q.shape[4] * q.shape[5] * q.element_size(), k.data_ptr())
 
 
 def modet_attention_plain(q, k, rpb, scale: float) -> torch.Tensor:
@@ -98,7 +167,7 @@ def _launch_fwd(q, k, rpb, scale: float) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), out.data_ptr(),
-                  b, d, h, w, heads, hd, float(scale), stream)
+                  b, d, h, w, heads, hd, float(scale), *_launch_args(q, k), stream)
     _build.check(code, "modet_attn_fwd launch")
     _build.count(modet_attention, q)
     return out
@@ -108,14 +177,14 @@ def modet_attention_bwd_dq(q, k, rpb, scale: float, g):
     """K3 on CUDA tensors: (dq, dl, drpb_partials or None).
 
     dq and dl are in q's dtype (g has it too); dl is (B, D, H, W, heads, 27),
-    K4's input; the partials are (blocks, heads, 27) float32, summed by the
-    caller. Adds one to ``modet_attention_bwd_dq.launches`` (and
-    ``.launches_bf16`` for bf16) per launch."""
+    K4's input; the partials are (blocks, heads, 27) float32, one per block
+    of `attn_geometry`'s grid, summed by the caller. Adds one to
+    ``modet_attention_bwd_dq.launches`` (and ``.launches_bf16`` for bf16)
+    per launch."""
     b, d, h, w, heads, hd = q.shape
     dq = torch.empty_like(q)
     dl = torch.empty((b, d, h, w, heads, 27), dtype=q.dtype, device=q.device)
-    rows = b * d * h * w * heads
-    blocks = (rows + BLOCK_ROWS - 1) // BLOCK_ROWS
+    blocks = attn_geometry(q.shape, q.element_size())[3]
     part = (torch.empty((blocks, heads, 27), dtype=torch.float32, device=q.device)
             if rpb is not None else None)
     if dq.numel() == 0:
@@ -125,7 +194,8 @@ def modet_attention_bwd_dq(q, k, rpb, scale: float, g):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), g.data_ptr(), dq.data_ptr(),
-                  dl.data_ptr(), _ptr(part), b, d, h, w, heads, hd, float(scale), stream)
+                  dl.data_ptr(), _ptr(part), b, d, h, w, heads, hd, float(scale),
+                  *_launch_args(q, k), stream)
     _build.check(code, "modet_attn_bwd_dq launch")
     _build.count(modet_attention_bwd_dq, q)
     return dq, dl, part
@@ -249,7 +319,9 @@ def modet_attention(q: torch.Tensor, k: torch.Tensor, rpb: torch.Tensor | None,
     """
     if _check(q, k, rpb, "modet_attention"):
         return modet_attention_plain(q, k, rpb, scale)
-    return ModetAttentionFunction.apply(q, k, rpb, scale)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, rpb)):
+        return ModetAttentionFunction.apply(q, k, rpb, scale)
+    return _launch_fwd(q, k, rpb, scale)
 
 
 for _fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk):

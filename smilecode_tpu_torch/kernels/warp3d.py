@@ -46,7 +46,13 @@ import ctypes
 import torch
 
 from smilecode_tpu_torch.kernels import _build
-from smilecode_tpu_torch.ops.warp import _warp_simple, base_grid, check_warp_args, rescale_factors
+from smilecode_tpu_torch.ops.warp import (
+    _warp_simple,
+    base_grid,
+    check_warp_args,
+    guard_non_finite,
+    rescale_factors,
+)
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
     ctypes.c_float] * 3 + [ctypes.c_void_p]
@@ -149,7 +155,9 @@ def warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc: bool = True):
     w = prod_a (t_a or 1 - t_a) and in-volume indicators:
     d_coord_a = sum_corners (+-1 on axis a) (the other two axes' factors)
     [corner in volume] sum_c g_c src[corner, c]; d_flow = d_coord * rescale;
-    d_src[corner] += w_corner g (only when ``want_dsrc``).
+    d_src[corner] += w_corner g (only when ``want_dsrc``). A voxel with a
+    NaN or infinite coordinate has every corner outside the volume
+    (`guard_non_finite`): d_flow 0 and no d_src, as K5 and JAX `ops.warp`.
     Returns (d_src or None, d_flow)."""
     check_warp_args(src, flow)
     b, sd, sh, sw, c = src.shape
@@ -158,7 +166,7 @@ def warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc: bool = True):
     dt = torch.float32
     coords = base_grid(fd, fh, fw, dt, flow.device) + flow.to(dt)
     scale = torch.tensor(_scale(src, flow), dtype=dt, device=flow.device)
-    coords = (coords * scale).reshape(b, n, 3)
+    coords = guard_non_finite((coords * scale).reshape(b, n, 3))
     c0 = torch.floor(coords)
     t = coords - c0
     sizes = torch.tensor([sd, sh, sw], dtype=dt, device=src.device)

@@ -61,7 +61,11 @@ def warp(src: torch.Tensor, flow: torch.Tensor, mode: str = "bilinear",
     "pallas" equals JAX "pallas" within F's window budget and equals JAX
     "guarded" everywhere, and there is no counterpart of
     `warp_window_violations`. "simple" and "packed" (the JAX package's two
-    XLA formulations of one function) and "plain" run `_warp_simple`.
+    XLA formulations of one function) and "plain" run `_warp_simple`. At a
+    NaN or infinite flow every route gives zeros, a zero flow gradient and
+    no source gradient (`guard_non_finite`), as JAX "packed" (its default)
+    does; JAX "simple" gives NaN flow gradients there, so the port's
+    "simple" follows JAX "packed" at such flows.
     Nearest mode (segmentations) always runs `_warp_simple`: the JAX
     package has no kernel for it either.
     """
@@ -82,6 +86,19 @@ def baseline_warp_impl(attn_impl: str) -> str:
     if attn_impl not in ("auto", "plain"):
         raise ValueError(f"attn_impl must be 'auto' or 'plain', got {attn_impl!r}")
     return "guarded" if attn_impl == "auto" else "plain"
+
+
+def guard_non_finite(coords: torch.Tensor) -> torch.Tensor:
+    """``coords`` (..., 3) with each row that has a NaN or infinite axis
+    moved to (-2, -2, -2), where every trilinear corner is outside the
+    volume. Such a voxel samples zeros, as before, and now also gets a zero
+    flow gradient and adds nothing to the source's: the gradients of JAX's
+    default `ops.warp` (the packed warp, `smilecode_tpu/ops/warp.py:67`) and
+    of K5. Without the guard, autograd multiplies the masked corners' zero
+    gradient by NaN weights (JAX `_warp_simple`'s pattern). Finite rows are
+    returned unchanged."""
+    bad = ~torch.isfinite(coords).all(dim=-1, keepdim=True)
+    return torch.where(bad, torch.full((), -2.0, dtype=coords.dtype, device=coords.device), coords)
 
 
 def _warp_simple(src: torch.Tensor, flow: torch.Tensor, mode: str = "bilinear") -> torch.Tensor:
@@ -134,6 +151,7 @@ def warp_coords(src: torch.Tensor, coords: torch.Tensor, out_spatial,
     if mode != "bilinear":
         raise ValueError(f"unsupported mode {mode!r}")
 
+    coords = guard_non_finite(coords)
     c0 = torch.floor(coords)
     t = coords - c0
     table = src_flat.to(compute_dtype)

@@ -235,3 +235,49 @@ def test_wrapper_never_takes_the_plain_path_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA device"):
         modet_attention(q, k, rpb.to("meta"))
     assert modet_attention.launches == before
+
+
+# ModeT's five level shapes of a 160x192x160 pair (heads 8/4/2/1/1), Im2grid's
+# one-head levels, the card tests' uneven shapes, and a row too wide for the ring
+GEOMETRY_CASES = [
+    ((1, 160, 192, 160, 1, 6), 4, (8, 32, 9, 2160)),
+    ((1, 80, 96, 80, 1, 6), 2, (8, 16, 3, 1620)),
+    ((1, 40, 48, 40, 2, 6), 4, (8, 16, 1, 720)),
+    ((1, 20, 24, 20, 4, 6), 4, (4, 16, 1, 240)),
+    ((1, 10, 12, 10, 8, 6), 2, (3, 10, 1, 40)),
+    ((2, 1, 1, 1, 8, 32), 4, (1, 1, 1, 2)),
+    ((2, 33, 9, 40, 2, 16), 4, (5, 16, 1, 396)),
+    ((2, 3, 4, 5, 8, 32), 4, (1, 3, 1, 48)),
+    ((1, 0, 4, 4, 1, 6), 4, (4, 4, 1, 0)),  # an empty volume: no blocks
+]
+
+
+@pytest.mark.parametrize("shape,itemsize,want", GEOMETRY_CASES)
+def test_attn_geometry_sizes_bricks_grid_and_partials(shape, itemsize, want):
+    """`attn_geometry` (K1's and K3's brick and grid, and the number of K3's
+    drpb partials) on the CPU: the pinned values, a brick inside the volume
+    with at most ATTN_THREADS (voxel, head) rows and a k ring within
+    ATTN_RING_BYTES, a grid that covers the volume once, and the partials
+    that chip_smoke's bound counts."""
+    import chip_smoke
+    from smilecode_tpu_torch.kernels import modet_attn as ma
+
+    b, d, h, w, heads, hd = shape
+    bh, bw, cd, blocks = got = ma.attn_geometry(shape, itemsize)
+    assert got == want
+    assert 1 <= bh <= h and 1 <= bw <= w and 1 <= cd <= max(d, 1)
+    assert bh * bw * heads <= ma.ATTN_THREADS
+    assert 4 * -(-(bh + 2) * (bw + 2) * heads * hd * itemsize // 16) * 16 <= ma.ATTN_RING_BYTES
+    assert blocks == b * -(-d // cd) * -(-h // bh) * -(-w // bw)
+    assert (-(-d // cd) - 1) * cd < max(d, 1)  # no empty chunk
+    no_rpb, with_rpb = (chip_smoke.attn_work("K3", shape, itemsize, r)[0] for r in (False, True))
+    assert with_rpb - no_rpb == heads * 27 * 4 + blocks * heads * 27 * 4
+
+
+def test_attn_geometry_rejects_what_the_ring_cannot_hold():
+    from smilecode_tpu_torch.kernels.modet_attn import attn_geometry
+
+    with pytest.raises(ValueError, match="heads"):
+        attn_geometry((1, 4, 4, 4, 257, 1), 4)
+    with pytest.raises(ValueError, match="too wide"):
+        attn_geometry((1, 4, 4, 4, 64, 32), 4)

@@ -73,10 +73,132 @@ def test_attention_kernel_matches_plain(dev, shape, heads, hd, scale, with_rpb):
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5)
 
 
+# K1 and K3 on the shared k stage (csrc/attn_tile.cuh): shapes whose D, H
+# and W are no multiples of the brick or the D chunk, heads 1, 2 and 8, head
+# dims 1 (2-byte bf16 rows: plain-load copies), 5 (odd: scalar reads), 6,
+# 16 and 32, W = 64 for 32-voxel bricks; each with the default grid and with
+# ATTN_TARGET_BLOCKS = 9, where the blocks walk long, uneven d chunks through
+# the k ring
+STAGE_CASES = [
+    ((1, 1, 1), 8, 32, True),
+    ((3, 5, 64), 1, 6, True),
+    ((2, 3, 65), 1, 1, False),
+    ((2, 3, 65), 2, 6, True),
+    ((33, 9, 40), 2, 16, True),
+    ((33, 9, 40), 1, 6, False),
+    ((5, 4, 3), 8, 6, True),
+    ((7, 6, 9), 2, 5, True),
+]
+
+
+def attn_inputs(shape, heads, hd, with_rpb, dtype, dev, seed):
+    q, k = (rand((2, *shape, heads, hd), seed + i).to(dev).to(dtype) for i in (0, 1))
+    rpb = rand((heads, 3, 3, 3), seed + 2).to(dev) if with_rpb else None
+    g = rand((2, *shape, heads * 3), seed + 3).to(dev).to(dtype)
+    return q, k, rpb, g
+
+
+def assert_matches_plain(got, want, dtype, what):
+    """bf16: 2 bf16 ulps of the largest finite magnitude; float32: 1e-5 of
+    it; NaN where the plain version has NaN."""
+    got, want = got.float().cpu(), want.float().cpu()
+    finite = want[torch.isfinite(want)]
+    big = max(float(finite.abs().max()) if finite.numel() else 0.0, 1e-3)
+    atol = (2.0 ** -7 if dtype == BF16 else 1e-5) * big
+    torch.testing.assert_close(got, want, rtol=0, atol=atol, equal_nan=True, msg=what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("target", [None, 9], ids=["grid", "long-chunks"])
+@pytest.mark.parametrize("shape,heads,hd,with_rpb", STAGE_CASES)
+def test_staged_attention_kernels_match_plain(dev, monkeypatch, shape, heads, hd, with_rpb,
+                                              target, dtype):
+    """K1 out, K3 dq, dl and drpb vs their plain versions on the card, one
+    launch each; drpb within 1e-6 of the largest sum_x |dl_t|."""
+    from smilecode_tpu_torch.kernels import modet_attn
+
+    if target is not None:
+        monkeypatch.setattr(modet_attn, "ATTN_TARGET_BLOCKS", target)
+    q, k, rpb, g = attn_inputs(shape, heads, hd, with_rpb, dtype, dev, 50)
+    counts = (modet_attention.launches, modet_attention_bwd_dq.launches)
+    out = modet_attention(q, k, rpb, 0.5)
+    dq, dl, part = modet_attention_bwd_dq(q, k, rpb, 0.5, g)
+    torch.cuda.synchronize()
+    assert (modet_attention.launches, modet_attention_bwd_dq.launches) == (counts[0] + 1,
+                                                                           counts[1] + 1)
+    assert out.dtype == dq.dtype == dl.dtype == dtype
+    assert_matches_plain(out, modet_attention_plain(q, k, rpb, 0.5), dtype, "out")
+    p_dq, p_dl, p_drpb = modet_attention_bwd_dq_plain(q, k, rpb, 0.5, g)
+    assert_matches_plain(dq, p_dq, dtype, "dq")
+    assert_matches_plain(dl, p_dl, dtype, "dl")
+    if with_rpb:
+        assert part.shape == (modet_attn.attn_geometry(q.shape, q.element_size())[3], heads, 27)
+        atol = 1e-6 * float(p_dl.float().abs().sum(dim=(0, 1, 2, 3)).max())
+        torch.testing.assert_close(part.sum(0).reshape(heads, 3, 3, 3).cpu(), p_drpb.cpu(),
+                                   rtol=0, atol=atol)
+    else:
+        assert part is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_staged_attention_kernels_give_the_plain_nan_pattern(dev, dtype):
+    """A q with an inf (at a border voxel and an interior one): the zero-filled
+    k border gives inf * 0 = NaN logits where the plain version's padded k
+    does, so K1's out and K3's dq, dl and drpb have NaN exactly where the
+    plain versions have it, and K4's dk too."""
+    q, k, rpb, g = attn_inputs((6, 5, 7), 2, 6, True, torch.float32, dev, 60)
+    q[0, 0, 2, 3, 1, 4] = float("inf")
+    q[1, 3, 2, 3, 0, 0] = -float("inf")
+    q, k, g = q.to(dtype), k.to(dtype), g.to(dtype)
+    out = modet_attention(q, k, rpb, 1.0)
+    ref = modet_attention_plain(q, k, rpb, 1.0)
+    assert torch.isnan(ref).any() and not torch.isnan(ref).all()
+    assert_matches_plain(out, ref, dtype, "out")
+    got = modet_attention_bwd(q, k, rpb, 1.0, g)
+    want = modet_attention_bwd_plain(q, k, rpb, 1.0, g)
+    for name, a, b in zip(("dq", "dk", "drpb"), got, want):
+        assert torch.isnan(b).any(), name
+        assert_matches_plain(a, b, dtype if name != "drpb" else torch.float32, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k3_drpb_partials_are_deterministic(dev, dtype):
+    """Two launches of K3 on the same inputs give bitwise equal partials
+    (and dq, dl): fixed summation order, no atomics."""
+    q, k, rpb, g = attn_inputs((20, 24, 20), 4, 6, True, dtype, dev, 70)
+    first = modet_attention_bwd_dq(q, k, rpb, 1.0, g)
+    second = modet_attention_bwd_dq(q, k, rpb, 1.0, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_k1_launches_without_autograd_when_no_gradient_is_wanted(dev):
+    """Under torch.no_grad(), or when no input requires a gradient, K1 is
+    launched directly: one launch, no autograd node; with a gradient wanted
+    it goes through the autograd Function."""
+    q, k, rpb, _ = attn_inputs((4, 5, 6), 2, 6, True, torch.float32, dev, 80)
+    leaves = [t.clone().requires_grad_() for t in (q, k, rpb)]
+    ref = modet_attention_plain(q, k, rpb, 1.0)
+    for args, grad_mode in ((leaves, False), ((q, k, rpb), True), (leaves, True)):
+        before = modet_attention.launches
+        with torch.set_grad_enabled(grad_mode):
+            out = modet_attention(*args, 1.0)
+        torch.cuda.synchronize()
+        assert modet_attention.launches == before + 1
+        assert (out.grad_fn is None) == (args is not leaves or not grad_mode)
+        torch.testing.assert_close(out.detach(), ref, rtol=0, atol=1e-5)
+
+
 def warp_flow(shape, kind, seed):
     """(2, *shape, 3) float32 flow: a number is the scale of a N(0, 1) flow;
     "wild" is uniform in +-20 voxels, "far" puts every sample 100 voxels
-    outside the volume, "nan" is NaN everywhere."""
+    outside the volume, "nan" is NaN everywhere, "nan1" a N(0, 4) flow whose
+    channel 1 is NaN at every second w."""
+    if kind == "nan1":
+        flow = rand((2, *shape, 3), seed, 2.0)
+        flow[:, :, :, ::2, 1] = float("nan")
+        return flow
     if kind == "wild":
         return torch.from_numpy(np.random.default_rng(seed).uniform(-20, 20, (2, *shape, 3))
                                 .astype(np.float32))
@@ -121,6 +243,7 @@ WARP_CASES = [
     ((5, 6, 7), (5, 6, 7), 8, "far", False),
     ((5, 6, 7), (5, 6, 7), 16, "nan", False),
     ((5, 6, 7), (5, 6, 7), 3, "nan", False),
+    ((5, 6, 7), (5, 6, 7), 8, "nan1", False),
     ((5, 6, 7), (5, 6, 7), 8, 2.0, True),  # misaligned view: scalar path
 ]
 
@@ -250,16 +373,14 @@ def test_attention_autograd_runs_k1_k3_k4(dev):
 
 @pytest.mark.parametrize("src_shape,flow_shape,c,kind,misaligned", WARP_CASES)
 def test_warp_backward_kernel_matches_plain(dev, src_shape, flow_shape, c, kind, misaligned):
-    """K5 vs its plain version; for a NaN flow (where the plain version's
-    arithmetic gives NaN) every corner is outside the volume, so d_src and
-    d_flow are 0."""
+    """K5 vs its plain version; at a NaN flow every corner is outside the
+    volume in both, so d_flow is 0 there and d_src gets nothing (JAX
+    `ops.warp`'s gradients, tests/test_torch_warp.py)."""
     src = rand((2, *src_shape, c), 19)
     flow = warp_flow(flow_shape, kind, 20)
     g = rand((2, *flow_shape, c), 21)
     for want_dsrc in (True, False):
         ref = warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc)
-        if kind == "nan":
-            ref = tuple(None if r is None else torch.zeros_like(r) for r in ref)
         counters = ("launches", "scatters", "launches_vector")
         before = [getattr(warp3d_trilinear_bwd, k) for k in counters]
         d_src, d_flow = warp3d_trilinear_bwd(on_card(src, dev, misaligned), flow.to(dev),
@@ -354,7 +475,7 @@ def test_bf16_warp_kernels_match_plain(dev, src_shape, flow_shape, c, kind, misa
     """K2 and K5 on a bf16 source and a float32 flow vs their plain
     versions: out and d_src bf16 (the scatter sums in float32), d_flow
     float32; the F entries of ``ops.warp`` take bf16 too. A NaN flow gives
-    zeros (every corner outside the volume)."""
+    zeros and no gradient (every corner outside the volume) in both."""
     from smilecode_tpu_torch.ops.warp import warp
 
     src = on_card(rand((2, *src_shape, c), 35).to(BF16), dev, misaligned)
@@ -371,8 +492,6 @@ def test_bf16_warp_kernels_match_plain(dev, src_shape, flow_shape, c, kind, misa
     before = [getattr(warp3d_trilinear_bwd, k) for k in counters]
     d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, True)
     p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, True)
-    if kind == "nan":
-        p_src, p_flow = torch.zeros_like(p_src), torch.zeros_like(p_flow)
     assert d_flow.dtype == torch.float32
     assert_bf16_close(d_src, p_src, "d_src")
     assert_scaled_close(d_flow, p_flow.cpu(), "d_flow")

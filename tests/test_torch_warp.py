@@ -302,3 +302,47 @@ def test_impl_names_map_to_the_kernel_wrapper_or_plain(monkeypatch, impl, mode):
     assert len(calls) == int(mode == "bilinear" and impl in KERNEL_IMPLS)
     torch.testing.assert_close(out, _warp_simple(src, fl, mode), rtol=0, atol=0)
     assert port_warp3d.warp3d_pallas is port_warp3d.warp3d_guarded is port_warp3d.warp3d_trilinear
+
+
+def nan_flow_case():
+    """(1, 5, 6, 7) flow with C = 8: one voxel NaN in all three channels and
+    one voxel NaN in channel 1 only; source and cotangent from seeds."""
+    fl = wild_flow((5, 6, 7), 2.0, 36)
+    fl[0, 1, 2, 3, :] = np.nan
+    fl[0, 3, 4, 1, 1] = np.nan
+    return source((5, 6, 7), 8, 37), fl, source((5, 6, 7), 8, 38)
+
+
+@pytest.mark.parametrize("route", ["autograd", "bwd_plain"])
+def test_nan_flow_gradients_match_jax_default_warp(route):
+    """At a NaN flow the port's plain warp gives JAX's default `ops.warp`
+    (the packed warp ModeT trains through) gradients: d_flow 0 in all three
+    channels of both NaN voxels, which add nothing to d_src; the forward
+    gives zeros there. Through torch autograd of the CPU route and through
+    `warp3d_trilinear_bwd_plain` (K5's oracle)."""
+    src, fl, g = nan_flow_case()
+    j_src, j_flow = (np.asarray(a) for a in jax_warp_vjp(jax_warp, src, fl, g))
+    if route == "autograd":
+        s, f = (torch.from_numpy(a).requires_grad_() for a in (src, fl))
+        out = warp3d_trilinear(s, f)
+        assert out[0, 1, 2, 3].abs().max() == 0 and out[0, 3, 4, 1].abs().max() == 0
+        d_src, d_flow = torch.autograd.grad(out, (s, f), torch.from_numpy(g))
+    else:
+        d_src, d_flow = warp3d_trilinear_bwd_plain(*(torch.from_numpy(a) for a in (src, fl, g)))
+    assert np.isfinite(j_flow).all() and np.isfinite(j_src).all()
+    assert not j_flow[0, 1, 2, 3].any() and not j_flow[0, 3, 4, 1].any()
+    assert torch.isfinite(d_flow).all() and torch.isfinite(d_src).all()
+    assert_close_scaled(d_flow, j_flow, "d_flow vs ops.warp")
+    assert_close_scaled(d_src, j_src, "d_src vs ops.warp")
+
+
+def test_jax_warp_simple_gives_nan_flow_gradients_at_nan_flows():
+    """The JAX package's two warps differ at a NaN flow: `_warp_simple`
+    gives NaN d_flow in channels (0, 1, 2) at the all-NaN voxel and (0, 2)
+    at the channel-1 voxel, where its default `ops.warp` gives 0 (the test
+    above)."""
+    src, fl, g = nan_flow_case()
+    _, j_flow = (np.asarray(a) for a in jax_warp_vjp(jax_warp_simple, src, fl, g))
+    np.testing.assert_array_equal(np.isnan(j_flow[0, 1, 2, 3]), [True, True, True])
+    np.testing.assert_array_equal(np.isnan(j_flow[0, 3, 4, 1]), [True, False, True])
+    assert np.isnan(j_flow).sum() == 5
