@@ -1,5 +1,7 @@
-// Shared k-halo stage of the neighborhood-attention kernels K1 and K3
-// (Hopper, sm_90a).
+// Shared halo stage of the neighborhood-attention kernels K1, K3 and K4
+// (Hopper, sm_90a). K1 and K3 stage k as below; K4 (modet_attn_bwd.cu)
+// stages dl and q rows with the brick, origin and seat of this file and the
+// span copies further down.
 //
 // Both kernels compute, for each (voxel x, head), the 27 logits
 //   logit_t = (q*scale) . k[x + o_t] + rpb[head, t],  o_t = (od-1, oh-1, ow-1),
@@ -78,23 +80,23 @@ inline bool make_brick(Brick& g, int D, int H, int W, int heads, int hd, int bh,
 
 // ---- copies into the ring ----------------------------------------------
 
+// the first n (0 <= n <= U) of U bytes at src into dst, zeros after them;
+// src is not read where n = 0
 template <int U>
-__device__ __forceinline__ void copy_unit(void* dst, const void* src, bool inside) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = inside ? U : 0;  // 0: no bytes read, the slot gets zeros
-  if constexpr (U == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+__device__ __forceinline__ void copy_bytes(void* dst, const void* src, int n) {
+  if constexpr (U == 2) {
+    // a bf16 row of an odd number of values: plain 2-byte loads
+    *static_cast<unsigned short*>(dst) =
+        n ? __ldg(static_cast<const unsigned short*>(src)) : static_cast<unsigned short>(0);
   } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(U),
-                 "r"(n));
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if constexpr (U == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(U),
+                   "r"(n));
+    }
   }
-}
-
-template <>
-__device__ __forceinline__ void copy_unit<2>(void* dst, const void* src, bool inside) {
-  // a bf16 row of an odd number of values: plain 2-byte loads
-  *static_cast<unsigned short*>(dst) =
-      inside ? __ldg(static_cast<const unsigned short*>(src)) : static_cast<unsigned short>(0);
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -124,7 +126,8 @@ __device__ __forceinline__ void load_slice_units(T* slot, const T* k, long long 
     const long long base = (((bd + d) * g.H + h) * g.W + w0 - 1) * static_cast<long long>(row_bytes);
     for (int b = lane * U; b < span; b += lanes * U) {
       const bool inside = row_in && b >= lo && b < hi;
-      copy_unit<U>(sb + hh * span + b, inside ? kb + base + b : kb, inside);
+      // 0 bytes read: the slot gets zeros
+      copy_bytes<U>(sb + hh * span + b, inside ? kb + base + b : kb, inside ? U : 0);
     }
   }
 }
@@ -142,6 +145,166 @@ __device__ __forceinline__ void load_slice(T* slot, const T* k, long long bd, in
     case 4: load_slice_units<T, 4>(slot, k, bd, d, h0, w0, g); break;
     default: load_slice_units<T, 2>(slot, k, bd, d, h0, w0, g); break;
   }
+}
+
+// ---- span copies (K4) --------------------------------------------------
+//
+// K4 stages rows too wide or too oddly sized for whole-voxel units (dl's 27
+// values: 108 bytes in float32, 54 in bf16) as spans: a halo row of (bw+2)
+// voxel rows is one contiguous span in memory. Its slot row keeps the span's
+// alignment modulo the copy unit U (16 bytes, or 8, 4, 2 for a q whose
+// address allows no more): slot-row byte r holds tensor byte floor_U(g0) +
+// r, where g0 is the byte offset of voxel w0-1, so voxel ww of the halo
+// starts at (g0 mod U) + ww * row_bytes, and whole units line up in both.
+// With U = 16 the units of a row that lie inside the volume (and inside the
+// tensor) go as one bulk copy of the tensor memory accelerator (TMA,
+// cp.async.bulk), whose completion an mbarrier counts in bytes; the rest,
+// at most a unit at each end of the row and zeros for voxels outside the
+// volume, go unit by unit with cp.async (source size 0: zeros).
+
+__host__ __device__ inline int span_pitch(int bw, int row_bytes) {
+  return ((bw + 2) * row_bytes + 15 + 15) / 16 * 16;  // any shift below 16
+}
+
+// byte offset in the tensor of voxel w0-1 of row h of d-slice d (negative
+// for the halo row h = -1 of the first slice)
+__device__ __forceinline__ long long span_start(long long bd, int d, int h, int w0, int row_bytes,
+                                                const Brick& g) {
+  return (((bd + d) * g.H + h) * g.W + w0 - 1) * static_cast<long long>(row_bytes);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// one arrival that also expects ``bytes`` more of bulk copies
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tWAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+      "@!p bra WAIT;\n\t}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+// orders this thread's shared-memory writes before later bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The unit at the left end of a halo row whose voxel w0-1 lies outside the
+// volume: its first f bytes are that voxel's (zeros), bytes [f, n) data.
+// Voxel rows are whole values, so in 4-byte pieces only a bf16 value
+// boundary (f = 2 mod 4) splits a piece: that piece takes a plain load.
+template <int U>
+__device__ __forceinline__ void copy_straddle(char* dst, const char* src, int f, int n,
+                                              const char* safe) {
+#pragma unroll
+  for (int p = 0; p < U; p += 4) {
+    const int a = max(f - p, 0), b = min(n - p, 4);  // data bytes [a, b) of the piece
+    if (a == 0 && b > 0) {
+      copy_bytes<4>(dst + p, src + p, b);
+    } else if (a < b) {  // a == 2, b == 4
+      *reinterpret_cast<unsigned short*>(dst + p) = 0;
+      *reinterpret_cast<unsigned short*>(dst + p + 2) =
+          __ldg(reinterpret_cast<const unsigned short*>(src + p + 2));
+    } else {
+      copy_bytes<4>(dst + p, safe, 0);
+    }
+  }
+}
+
+// A halo row of a span copy: its U-byte units [0, kend) cover the span; the
+// in-volume bytes are [lo, hi) of it (relative to g0); units [b0, b1) go by
+// one bulk copy (U = 16 only), the others unit by unit.
+struct SpanRow {
+  long long g0;  // byte offset of voxel w0-1
+  int shift, lo, hi, kend, b0, b1;
+  bool in;       // the row lies inside the volume in h
+};
+
+template <int U>
+__device__ __forceinline__ SpanRow span_row(long long bd, int d, int hh, int h0, int w0,
+                                            int row_bytes, long long bytes, const Brick& g) {
+  SpanRow r;
+  const int h = h0 - 1 + hh, span = (g.bw + 2) * row_bytes;
+  r.g0 = span_start(bd, d, h, w0, row_bytes, g);
+  r.shift = static_cast<int>(r.g0 & (U - 1));
+  r.lo = w0 == 0 ? row_bytes : 0;                           // voxel w0-1 < 0 outside
+  r.hi = (min(g.W, w0 + g.bw + 1) - (w0 - 1)) * row_bytes;  // voxels >= W outside
+  r.in = h >= 0 && h < g.H;
+  r.kend = (r.shift + span + U - 1) / U;
+  r.b0 = r.b1 = 0;
+  if (U == 16 && r.in) {
+    // whole units inside the volume; with lo = 0 the first unit's head (voxel
+    // w0-2) and with hi = span the last unit's tail are never read, so they
+    // may come along where they lie inside the tensor
+    const int khi = (r.shift + r.hi + 15) / 16;
+    r.b0 = r.lo == 0 ? 0 : (r.shift + r.lo + 15) / 16;
+    r.b1 = r.hi == span && r.g0 - r.shift + 16LL * khi <= bytes ? khi : (r.shift + r.hi) / 16;
+    if (r.b1 < r.b0) r.b0 = r.b1 = 0;
+  }
+  return r;
+}
+
+// Copy groups of a block: up to 32 threads each (a warp, or the whole block
+// when it is smaller); threads past the last whole group copy nothing.
+__device__ __forceinline__ int copy_lanes() { return min(32, static_cast<int>(blockDim.x)); }
+__device__ __forceinline__ int copy_groups() { return blockDim.x / copy_lanes(); }
+
+// Issue the copy of the (bh+2) halo rows of d-slice d of x, a (B, D, H, W)
+// grid of row_bytes-byte voxel rows, ``bytes`` long, whose address is
+// U-aligned, into region (slot rows pitch bytes apart), zeros for voxels
+// outside the volume in h or w: row hh by copy group (hh + first) mod
+// groups, its bulk part (U = 16) by the group's first thread, which arrives
+// on bar later. Returns the bytes of this thread's bulk copies.
+template <int U>
+__device__ __forceinline__ unsigned load_spans(char* region, int pitch, const char* x,
+                                               int row_bytes, long long bytes, long long bd,
+                                               int d, int h0, int w0, const Brick& g,
+                                               unsigned long long* bar, int first) {
+  const int lanes = copy_lanes(), groups = copy_groups();
+  const int grp = threadIdx.x / lanes, lane = threadIdx.x % lanes;
+  unsigned sent = 0;
+  if (grp >= groups) return 0;
+  for (int hh = (grp + groups - first % groups) % groups; hh < g.bh + 2; hh += groups) {
+    const SpanRow r = span_row<U>(bd, d, hh, h0, w0, row_bytes, bytes, g);
+    char* row = region + hh * pitch;
+    if (lane == 0 && r.b1 > r.b0) {
+      bulk_copy(row + U * r.b0, x + (r.g0 - r.shift + U * static_cast<long long>(r.b0)),
+                U * (r.b1 - r.b0), bar);
+      sent += U * (r.b1 - r.b0);
+    }
+    const int n_units = r.kend - (r.b1 - r.b0);
+    for (int u = lane; u < n_units; u += lanes) {
+      const int k = u < r.b0 ? u : u - r.b0 + r.b1;
+      const int at = U * k - r.shift;  // this unit's first byte, relative to g0
+      char* dst = row + U * k;
+      if (r.in && at + U > r.lo && at < r.hi) {
+        const char* src = x + (r.g0 + at);
+        const int n = min(U, r.hi - at);
+        if (U > 2 && r.lo > 0 && at < r.lo) {
+          copy_straddle<U>(dst, src, r.lo - at, n, x);
+        } else {
+          copy_bytes<U>(dst, src, n);
+        }
+      } else {
+        copy_bytes<U>(dst, x, 0);
+      }
+    }
+  }
+  return sent;
 }
 
 // ---- reading the ring --------------------------------------------------

@@ -43,8 +43,24 @@
 // is deterministic. Measured on the H100 (PERF.md), K3 runs at about half
 // of its bound at level 1 (f32): the two passes over the 27 staged rows and
 // the dl stores take instruction issue and shared-memory time that device
-// memory does not. K4 is one thread per (voxel, head) gathering 27 dl
-// values and q rows of its inverse window, like the old K1's forward window.
+// memory does not.
+//
+// K4 reads dl (27 values per voxel and head) and q and writes dk: the dl
+// read dominates its bytes too. Its block takes a brick of voxels and walks
+// a chunk of D like K3's, one thread per (voxel, head), but stages both
+// inputs: each d-slice's (bh+2) x (bw+2) halo of dl rows and of q rows, zero
+// outside the volume, copied one slice ahead into a two-slot ring. A halo
+// row of dl is 108 bytes a voxel in float32 (54 in bf16), no whole number of
+// 16-byte units, so each halo row goes as a span laid out at its alignment
+// (attn_tile.cuh: load_spans): its interior by one bulk copy of the tensor
+// memory accelerator, its ends unit by unit with cp.async. A staged slice s
+// is the source of dk at s-1, s and s+1, so a thread keeps three dk rows in
+// registers and reads each of its 9 source q rows once per slice for all
+// three (27 dl values and 9 q rows a slice, against 27 of each for the
+// window at once). Measured on the H100 (PERF.md): at level 1, 0.76 of its
+// bound in float32 (device memory sets the pace; the per-thread cp.async
+// copies it replaced left it copy-bound at 0.58) and 0.56 in bf16, where
+// the bf16 unpacking and the shared-memory reads are as many as in float32.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,12 +73,9 @@ namespace {
 using namespace smilecode::attn;
 using smilecode::from_f32;
 using smilecode::kVec16;
-using smilecode::ldg_f32;
 using smilecode::round_to;
 using smilecode::st_vec16;
 using smilecode::to_f32;
-
-constexpr int kThreads = 256;  // K4
 
 // floats of a K3 dl-tile row: one brick w-row of dl (bw*heads*27), shifted
 // by up to V-1 to the global span's 16-byte alignment, rounded to V
@@ -226,47 +239,183 @@ modet_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int MAX_HD>
-__global__ void __launch_bounds__(kThreads)
-modet_attn_bwd_dk_kernel(const T* __restrict__ q, const T* __restrict__ dl,
-                         T* __restrict__ dk, int D, int H, int W, int heads, int hd,
-                         float scale, long long total) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int head = static_cast<int>(idx % heads);
-  long long v = idx / heads;
-  const int w = static_cast<int>(v % W);
-  v /= W;
-  const int h = static_cast<int>(v % H);
-  v /= H;
-  const int d = static_cast<int>(v % D);
-  const long long b = v / D;
+// K4's stage: a ring slot holds the (bh+2) x (bw+2) halo of a brick in one
+// d-slice, the dl rows (heads*27 values a voxel) and then the q rows
+// (heads*hd), each halo row a span (attn_tile.cuh: load_spans); dl is
+// 16-byte aligned, q's copy unit (Brick::unit) the widest its address
+// allows: 16 bytes (bulk copies) or 8, 4, 2 (units only). After the ring,
+// one mbarrier per slot counts its bulk bytes.
+struct DkStage {
+  Brick g;
+  int lrow, qrow;            // bytes of a voxel's dl and q rows
+  int lpitch, qpitch;        // bytes of a slot row of dl and of q
+  int slot;                  // bytes of a ring slot: (bh+2) * (lpitch + qpitch)
+  long long lbytes, qbytes;  // bytes of dl and q
+  bool mixed;                // a slot byte can be a bulk copy's in one slice, a unit's in another
+};
 
-  // the source voxel x - o_t, as a (voxel, head) row index
-  const long long base = b * D * H * W;
-  float acc[MAX_HD];
-#pragma unroll
-  for (int i = 0; i < MAX_HD; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int t = 0; t < 27; ++t) {
-    const int sd = d - (t / 9 - 1), sh = h - ((t / 3) % 3 - 1), sw = w - (t % 3 - 1);
-    if (sd >= 0 && sd < D && sh >= 0 && sh < H && sw >= 0 && sw < W) {
-      const long long src = (base + (static_cast<long long>(sd) * H + sh) * W + sw) * heads + head;
-      const float dlt = ldg_f32(dl + src * 27 + t);
-      const T* qp = q + src * hd;
-#pragma unroll
-      for (int i = 0; i < MAX_HD; ++i)
-        if (i < hd) acc[i] += dlt * ldg_f32(qp + i);
-    }
+constexpr int kDkRing = 2;  // K4's ring slots: the slice read and the one in flight
+
+template <typename T>
+__device__ __forceinline__ void load_dk_slice(unsigned char* slot, const T* q, const T* dl,
+                                              long long bd, int d, const Origin& o,
+                                              const DkStage& st, unsigned long long* bar) {
+  char* sb = reinterpret_cast<char*>(slot);
+  const char* ls = reinterpret_cast<const char*>(dl);
+  char* qb = sb + (st.g.bh + 2) * st.lpitch;
+  const char* qs = reinterpret_cast<const char*>(q);
+  unsigned sent = load_spans<16>(sb, st.lpitch, ls, st.lrow, st.lbytes, bd, d, o.h0, o.w0, st.g,
+                                 bar, 0);
+  const int qfirst = st.g.bh + 2;  // q's rows start with the groups after dl's
+  switch (st.g.unit) {
+    case 16:
+      sent += load_spans<16>(qb, st.qpitch, qs, st.qrow, st.qbytes, bd, d, o.h0, o.w0, st.g, bar,
+                             qfirst);
+      break;
+    case 8:
+      load_spans<8>(qb, st.qpitch, qs, st.qrow, st.qbytes, bd, d, o.h0, o.w0, st.g, bar, qfirst);
+      break;
+    case 4:
+      load_spans<4>(qb, st.qpitch, qs, st.qrow, st.qbytes, bd, d, o.h0, o.w0, st.g, bar, qfirst);
+      break;
+    default:
+      load_spans<2>(qb, st.qpitch, qs, st.qrow, st.qbytes, bd, d, o.h0, o.w0, st.g, bar, qfirst);
+      break;
   }
-  T* dkp = dk + idx * hd;
-#pragma unroll
-  for (int i = 0; i < MAX_HD; ++i)
-    if (i < hd) dkp[i] = from_f32<T>(scale * acc[i]);
+  // one arrival per copy group, with the bytes its bulk copies bring
+  if (threadIdx.x % copy_lanes() == 0 && threadIdx.x / copy_lanes() < copy_groups())
+    mbar_expect(bar, sent);
 }
 
-unsigned blocks_for(long long total) {
-  return static_cast<unsigned>((total + kThreads - 1) / kThreads);
+__device__ __forceinline__ void st_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// dk row p = scale * acc, rounded to T
+template <typename T, int MAX_HD, bool PAIRS>
+__device__ __forceinline__ void store_dk(T* p, const float (&acc)[MAX_HD], int hd, float scale) {
+  if constexpr (PAIRS) {
+#pragma unroll
+    for (int i = 0; i < MAX_HD; i += 2)
+      if (i < hd) st_pair(p + i, scale * acc[i], scale * acc[i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < MAX_HD; ++i)
+      if (i < hd) p[i] = from_f32<T>(scale * acc[i]);
+  }
+}
+
+// K4. Staged slice s is the source slice of dk at s-1, s and s+1 (od = 0, 1,
+// 2: x_d = s + od - 1), so a thread keeps three accumulators, a0 for s-1, a1
+// for s, a2 for s+1, reads each of its 9 source q rows once per slice for all
+// three, and retires a0 after the slice; the ring needs two slots. A block
+// walks the source slices d0-1 .. d1 of its chunk that lie in the volume
+// (outside ones give nothing, as in the plain version). dk[x] sums its 27
+// terms slice by slice (x_d-1, x_d, x_d+1), (oh, ow) ascending in each: not
+// the plain version's t order, the same float32 terms.
+template <typename T, int MAX_HD, bool PAIRS>
+__global__ void __launch_bounds__(kMaxThreads, MAX_HD > 8 ? 1 : sizeof(T) == 2 ? 4 : 2)
+modet_attn_bwd_dk_kernel(const T* __restrict__ q, const T* __restrict__ dl, T* __restrict__ dk,
+                         DkStage st, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Brick& g = st.g;
+  const Origin o = origin(g);
+  const long long bd = static_cast<long long>(o.b) * g.D;
+  const Seat me = seat(o.h0, o.w0, g);
+  const int s0 = max(o.d0 - 1, 0), s1 = min(o.d1, g.D - 1);  // source slices, inclusive
+  const int hd = MAX_HD % 8 ? MAX_HD : g.hd;  // MAX_HD 6: exactly ModeT's head_dim
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + kDkRing * st.slot);
+  if (threadIdx.x == 0) {
+    mbar_init(bars, copy_groups());
+    mbar_init(bars + 1, copy_groups());
+  }
+  __syncthreads();
+  load_dk_slice(smem, q, dl, bd, s0, o, st, bars);
+  cp_async_commit();
+  cp_async_wait_all();
+  mbar_wait(bars, 0);
+  if (st.mixed) fence_proxy_async();
+  __syncthreads();
+
+  const long long step = static_cast<long long>(g.H) * g.W * g.heads;  // rows per d-slice
+  const long long row0 = ((bd * g.H + me.h) * g.W + me.w) * g.heads + me.head;  // dk row at d = 0
+  // this thread's dl and q rows of halo voxel (hl, wl) in a slot, before the
+  // slot row's shift
+  const int lown = me.hl * st.lpitch + (me.wl * g.heads + me.head) * 27 * static_cast<int>(sizeof(T));
+  const int qown = (g.bh + 2) * st.lpitch + me.hl * st.qpitch + (me.wl * g.heads + me.head) * g.hd *
+                   static_cast<int>(sizeof(T));
+  float a0[MAX_HD], a1[MAX_HD], a2[MAX_HD];
+#pragma unroll
+  for (int i = 0; i < MAX_HD; ++i) a0[i] = a1[i] = a2[i] = 0.f;
+
+  for (int s = s0; s <= s1; ++s) {
+    const unsigned char* slot = smem + ((s - s0) & 1) * st.slot;
+    const int f = s - s0 + 1;  // fill number of slice s+1: slot f & 1, its (f >> 1)-th use
+    if (s < s1) load_dk_slice(smem + (f & 1) * st.slot, q, dl, bd, s + 1, o, st, bars + (f & 1));
+    cp_async_commit();
+    const bool u0 = s > o.d0, u1 = s >= o.d0 && s < o.d1, u2 = s + 1 < o.d1;
+    if (me.active) {
+#pragma unroll
+      for (int oh = 0; oh < 3; ++oh) {
+        // halo row hl + 2 - oh holds the sources of row h - (oh - 1)
+        const int hh = me.hl + 2 - oh;
+        const long long g0 = span_start(bd, s, o.h0 - 1 + hh, o.w0, 1, g);  // voxel index
+        const unsigned char* lr =
+            slot + lown + (2 - oh) * st.lpitch + static_cast<int>((g0 * st.lrow) & 15);
+        const unsigned char* qr = slot + qown + (2 - oh) * st.qpitch +
+                                  static_cast<int>((g0 * st.qrow) & (g.unit - 1));
+#pragma unroll
+        for (int ow = 0; ow < 3; ++ow) {
+          const T* lp = reinterpret_cast<const T*>(lr + (2 - ow) * st.lrow) + oh * 3 + ow;
+          const T* qp = reinterpret_cast<const T*>(qr + (2 - ow) * st.qrow);
+          float qv[MAX_HD];
+          if constexpr (PAIRS) {
+#pragma unroll
+            for (int i = 0; i < MAX_HD; i += 2)
+              if (i < hd) lds_pair(qp + i, qv[i], qv[i + 1]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < MAX_HD; ++i)
+              if (i < hd) qv[i] = lds_f32(qp + i);
+          }
+          if (u0) {
+            const float x = lds_f32(lp);
+#pragma unroll
+            for (int i = 0; i < MAX_HD; ++i)
+              if (i < hd) a0[i] += x * qv[i];
+          }
+          if (u1) {
+            const float x = lds_f32(lp + 9);
+#pragma unroll
+            for (int i = 0; i < MAX_HD; ++i)
+              if (i < hd) a1[i] += x * qv[i];
+          }
+          if (u2) {
+            const float x = lds_f32(lp + 18);
+#pragma unroll
+            for (int i = 0; i < MAX_HD; ++i)
+              if (i < hd) a2[i] += x * qv[i];
+          }
+        }
+      }
+      if (u0) store_dk<T, MAX_HD, PAIRS>(dk + (row0 + (s - 1) * step) * hd, a0, hd, scale);
+    }
+#pragma unroll
+    for (int i = 0; i < MAX_HD; ++i) {
+      a0[i] = a1[i];
+      a1[i] = a2[i];
+      a2[i] = 0.f;
+    }
+    cp_async_wait_all();
+    if (s < s1) mbar_wait(bars + (f & 1), (f >> 1) & 1);
+    if (st.mixed) fence_proxy_async();  // unit writes before a later bulk copy's
+    __syncthreads();
+  }
+  // with d1 = D the last slice is d1-1: its dk waits in a0
+  if (me.active && s1 < o.d1) store_dk<T, MAX_HD, PAIRS>(dk + (row0 + s1 * step) * hd, a0, hd, scale);
 }
 
 template <typename T, int MAX_HD, bool PAIRS>
@@ -307,26 +456,61 @@ int bwd_dq(const T* q, const T* k, const float* rpb, const T* g, T* dq, T* dl, f
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T, int MAX_HD, bool PAIRS>
+int launch_dk(const T* q, const T* dl, T* dk, long long B, const DkStage& st, float scale,
+              cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kDkRing) * st.slot + 2 * sizeof(unsigned long long);
+  if (smem > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = modet_attn_bwd_dk_kernel<T, MAX_HD, PAIRS>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const Brick& g = st.g;
+  kernel<<<grid_of(B, g), g.bh * g.bw * g.heads, smem, stream>>>(q, dl, dk, st, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int bwd_dk(const T* q, const T* dl, T* dk, long long B, int D, int H, int W, int heads, int hd,
-           float scale, void* stream) {
-  const long long total = B * D * H * W * heads;
-  if (total <= 0) return static_cast<int>(cudaSuccess);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = blocks_for(total);
-  if (hd <= 8) {
-    modet_attn_bwd_dk_kernel<T, 8><<<blocks, kThreads, 0, st>>>(q, dl, dk, D, H, W, heads, hd,
-                                                                 scale, total);
-  } else if (hd <= 16) {
-    modet_attn_bwd_dk_kernel<T, 16><<<blocks, kThreads, 0, st>>>(q, dl, dk, D, H, W, heads, hd,
-                                                                  scale, total);
-  } else if (hd <= 32) {
-    modet_attn_bwd_dk_kernel<T, 32><<<blocks, kThreads, 0, st>>>(q, dl, dk, D, H, W, heads, hd,
-                                                                  scale, total);
-  } else {
+           float scale, int bh, int bw, int cd, void* stream) {
+  if (B * D * H * W * heads == 0) return static_cast<int>(cudaSuccess);
+  const auto addr = [](const void* p) { return reinterpret_cast<unsigned long long>(p); };
+  const int isz = static_cast<int>(sizeof(T));
+  int qunit = 16;  // q's copy unit: the widest that its address allows
+  while (addr(q) % qunit) qunit /= 2;
+  if (B < 0 || D <= 0 || H <= 0 || W <= 0 || heads <= 0 || hd <= 0 || bh <= 0 || bw <= 0 ||
+      cd <= 0 || static_cast<long long>(bh) * bw * heads > kMaxThreads || addr(dl) % 16 ||
+      qunit < isz || addr(dk) % isz)
     return static_cast<int>(cudaErrorInvalidValue);
+  DkStage st;
+  st.g = Brick{D, H, W, heads, hd, bh, bw, cd, qunit, heads * hd, bw + 2, 0};
+  st.lrow = heads * 27 * isz;
+  st.qrow = heads * hd * isz;
+  st.lpitch = span_pitch(bw, st.lrow);
+  st.qpitch = span_pitch(bw, st.qrow);
+  st.slot = (bh + 2) * (st.lpitch + st.qpitch);
+  st.lbytes = B * D * H * W * static_cast<long long>(st.lrow);
+  st.qbytes = B * D * H * W * static_cast<long long>(st.qrow);
+  // a row's shift, and with it the split between bulk and unit copies, is the
+  // same in every slice when W rows are whole 16-byte units
+  st.mixed = (static_cast<long long>(W) * st.lrow) % 16 || (static_cast<long long>(W) * st.qrow) % 16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // pairs: q rows and dk rows start at even values
+  const bool pairs = hd % 2 == 0 && qunit >= 2 * isz && addr(dk) % (2 * isz) == 0;
+  if (hd == 6) {
+    return pairs ? launch_dk<T, 6, true>(q, dl, dk, B, st, scale, s)
+                 : launch_dk<T, 6, false>(q, dl, dk, B, st, scale, s);
+  } else if (hd <= 8) {
+    return pairs ? launch_dk<T, 8, true>(q, dl, dk, B, st, scale, s)
+                 : launch_dk<T, 8, false>(q, dl, dk, B, st, scale, s);
+  } else if (hd <= 16) {
+    return pairs ? launch_dk<T, 16, true>(q, dl, dk, B, st, scale, s)
+                 : launch_dk<T, 16, false>(q, dl, dk, B, st, scale, s);
+  } else if (hd <= 32) {
+    return pairs ? launch_dk<T, 32, true>(q, dl, dk, B, st, scale, s)
+                 : launch_dk<T, 32, false>(q, dl, dk, B, st, scale, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -357,13 +541,14 @@ extern "C" int smilecode_modet_attn_bwd_dq_bf16(const __nv_bfloat16* q, const __
 
 extern "C" int smilecode_modet_attn_bwd_dk(const float* q, const float* dl, float* dk,
                                            long long B, int D, int H, int W, int heads,
-                                           int hd, float scale, void* stream) {
-  return bwd_dk<float>(q, dl, dk, B, D, H, W, heads, hd, scale, stream);
+                                           int hd, float scale, int bh, int bw, int cd,
+                                           void* stream) {
+  return bwd_dk<float>(q, dl, dk, B, D, H, W, heads, hd, scale, bh, bw, cd, stream);
 }
 
 extern "C" int smilecode_modet_attn_bwd_dk_bf16(const __nv_bfloat16* q, const __nv_bfloat16* dl,
                                                 __nv_bfloat16* dk, long long B, int D, int H,
-                                                int W, int heads, int hd, float scale,
-                                                void* stream) {
-  return bwd_dk<__nv_bfloat16>(q, dl, dk, B, D, H, W, heads, hd, scale, stream);
+                                                int W, int heads, int hd, float scale, int bh,
+                                                int bw, int cd, void* stream) {
+  return bwd_dk<__nv_bfloat16>(q, dl, dk, B, D, H, W, heads, hd, scale, bh, bw, cd, stream);
 }

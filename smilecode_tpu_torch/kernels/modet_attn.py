@@ -9,10 +9,15 @@ and backward.
   dk over the inverse window.
 
 The sources say what bounds each kernel on the H100 and what its design does
-about that. K1 and K3 stand on one shared-memory stage (`csrc/attn_tile.cuh`):
-a block stages the zero-filled k neighbourhood of a brick of voxels in a ring
-of d-slices; `attn_geometry` sizes the brick and the grid, and with it the
-number of K3's drpb partials.
+about that. All three stand on one shared-memory stage (`csrc/attn_tile.cuh`):
+a block stages the zero-filled neighbourhood of a brick of voxels in a ring
+of d-slices. For K1 and K3 that is k; `attn_geometry` sizes their brick and
+grid, and with it the number of K3's drpb partials. K4 stages the dl and q
+halo rows of each slice, copied as 16-byte spans (the interior of a row by
+one bulk copy of the tensor memory accelerator), in a two-slot ring, and
+keeps the dk of three slices in registers so that each staged q row is read
+once per slice; `dk_geometry` sizes its brick and grid, and `_check_dk`
+checks q and dl before anything is built.
 
 Each kernel has a float32 and a bf16 instance (the bf16 feature path of
 ModeT, `compute_dtype="bfloat16"`): q and k both float32 or both bf16, rpb
@@ -55,17 +60,49 @@ ATTN_RING_BYTES = 64 * 1024
 ATTN_TARGET_BLOCKS = 2048
 _RING_SLOTS = 4  # kRing
 _SMEM_MAX = 232448  # kSmemMax: shared memory a block can use on the H100
+# K4's bricks (csrc/modet_attn_bwd.cu): the same rule under caps of its own,
+# a two-slot ring of dl and q halo rows within K4_RING_BYTES, and chunks of
+# at least K4_MIN_CHUNK slices (a block copies cd + 2 slices for cd of dk);
+# the caps are `attn_ab.py --sweep`'s best on the H100 (PERF.md)
+K4_MAX_BH, K4_MAX_BW = 8, 32
+K4_RING_BYTES = 96 * 1024
+K4_TARGET_BLOCKS = 1024
+K4_MIN_CHUNK = 2
+_K4_SLOTS = 2  # kDkRing
 
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
     ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
     ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _DK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _brick(shape, ring, max_bh, max_bw, ring_bytes, target_blocks, min_cd=1):
+    """(bh, bw, cd, blocks) of a brick launch on ``shape`` (B, D, H, W, heads,
+    hd), ``ring(bh, bw)`` its ring's bytes: the rule of `attn_geometry`, with
+    chunks of at least ``min_cd`` slices where D has them."""
+    b, d, h, w, heads, hd = (int(n) for n in shape)
+    if heads > ATTN_THREADS:  # one thread per (voxel, head) of a block
+        raise ValueError(f"attention kernels take at most {ATTN_THREADS} heads, got {heads}")
+    voxels = max(1, ATTN_THREADS // heads)
+    bw = max(1, min(max_bw if w % max_bw == 0 else 16, voxels, w))
+    bh = max(1, min(voxels // bw, max_bh, h))
+    while ring(bh, bw) > ring_bytes and bh > 1:
+        bh -= 1
+    while ring(bh, bw) > ring_bytes and bw > 1:
+        bw -= 1
+    if ring(bh, bw) > _SMEM_MAX // 2:
+        raise ValueError(f"attention kernels: a voxel row of {heads}x{hd} values is too wide "
+                         "for the shared-memory ring")
+    cols = b * _cdiv(h, bh) * _cdiv(w, bw)
+    chunks = max(1, min(d, _cdiv(target_blocks, max(cols, 1))))
+    cd = max(1, min(min_cd, d), _cdiv(d, chunks))
+    return bh, bw, cd, cols * _cdiv(d, cd)
 
 
 def attn_geometry(shape, itemsize: int):
@@ -82,28 +119,36 @@ def attn_geometry(shape, itemsize: int):
     about ATTN_TARGET_BLOCKS blocks. ``blocks`` = B * ceil(H/bh) * ceil(W/bw)
     * ceil(D/cd) is also the number of K3's drpb partials. Pure Python: the
     wrapper and `chip_smoke.attn_work` both use it."""
-    b, d, h, w, heads, hd = (int(n) for n in shape)
-    if heads > ATTN_THREADS:  # one thread per (voxel, head) of a block
-        raise ValueError(f"attention kernels take at most {ATTN_THREADS} heads, got {heads}")
-    row = heads * hd * itemsize
+    row = int(shape[4]) * int(shape[5]) * itemsize
 
     def ring(bh, bw):
         return _RING_SLOTS * _cdiv((bh + 2) * (bw + 2) * row, 16) * 16
 
-    voxels = max(1, ATTN_THREADS // heads)
-    bw = max(1, min(ATTN_MAX_BW if w % ATTN_MAX_BW == 0 else 16, voxels, w))
-    bh = max(1, min(voxels // bw, ATTN_MAX_BH, h))
-    while ring(bh, bw) > ATTN_RING_BYTES and bh > 1:
-        bh -= 1
-    while ring(bh, bw) > ATTN_RING_BYTES and bw > 1:
-        bw -= 1
-    if ring(bh, bw) > _SMEM_MAX // 2:
-        raise ValueError(f"attention kernels: a voxel row of {heads}x{hd} values is too wide "
-                         "for the shared-memory k ring")
-    cols = b * _cdiv(h, bh) * _cdiv(w, bw)
-    chunks = max(1, min(d, _cdiv(ATTN_TARGET_BLOCKS, max(cols, 1))))
-    cd = max(1, _cdiv(d, chunks))
-    return bh, bw, cd, cols * _cdiv(d, cd)
+    return _brick(shape, ring, ATTN_MAX_BH, ATTN_MAX_BW, ATTN_RING_BYTES, ATTN_TARGET_BLOCKS)
+
+
+def span_pitch(bw: int, row_bytes: int) -> int:
+    """Bytes of a K4 slot row: a halo span of bw+2 voxel rows at any
+    alignment, in 16-byte units (csrc/attn_tile.cuh:span_pitch)."""
+    return _cdiv((bw + 2) * row_bytes + 15, 16) * 16
+
+
+def dk_ring_bytes(bh: int, bw: int, heads: int, hd: int, itemsize: int) -> int:
+    """The ring of a K4 block (its shared memory but for two 8-byte
+    barriers): two slots of (bh+2) halo rows of dl (heads*27 values a voxel)
+    and of q (heads*hd)."""
+    return _K4_SLOTS * (bh + 2) * (span_pitch(bw, heads * 27 * itemsize)
+                                   + span_pitch(bw, heads * hd * itemsize))
+
+
+def dk_geometry(shape, itemsize: int):
+    """(bh, bw, cd, blocks): the brick and grid of K4's launch, by
+    `attn_geometry`'s rule under K4_MAX_BH, K4_MAX_BW, K4_RING_BYTES (its
+    ring: `dk_ring_bytes`), K4_TARGET_BLOCKS and K4_MIN_CHUNK. Pure Python:
+    the wrapper and `attn_ab.py` use it."""
+    heads, hd = int(shape[4]), int(shape[5])
+    return _brick(shape, lambda bh, bw: dk_ring_bytes(bh, bw, heads, hd, itemsize),
+                  K4_MAX_BH, K4_MAX_BW, K4_RING_BYTES, K4_TARGET_BLOCKS, K4_MIN_CHUNK)
 
 
 def _copy_unit(row_bytes: int, ptr: int) -> int:
@@ -201,19 +246,41 @@ def modet_attention_bwd_dq(q, k, rpb, scale: float, g):
     return dq, dl, part
 
 
+def _check_dk(q, dl):
+    """K4's checks: q as `_check` takes it, on a CUDA device, and dl K3's
+    (B, D, H, W, heads, 27) of q's dtype on q's device, contiguous and
+    16-byte aligned (the kernel copies it in 16-byte units)."""
+    what = "modet_attention_bwd_dk"
+    if q.ndim != 6 or tuple(dl.shape) != (*q.shape[:5], 27):
+        raise ValueError(f"{what}: q (B,D,H,W,heads,hd) and dl (B,D,H,W,heads,27), got "
+                         f"{tuple(q.shape)}, {tuple(dl.shape)}")
+    if _check(q, q, None, what) or dl.device != q.device:
+        raise ValueError(f"{what}: q on {q.device}, dl on {dl.device}; the kernel takes both on "
+                         "one CUDA device")
+    if dl.dtype != q.dtype:
+        raise TypeError(f"{what}: dl must have q's dtype {q.dtype}, got {dl.dtype}")
+    if not dl.is_contiguous():
+        raise ValueError(f"{what}: dl must be contiguous")
+    if dl.data_ptr() % 16:
+        raise ValueError(f"{what}: dl must be 16-byte aligned")
+
+
 def modet_attention_bwd_dk(q, dl, scale: float):
     """K4 on CUDA tensors: dk (B, D, H, W, heads, hd) in q's dtype from K3's
-    dl and the unscaled q. Adds one to ``modet_attention_bwd_dk.launches``
-    (and ``.launches_bf16`` for bf16) per launch."""
+    dl and the unscaled q. Raises on tensors it does not take (`_check_dk`),
+    CPU ones included. Adds one to ``modet_attention_bwd_dk.launches`` (and
+    ``.launches_bf16`` for bf16) per launch."""
+    _check_dk(q, dl)
     b, d, h, w, heads, hd = q.shape
     dk = torch.empty_like(q)
     if dk.numel() == 0:
         return dk
+    bh, bw, cd, _ = dk_geometry(q.shape, q.element_size())
     fn = _build.function(_build.entry("smilecode_modet_attn_bwd_dk", q), _DK_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), dl.data_ptr(), dk.data_ptr(), b, d, h, w, heads, hd,
-                  float(scale), stream)
+                  float(scale), bh, bw, cd, stream)
     _build.check(code, "modet_attn_bwd_dk launch")
     _build.count(modet_attention_bwd_dk, q)
     return dk

@@ -274,6 +274,70 @@ def test_attn_geometry_sizes_bricks_grid_and_partials(shape, itemsize, want):
     assert with_rpb - no_rpb == heads * 27 * 4 + blocks * heads * 27 * 4
 
 
+# K4 (dk_geometry): ModeT's five level shapes in float32 and bf16, the card
+# tests' uneven shapes, and an empty volume
+DK_GEOMETRY_CASES = [
+    *[(shape, isz) for shape in ((1, 160, 192, 160, 1, 6), (1, 80, 96, 80, 1, 6),
+                                 (1, 40, 48, 40, 2, 6), (1, 20, 24, 20, 4, 6),
+                                 (1, 10, 12, 10, 8, 6)) for isz in (4, 2)],
+    ((2, 1, 1, 1, 8, 32), 4),
+    ((2, 3, 5, 64, 1, 6), 2),
+    ((2, 2, 3, 65, 2, 6), 4),
+    ((2, 33, 9, 40, 2, 16), 4),
+    ((2, 7, 6, 9, 2, 5), 2),
+    ((2, 5, 4, 3, 8, 6), 4),
+    ((1, 0, 4, 4, 1, 6), 4),
+]
+
+
+@pytest.mark.parametrize("shape,itemsize", DK_GEOMETRY_CASES)
+def test_dk_geometry_sizes_bricks_and_grid(shape, itemsize):
+    """K4's brick on the CPU: inside the volume, at most ATTN_THREADS
+    (voxel, head) rows, a two-slot dl + q ring within K4_RING_BYTES and under
+    half of the shared memory a block can use (two blocks per SM), chunks of
+    at least K4_MIN_CHUNK slices, and a grid that covers the volume once."""
+    from smilecode_tpu_torch.kernels import modet_attn as ma
+
+    b, d, h, w, heads, hd = shape
+    bh, bw, cd, blocks = ma.dk_geometry(shape, itemsize)
+    assert 1 <= bh <= h and 1 <= bw <= w and 1 <= cd <= max(d, 1)
+    assert bh * bw * heads <= ma.ATTN_THREADS
+    ring = ma.dk_ring_bytes(bh, bw, heads, hd, itemsize)
+    rows = [ma.span_pitch(bw, n * itemsize) for n in (heads * 27, heads * hd)]
+    assert ring == 2 * (bh + 2) * sum(rows)
+    assert all(p % 16 == 0 and p >= (bw + 2) * n * itemsize + 15
+               for p, n in zip(rows, (heads * 27, heads * hd)))
+    assert ring <= ma.K4_RING_BYTES and ring <= ma._SMEM_MAX // 2
+    assert blocks == b * -(-d // cd) * -(-h // bh) * -(-w // bw)
+    assert (-(-d // cd) - 1) * cd < max(d, 1)  # no empty chunk
+    assert cd >= min(ma.K4_MIN_CHUNK, max(d, 1))
+    if d:  # every voxel in exactly one block
+        cover = np.zeros((b, d, h, w), np.int32)
+        for z in range(b * -(-d // cd)):
+            d0 = z % -(-d // cd) * cd
+            for y in range(-(-h // bh)):
+                for x in range(-(-w // bw)):
+                    cover[z // -(-d // cd), d0:d0 + cd, y * bh:(y + 1) * bh,
+                          x * bw:(x + 1) * bw] += 1
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("case", ["cpu", "dl-shape", "q-shape", "meta"])
+def test_k4_wrapper_checks_its_inputs(case):
+    """`modet_attention_bwd_dk` takes CUDA tensors only and checks q and dl
+    before anything is built: CPU or meta tensors, a dl of another shape than
+    (B, D, H, W, heads, 27) or a q that is not 6-D raise ValueError (no nvcc
+    needed), and no launch is counted."""
+    q = torch.zeros((1, 3, 4, 5, 2, 6))
+    dl = torch.zeros((1, 3, 4, 5, 2, 27))
+    args = {"cpu": (q, dl), "dl-shape": (q, dl[..., :26]), "q-shape": (q[0], dl),
+            "meta": (q.to("meta"), dl.to("meta"))}[case]
+    before = modet_attention_bwd_dk.launches
+    with pytest.raises(ValueError, match="modet_attention_bwd_dk"):
+        modet_attention_bwd_dk(*args, 1.0)
+    assert modet_attention_bwd_dk.launches == before
+
+
 def test_attn_geometry_rejects_what_the_ring_cannot_hold():
     from smilecode_tpu_torch.kernels.modet_attn import attn_geometry
 

@@ -141,6 +141,45 @@ def test_staged_attention_kernels_match_plain(dev, monkeypatch, shape, heads, hd
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("target,min_chunk", [(None, None), (9, None), (1 << 20, 1)],
+                         ids=["grid", "long-chunks", "one-slice-chunks"])
+@pytest.mark.parametrize("shape,heads,hd,with_rpb", STAGE_CASES)
+def test_staged_k4_matches_plain(dev, monkeypatch, shape, heads, hd, with_rpb, target, min_chunk,
+                                 dtype):
+    """K4's dk vs its plain version on the plain dl, one launch, on K1/K3's
+    shapes, with K4_TARGET_BLOCKS = 9 (long, uneven d chunks through the
+    two-slot ring) and with chunks of one slice (three staged slices for
+    one of dk)."""
+    from smilecode_tpu_torch.kernels import modet_attn
+
+    if target is not None:
+        monkeypatch.setattr(modet_attn, "K4_TARGET_BLOCKS", target)
+    if min_chunk is not None:
+        monkeypatch.setattr(modet_attn, "K4_MIN_CHUNK", min_chunk)
+    q, k, rpb, g = attn_inputs(shape, heads, hd, with_rpb, dtype, dev, 55)
+    dl = modet_attention_bwd_dq_plain(q, k, rpb, 0.5, g)[1]
+    before = modet_attention_bwd_dk.launches
+    dk = modet_attention_bwd_dk(q, dl, 0.5)
+    torch.cuda.synchronize()
+    assert modet_attention_bwd_dk.launches == before + 1
+    assert dk.dtype == dtype
+    assert_matches_plain(dk, modet_attention_bwd_dk_plain(q, dl, 0.5), dtype, "dk")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("elems", [1, 2])
+@pytest.mark.parametrize("shape,heads,hd", [((3, 5, 64), 1, 6), ((2, 3, 65), 2, 5),
+                                            ((7, 6, 9), 2, 1)])
+def test_k4_takes_a_misaligned_q(dev, shape, heads, hd, elems, dtype):
+    """q's copy unit follows its address (4 or 8 bytes in float32, 2 or 4 in
+    bf16, odd rows included): dk still matches the plain version."""
+    q, k, rpb, g = attn_inputs(shape, heads, hd, True, dtype, dev, 57)
+    dl = modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g)[1]
+    assert_matches_plain(modet_attention_bwd_dk(on_card(q, dev, elems), dl, 1.0),
+                         modet_attention_bwd_dk_plain(q, dl, 1.0), dtype, "dk")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_staged_attention_kernels_give_the_plain_nan_pattern(dev, dtype):
     """A q with an inf (at a border voxel and an interior one): the zero-filled
     k border gives inf * 0 = NaN logits where the plain version's padded k
@@ -164,13 +203,16 @@ def test_staged_attention_kernels_give_the_plain_nan_pattern(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_k3_drpb_partials_are_deterministic(dev, dtype):
     """Two launches of K3 on the same inputs give bitwise equal partials
-    (and dq, dl): fixed summation order, no atomics."""
+    (and dq, dl), and two of K4 bitwise equal dk: fixed summation order, no
+    atomics."""
     q, k, rpb, g = attn_inputs((20, 24, 20), 4, 6, True, dtype, dev, 70)
     first = modet_attention_bwd_dq(q, k, rpb, 1.0, g)
     second = modet_attention_bwd_dq(q, k, rpb, 1.0, g)
+    dks = [modet_attention_bwd_dk(q, first[1], 1.0) for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+    assert torch.equal(*dks)
 
 
 def test_k1_launches_without_autograd_when_no_gradient_is_wanted(dev):
@@ -208,12 +250,14 @@ def warp_flow(shape, kind, seed):
 
 
 def on_card(t, dev, misaligned=False):
-    """``t`` on the card; with ``misaligned``, as a contiguous view one
-    element into a buffer, so that its data pointer is not 16-byte aligned."""
+    """``t`` on the card; with ``misaligned`` (True, or a number of elements),
+    as a contiguous view one (or that many) elements into a buffer, so that
+    its data pointer is not 16-byte aligned."""
     if not misaligned:
         return t.to(dev)
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-    view = buf[1:].view(t.shape)
+    elems = int(misaligned)
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=dev)
+    view = buf[elems:].view(t.shape)
     view.copy_(t)
     assert view.is_contiguous() and view.data_ptr() % 16
     return view
@@ -308,6 +352,13 @@ def test_kernels_raise_on_what_they_do_not_take(dev):
         modet_attention(big, big, None)
     with pytest.raises(TypeError, match="q's dtype"):
         modet_attention_bwd(q, q, None, 1.0, torch.zeros((1, 3, 3, 3, 3), device=dev).double())
+    dl = torch.zeros((1, 3, 3, 3, 1, 27), device=dev)
+    with pytest.raises(TypeError, match="dl must have q's dtype"):
+        modet_attention_bwd_dk(q, dl.bfloat16(), 1.0)
+    with pytest.raises(ValueError, match="dl must be contiguous"):
+        modet_attention_bwd_dk(q, dl.transpose(1, 2).contiguous().transpose(1, 2), 1.0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        modet_attention_bwd_dk(q, on_card(dl, dev, misaligned=True), 1.0)
     src, flow = rand((1, 4, 4, 4, 2), 8).to(dev), torch.zeros((1, 4, 4, 4, 3), device=dev)
     with pytest.raises(ValueError, match="g must be"):
         warp3d_trilinear_bwd(src, flow, torch.zeros((1, 4, 4, 4, 3), device=dev))
