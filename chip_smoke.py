@@ -104,12 +104,42 @@ The bf16 feature path (ModeT's ``compute_dtype="bfloat16"``):
    one; ms per step (median of 5) for bf16 kernels, bf16 plain and f32
    kernels with peak memory, and a profile of one bf16 kernel step.
 
+The baseline zoo (`ZOO`: Im2grid, PCNet, PRNet, PR++, RDN, rdn_diff_share
+at 160x192x160, RCN at 128x192x128, each at its reference width and depth):
+
+20. K2 and K5 (with the d_src scatter) vs their plain versions at the zoo's
+   warp shapes (`zoo_warp_cases`: PCNet's features and flows, PRNet's and
+   PR++'s features, PR++'s three compositions whose source is coarser than
+   the flow, RDN's C=16..128 features), smooth +-5 and wild +-20 voxel
+   flows, each on its path, gates and times as phases 2 and 7; K3 and K4
+   without rpb at Im2grid's five level shapes, as phase 6.
+21. `infer.main` for pcnet, prnet and prnetplusplus on 2 synthetic
+   160x192x160 subjects with seeded, head-perturbed JAX-format checkpoints:
+   exactly 33, 9 and 9 K2 launches per pair; the plain runs launch nothing
+   and give the same Dice and fold.
+22. Their forwards, kernels vs plain, as phase 14.
+23. `train.main` for every family (2 steps on 2 subjects, validated on the
+   same 2 pairs): exact K1, K3, K4, K2, K5 launches and scatters per step
+   (`ZOO`) plus the validation forwards; losses finite; the plain run
+   launches nothing and its first loss is within 1e-4.
+24. One training step per family, kernels vs plain, same weights and batch
+   (phase 9's gates; the biases whose exact gradient is zero, as a float64
+   plain step on a 64^3 crop finds them, within twice the plain step's
+   float32 rounding: `compare_step_grads`), ms per step (median of 3, in
+   turns) and peak memory, and a profile of one kernel step for PCNet and
+   PR++. Every plain step fits at the reference's depth (rdn_diff_share's
+   peaks at ~48 GiB), so no depth is cut.
+
 Every failed check raises, so the exit code is non-zero; without a CUDA card
-it exits non-zero before printing any result. The kernels' JSON record lists
+it exits non-zero before printing any result. Each phase's seconds and the
+total print before the record. The kernels' JSON record lists
 K1-K5 with their launches in the training run of phase 8, then K1 as
 Im2grid runs it and K2 as kernel F's counterpart with their launches in the
 kernel runs of phase 13, then the bf16 K1-K5 with their launches in the
-training run of phase 18; each with its bound (bytes or float32 operations
+training run of phase 18, then K3 and K4 as Im2grid's training runs them
+(phase 20's times, the launches of phase 23's Im2grid run) and K2 and K5 at
+the zoo's warp shapes (phase 20's times, the launches of every phase 23
+kernel run); each with its bound (bytes or float32 operations
 at the card's published peaks) and, for K2 and K5, the time of
 `F.grid_sample` (forward or backward) on the same inputs, and per distinct
 shape (``ms_by_shape``, ``bound_ms_by_shape``, ``device_ms_by_shape``; for
@@ -149,6 +179,10 @@ DRPB_TOL = 1e-6  # times the largest sum_x |dl_t| (see check_attention_bwd)
 STEP_LOSS_TOL = 1e-4  # relative, kernels vs plain training loss
 STEP_GRAD_TOL = 1e-3  # times each parameter's largest |gradient|, kernels vs plain step
 STEP_GRAD_FLOOR = 1e-6  # times the model's largest |gradient| (zero-gradient conv biases)
+# phase 24: a parameter whose exact gradient is zero (float64, at most
+# ZERO_GRAD_REL of the model's largest) is held to ZERO_GRAD_NOISE times the
+# plain float32 step's rounding there
+ZERO_GRAD_REL, ZERO_GRAD_NOISE = 1e-9, 2.0
 N_VAL_SUBJECTS = 2
 N_TIMED_STEPS = 5
 RCN_SIZE = (128, 192, 128)  # the largest crop of 160x192x160 whose axes are multiples of 64
@@ -184,7 +218,30 @@ BASELINES = (("im2grid", SIZE, 5, 9), ("rdn", SIZE, 0, 136),
              ("rdn_diff_share", SIZE, 0, 644), ("rcn", RCN_SIZE, 0, 19))
 # seeded perturbation of the flow heads: (parameter name part, std)
 BASELINE_HEADS = {"im2grid": ("proj", 0.1), "rdn": ("conv.4", 0.02),
-                  "rdn_diff_share": ("conv.4", 0.02), "rcn": ("Pred0", 0.1)}
+                  "rdn_diff_share": ("conv.4", 0.02), "rcn": ("Pred0", 0.1),
+                  "pcnet": ("reg_conv", 0.02), "prnet": (".flow.", 0.1),
+                  "prnetplusplus": (".flow.", 0.2)}
+# The baseline zoo of phases 20-24: volume size, K1 and K2 launches per
+# pair, and per training step the K1, K3, K4, K2 and K5 launches and the K5
+# launches that scatter d_src (`STEP_KEYS`; every warp whose source needs a
+# gradient: all but the moved image's, and RCN's re-warps of the moving
+# image). Derived from the JAX modules: PCNet warps in 3 DFI vecints of 7
+# steps, vecint(pred0), 3 feature warps, T(wf0, pred0) and the moved image
+# (33); PRNet and PR++ in 4 feature warps, 4 compositions and the moved
+# image (9); the others as `BASELINES`. CPU tests count the same calls
+# (`tests/test_torch_baselines.py::test_kernel_wrapper_calls_per_pair`,
+# `tests/test_torch_baselines_train.py::test_kernel_wrapper_calls_per_training_step`).
+ZOO = {"im2grid": (SIZE, (5, 9), (5, 5, 5, 9, 9, 8)),
+       "pcnet": (SIZE, (0, 33), (0, 0, 0, 33, 33, 32)),
+       "prnet": (SIZE, (0, 9), (0, 0, 0, 9, 9, 8)),
+       "prnetplusplus": (SIZE, (0, 9), (0, 0, 0, 9, 9, 8)),
+       "rdn": (SIZE, (0, 136), (0, 0, 0, 136, 136, 135)),
+       "rdn_diff_share": (SIZE, (0, 644), (0, 0, 0, 644, 644, 643)),
+       "rcn": (RCN_SIZE, (0, 19), (0, 0, 0, 19, 19, 9))}
+STEP_KEYS = ("K1", "K3", "K4", "K2", "K5", "K5 d_src")
+ZOO_SERVED = ("pcnet", "prnet", "prnetplusplus")  # served by phases 21 and 22
+ZOO_STEPS, ZOO_VAL_PAIRS = 2, 2  # train.main on 2 subjects, validated on the same 2
+N_TIMED_ZOO_STEPS = 3
 # kernel F's entries at the baselines' warps: (what, source shape, flow shape, C)
 F_CASES = [("RDN level-0 features", (80, 96, 80), (80, 96, 80), 16),
            ("RDN level-1 features", (40, 48, 40), (40, 48, 40), 32),
@@ -199,6 +256,31 @@ F_CASES = [("RDN level-0 features", (80, 96, 80), (80, 96, 80), 16),
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+PHASE_SECONDS: dict = {}  # phase number -> seconds, filled by `phase`
+_phase_clock: list = []  # [the running phase's number, its start]
+
+
+def _close_phase() -> None:
+    if _phase_clock:
+        PHASE_SECONDS[_phase_clock[0]] = time.perf_counter() - _phase_clock[1]
+        _phase_clock.clear()
+
+
+def phase(number: int, title: str) -> None:
+    """Print the banner of phase ``number``, closing the running phase's
+    clock, so that `phase_times` can say how long each phase took."""
+    _close_phase()
+    _phase_clock[:] = [number, time.perf_counter()]
+    print(f"== phase {number}: {title}", flush=True)
+
+
+def phase_times(start: float) -> str:
+    """Each phase's seconds and the total since ``start``."""
+    _close_phase()
+    return (", ".join(f"phase {n} {t:.1f} s" for n, t in sorted(PHASE_SECONDS.items()))
+            + f"; total {time.perf_counter() - start:.1f} s")
 
 
 def card_line() -> str:
@@ -980,16 +1062,16 @@ def vector_counts() -> str:
             f"K5 {warp3d_trilinear_bwd.launches_vector}")
 
 
-def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype=""):
-    """train.main for one epoch; returns (best_dsc, exp_dir, step losses,
-    launch counts, seconds)."""
+def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype="", model="modet"):
+    """train.main of ``model`` for one epoch; returns (best_dsc, exp_dir,
+    step losses, launch counts, seconds)."""
     import torch
 
     from smilecode_tpu_torch import train
     from smilecode_tpu_torch.config import TrainConfig
 
-    cfg = TrainConfig(train_dir=train_dir, val_dir=val_dir, max_epoch=1, attn_impl=attn_impl,
-                      save_root=os.path.join(root, "experiments"),
+    cfg = TrainConfig(model=model, train_dir=train_dir, val_dir=val_dir, max_epoch=1,
+                      attn_impl=attn_impl, save_root=os.path.join(root, "experiments"),
                       log_root=os.path.join(root, "logs"), compute_dtype=compute_dtype)
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -997,43 +1079,85 @@ def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype=""):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = launch_counts()
-    print(f"train.main ({attn_impl}, {compute_dtype or 'float32'}): {vector_counts()}", flush=True)
+    print(f"train.main {model} ({attn_impl}, {compute_dtype or 'float32'}): {vector_counts()}",
+          flush=True)
     with open(os.path.join(cfg.log_root, cfg.save_dir, "metrics.jsonl")) as f:
         losses = [json.loads(line)["loss"] for line in f if '"iter"' in line]
     return best, os.path.join(cfg.save_root, cfg.save_dir), losses, counts, seconds
 
 
-def compare_step_grads(model, plain, x, y):
-    """One loss-and-gradients pass of each model on (x, y); returns
-    (loss, plain loss, worst gradient error over its tolerance)."""
+def compare_step_grads(model, plain, x, y, plan=None, zero=()):
+    """One loss-and-gradients pass of each model on (x, y) with ``plan``
+    (ModeT's by default); returns (loss, plain loss, worst gradient error
+    over its tolerance). Every gradient within STEP_GRAD_TOL of the plain
+    gradient's largest magnitude plus STEP_GRAD_FLOOR of the model's largest
+    (phase 9's gates), but for the parameters named in ``zero``, whose exact
+    gradient is zero (`zero_gradient_params`: a conv bias ahead of an
+    instance norm): what float32 gives there is rounding, summed over every
+    voxel of a level, and can exceed that floor in the plain step alone; the
+    kernels' is held to ZERO_GRAD_NOISE times the plain step's largest
+    magnitude, plus the floor. Every number prints before any gate is
+    applied."""
     from smilecode_tpu_torch.models.registry import loss_plan
     from smilecode_tpu_torch.train import make_loss_and_grads
 
-    plan = loss_plan("modet")
+    plan = plan or loss_plan("modet")
     loss, _ = make_loss_and_grads(model, plan, (1.0, 1.0))(x, y)
     p_loss, _ = make_loss_and_grads(plain, plan, (1.0, 1.0))(x, y)
     grads = dict(model.named_parameters())
     p_grads = dict(plain.named_parameters())
     gmax = max(float(p.grad.abs().max()) for p in p_grads.values())
     floor = STEP_GRAD_FLOOR * gmax
-    worst, worst_name, worst_rel, rel_name = 0.0, "", 0.0, ""
+    worst = {"real": (0.0, ""), "zero": (0.0, "")}
+    worst_rel, rel_name, noise = 0.0, "", ""
     for name, p in p_grads.items():
         g = grads[name].grad
         require(g is not None and bool(g.isfinite().all()), f"step gradient {name} missing or not finite")
         err, scale = float((g - p.grad).abs().max()), float(p.grad.abs().max())
-        ratio = err / (STEP_GRAD_TOL * scale + floor)
-        if ratio > worst:
-            worst, worst_name = ratio, name
-        if scale > 1e-3 * gmax and err / scale > worst_rel:
-            worst_rel, rel_name = err / scale, name  # parameters with a real gradient
+        if name in zero:
+            kind, err = "zero", float(g.abs().max())
+            ratio = err / (ZERO_GRAD_NOISE * scale + floor)
+            if ratio > worst["zero"][0]:
+                noise = f"kernels {err:.3e}, plain {scale:.3e}"
+        else:
+            kind, ratio = "real", err / (STEP_GRAD_TOL * scale + floor)
+            if scale > 1e-3 * gmax and err / scale > worst_rel:
+                worst_rel, rel_name = err / scale, name  # parameters with a real gradient
+        if ratio > worst[kind][0]:
+            worst[kind] = (ratio, name)
+    line = (f"kernel step vs plain step: loss {float(loss):.7f} vs {float(p_loss):.7f}; "
+            f"worst gradient err/tol {worst['real'][0]:.4f} ({worst['real'][1]}); tolerance "
+            f"{STEP_GRAD_TOL} x each parameter's max |grad| + {STEP_GRAD_FLOOR} x the model's; "
+            f"worst err / max |grad| over parameters whose max |grad| is above 1e-3 of the "
+            f"model's: {worst_rel:.3e} ({rel_name})")
+    if zero:
+        line += (f"; {len(zero)} parameters with a zero exact gradient (model's max |grad| "
+                 f"{gmax:.3e}): worst max |grad| / tol {worst['zero'][0]:.4f} "
+                 f"({worst['zero'][1]}: {noise}; tolerance {ZERO_GRAD_NOISE} x the plain "
+                 f"step's + the floor)")
+    print(line, flush=True)
+    for ratio, name in worst.values():
         require(ratio <= 1.0, f"step gradient {name}: kernels vs plain max abs err over "
                               f"tolerance {ratio:.3f} > 1")
-    print(f"kernel step vs plain step: loss {float(loss):.7f} vs {float(p_loss):.7f}; "
-          f"worst gradient err/tol {worst:.4f} ({worst_name}); tolerance "
-          f"{STEP_GRAD_TOL} x each parameter's max |grad| + {STEP_GRAD_FLOOR} x the model's; "
-          f"worst err / max |grad| over parameters whose max |grad| is above 1e-3 of the "
-          f"model's: {worst_rel:.3e} ({rel_name})")
-    return float(loss), float(p_loss), worst
+    return float(loss), float(p_loss), max(worst["real"][0], worst["zero"][0])
+
+
+def zero_gradient_params(name, device, plan, x, y):
+    """The biases of baseline ``name`` whose exact gradient is zero: at most
+    ZERO_GRAD_REL of the model's largest in a float64 plain step on the
+    leading 64^3 crop of (x, y) (every model takes 64^3). A conv bias ahead
+    of an instance norm is one: the norm removes any constant its bias adds,
+    at every volume size. Weights are not candidates: at 64^3 a level can
+    shrink to one voxel, where a weight's gradient can vanish that does not
+    vanish at full size."""
+    from smilecode_tpu_torch.train import make_loss_and_grads
+
+    model = seeded_baseline(name, device, "plain").train().double()
+    crop = (slice(None), slice(0, 64), slice(0, 64), slice(0, 64))
+    make_loss_and_grads(model, plan, (1.0, 1.0))(x[crop].double(), y[crop].double())
+    gmax = max(float(p.grad.abs().max()) for p in model.parameters())
+    return {n for n, p in model.named_parameters()
+            if n.endswith(".bias") and float(p.grad.abs().max()) <= ZERO_GRAD_REL * gmax}
 
 
 def compare_bf16_step(models, x, y):
@@ -1098,23 +1222,25 @@ def compare_bf16_step(models, x, y):
     return losses, worst, (k_p, p_32, k_32)
 
 
-def time_steps(models, x, y):
-    """Median ms per training step and peak GiB of each of ``models``, in
-    turns (the order rotates every round); returns (times, peak, steps)."""
+def time_steps(models, x, y, plan=None, n=N_TIMED_STEPS):
+    """ms per training step over ``n`` steps and peak GiB of each of
+    ``models`` (with ``plan``, ModeT's by default), in turns (the order
+    rotates every round); returns (times, peak, steps)."""
     import torch
 
     from smilecode_tpu_torch.models.registry import loss_plan
     from smilecode_tpu_torch.optim import AMSGrad
     from smilecode_tpu_torch.train import make_train_step
 
-    steps = {name: make_train_step(m, loss_plan("modet"), AMSGrad(m.parameters(), lr=1e-4),
-                                   (1.0, 1.0)) for name, m in models.items()}
+    plan = plan or loss_plan("modet")
+    steps = {name: make_train_step(m, plan, AMSGrad(m.parameters(), lr=1e-4), (1.0, 1.0))
+             for name, m in models.items()}
     names = list(steps)
     times = {name: [] for name in names}
     peak = {name: 0.0 for name in names}
     for name in names:  # warm-up
         steps[name](x, y)
-    for i in range(N_TIMED_STEPS):
+    for i in range(n):
         for name in names[i % len(names):] + names[:i % len(names)]:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1248,13 +1374,301 @@ def forward_pair(test_dir, device):
     return x, y
 
 
+def zoo_warp_cases():
+    """The baseline zoo's warps for phase 20: (what, source shape, flow
+    shape, C). PCNet's feature and flow warps at 1/4, 1/2 and full size;
+    PRNet's and PR++'s feature warps; PR++'s three compositions of a flow by
+    a finer field, whose source is coarser than the flow; RDN's feature
+    warps at C=16..128, whose K5 scatters d_src."""
+    l2, l3, l4 = (level_shape(n) for n in (2, 3, 4))
+    return [("PCNet 1/4 features", l3, l3, 64), ("PCNet 1/2 features", l2, l2, 32),
+            ("PCNet full features", SIZE, SIZE, 16), ("PCNet 1/4 flow", l3, l3, 3),
+            ("PCNet 1/2 flow", l2, l2, 3), ("PCNet full flow", SIZE, SIZE, 3),
+            ("PRNet/PR++ 1/4 features", l3, l3, 32),
+            ("PRNet/PR++ 1/2 features, RDN level-0 features", l2, l2, 16),
+            ("PRNet/PR++ full features", SIZE, SIZE, 16),
+            ("PRNet/PR++ full features, block 5", SIZE, SIZE, 8),
+            ("PR++ 1/8 flow by a 1/4 field", l4, l3, 3), ("PR++ 1/4 flow by a 1/2 field", l3, l2, 3),
+            ("PR++ 1/2 flow by a full field", l2, SIZE, 3),
+            ("RDN level-1 features", l3, l3, 32), ("RDN level-2 features", l4, l4, 64),
+            ("RDN level-3 features", level_shape(5), level_shape(5), 128)]
+
+
+def check_zoo_warps(device):
+    """Phase 20: K2 and K5 (with the d_src scatter) vs their plain versions
+    at `zoo_warp_cases`, smooth +-5 and wild +-20 voxel flows, each on the
+    path its row calls for. Gates as phases 2 and 7: K2 within WARP_TOL *
+    max|src|, K5's d_flow and d_src within BWD_TOL of the plain version's
+    largest magnitude. Returns {kernel: dict(err, ms, plain_ms, library_ms,
+    work, by_shape)}: ms summed over one call of each case on its smooth
+    flow, per case {label: dict(ms, library_ms, bound_ms, variant,
+    device_ms, library_device_ms)}, ms per call."""
+    import torch
+
+    from smilecode_tpu_torch.kernels.warp3d import (
+        warp3d_trilinear,
+        warp3d_trilinear_bwd,
+        warp3d_trilinear_bwd_plain,
+        warp3d_trilinear_plain,
+    )
+
+    rng = np.random.default_rng(11)
+    res = {key: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "work": np.zeros(2),
+                 "by_shape": {}} for key in ("K2", "K5")}
+    for what, src_shape, flow_shape, c in zoo_warp_cases():
+        src_vox, vox = int(np.prod(src_shape)), int(np.prod(flow_shape))
+        work = {"K2": warp_work("K2", src_vox, vox, c, 4),
+                "K5": warp_work("K5", src_vox, vox, c, 4, True)}
+        bound_ms = {key: bound(*w)[0] for key, w in work.items()}
+        src = torch.from_numpy(rng.standard_normal((1, *src_shape, c), dtype=np.float32)).to(device)
+        g = torch.from_numpy(rng.standard_normal((1, *flow_shape, c), dtype=np.float32)).to(device)
+        flows = {"smooth +-5": smooth_flow(flow_shape, 5.0, device),
+                 "wild +-20": torch.from_numpy(
+                     rng.uniform(-20, 20, (1, *flow_shape, 3)).astype(np.float32)).to(device)}
+        tol = WARP_TOL * float(src.abs().max())
+        for name, flow in flows.items():
+            line = f"K2/K5 {what} C={c} src {src_shape} flow {flow_shape} {name}:"
+            before = warp3d_trilinear.launches_vector, warp3d_trilinear_bwd.launches_vector
+            out = warp3d_trilinear(src, flow)
+            variant = warp_path(warp3d_trilinear, before[0], c, src, f"{line} K2")
+            e2 = float((out - warp3d_trilinear_plain(src, flow)).abs().max())
+            require(bool(torch.isfinite(out).all()), f"{line} K2 output not finite")
+            require(e2 <= tol, f"{line} K2 max abs err {e2} > {tol}")
+            d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, True)
+            warp_path(warp3d_trilinear_bwd, before[1], c, src, f"{line} K5")
+            p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, True)
+            e5 = {}
+            for what_, a, b in (("d_flow", d_flow, p_flow), ("d_src", d_src, p_src)):
+                require(bool(torch.isfinite(a).all()), f"{line} K5 {what_} not finite")
+                e5[what_] = (float((a - b).abs().max()), BWD_TOL * float(b.abs().max()))
+                require(e5[what_][0] <= e5[what_][1], f"{line} K5 {what_} max abs err "
+                                                      f"{e5[what_][0]} > {e5[what_][1]}")
+            errs = {"K2": e2, "K5": max(e for e, _ in e5.values())}
+            line += (f" ({variant}) K2 max_abs_err {e2:.3e} (tol {tol:.3e}); K5 "
+                     + ", ".join(f"{n} {e:.3e} (tol {t:.3e})" for n, (e, t) in e5.items()))
+            for key in res:
+                res[key]["err"] = max(res[key]["err"], errs[key])
+            if name.startswith("smooth"):
+                t = {"K2": (event_ms(lambda: warp3d_trilinear(src, flow), 10),
+                            event_ms(lambda: warp3d_trilinear_plain(src, flow), 2),
+                            library_warp_ms(src, flow),
+                            device_ms(lambda: warp3d_trilinear(src, flow)),
+                            library_warp_ms(src, flow, timer=device_ms)),
+                     "K5": (event_ms(lambda: warp3d_trilinear_bwd(src, flow, g, True), 10),
+                            event_ms(lambda: warp3d_trilinear_bwd_plain(src, flow, g, True), 2),
+                            library_warp_ms(src, flow, g, True),
+                            device_ms(lambda: warp3d_trilinear_bwd(src, flow, g, True)),
+                            library_warp_ms(src, flow, g, True, timer=device_ms))}
+                for key, (ms, plain_ms, lib, dev, lib_dev) in t.items():
+                    r = res[key]
+                    r["ms"], r["plain_ms"] = r["ms"] + ms, r["plain_ms"] + plain_ms
+                    r["library_ms"] += lib or 0.0
+                    r["work"] += work[key]
+                    r["by_shape"][f"{what} {shape_label(c, flow_shape)} src "
+                                  f"{'x'.join(map(str, src_shape))}"] = {
+                        "ms": ms, "library_ms": lib, "bound_ms": bound_ms[key], "variant": variant,
+                        "device_ms": dev, "library_device_ms": lib_dev}
+                line += "; ms call / device / plain / F.grid_sample call / device: " + ", ".join(
+                    f"{key} {v[0]:.4f} / {v[3]:.4f} / {v[1]:.4f} / {fmt_ms(v[2])} / {fmt_ms(v[4])} "
+                    f"(bound {bound_ms[key]:.4f})" for key, v in t.items())
+            print(line, flush=True)
+        del src, g, flows, out, d_src, d_flow, p_src, p_flow
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_baseline(name, data_dir, root, pair, step):
+    """Phase 23 for baseline ``name``: `train.main` on the 2 subjects of
+    ``data_dir`` (2 steps, then 2 validation pairs) with the kernels: exact
+    launches (``step`` per step, ``pair`` K1 and K2 per validation pair),
+    finite losses; the ``attn_impl="plain"`` run launches nothing and its
+    first loss is within STEP_LOSS_TOL. Returns the kernel run's launch
+    counts."""
+    import torch
+
+    best, _, losses, counts, secs = run_train(data_dir, data_dir, os.path.join(root, "kernels"),
+                                              model=name)
+    want = dict.fromkeys(counts, 0)
+    for key, per_step in zip(STEP_KEYS, step):
+        want[key] = per_step * ZOO_STEPS
+    want["K1"] += pair[0] * ZOO_VAL_PAIRS
+    want["K2"] += pair[1] * ZOO_VAL_PAIRS
+    print(f"train {name} (kernels): {ZOO_STEPS} steps + {ZOO_VAL_PAIRS} validation pairs in "
+          f"{secs:.2f} s, losses {losses}, best dsc {best:.6f}, launches {counts}", flush=True)
+    require(len(losses) == ZOO_STEPS and bool(np.isfinite(losses).all()), f"{name}: losses {losses}")
+    require(counts == want, f"{name}: train launches {counts}, expected {want}")
+    torch.cuda.empty_cache()
+
+    _, _, p_losses, p_counts, p_secs = run_train(data_dir, data_dir, os.path.join(root, "plain"),
+                                                 attn_impl="plain", model=name)
+    print(f"train {name} (plain): {p_secs:.2f} s, losses {p_losses}, launches {p_counts}",
+          flush=True)
+    require(not any(p_counts.values()), f"{name}: the plain training run launched a kernel")
+    require(abs(losses[0] - p_losses[0]) <= STEP_LOSS_TOL * abs(p_losses[0]),
+            f"{name}: first step loss, kernels vs plain: {losses[0]} vs {p_losses[0]}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def step_baseline(card, name, data_dir, device, profile=False):
+    """Phase 24 for baseline ``name``: one training step, kernels vs plain,
+    same weights and batch (phase 9's gates, and the zero-gradient rule of
+    `compare_step_grads`); ms per step (median of N_TIMED_ZOO_STEPS, in
+    turns) and peak memory of each; with ``profile``, the top device
+    operations of one kernel step. The kernel and plain models keep the
+    reference's depth: the largest plain step, rdn_diff_share's, peaks at
+    ~48 GiB of the card's 80."""
+    import torch
+
+    from smilecode_tpu_torch.config import TrainConfig
+    from smilecode_tpu_torch.models.registry import loss_plan
+
+    x, y = forward_pair(data_dir, device)
+    plan = loss_plan(name, TrainConfig(model=name))
+    zero = zero_gradient_params(name, device, plan, x, y)
+    model = seeded_baseline(name, device).train()
+    plain = seeded_baseline(name, device, "plain").train()
+    loss, p_loss, _ = compare_step_grads(model, plain, x, y, plan, zero)
+    require(abs(loss - p_loss) <= STEP_LOSS_TOL * abs(p_loss),
+            f"{name} step loss, kernels vs plain: {loss} vs {p_loss}")
+    times, peak, steps = time_steps({"kernels": model, "plain": plain}, x, y, plan,
+                                    N_TIMED_ZOO_STEPS)
+    print(f"[{card}] {name} {'x'.join(map(str, x.shape[1:4]))} training step, median of "
+          f"{N_TIMED_ZOO_STEPS}: " + "; ".join(
+              f"{k} {statistics.median(t):.3f} ms (min {min(t):.3f}), peak {peak[k]:.2f} GiB"
+              for k, t in times.items()), flush=True)
+    if profile:
+        profile_step(steps["kernels"], x, y, what=f"{name} kernel step")
+    del model, plain, steps, x, y
+    torch.cuda.empty_cache()
+
+
+def run_zoo_phases(card, device, tmp, val_dir):
+    """Phases 20-24, the baseline zoo (`ZOO`): the warp shapes of its
+    models and Im2grid's attention backward, PCNet, PRNet and PR++ served at
+    160x192x160, and every family trained. ``val_dir`` holds 2 subjects at
+    160x192x160 (RCN's 2 at 128x192x128 are written here). Returns (phase
+    20's K2/K5 results, its K3/K4 results, the launch counts of phase 23's
+    kernel runs summed, and those of its Im2grid run)."""
+    import torch
+
+    phase(20, "K2/K5 at the baseline zoo's warp shapes; K3/K4 at Im2grid's five levels")
+    warps = check_zoo_warps(device)
+    attn_bwd = check_attention_bwd(device, specs=tuple(zip((5, 4, 3, 2, 1), (1,) * 5)),
+                                   with_rpb=False)
+    for key, r in warps.items():
+        print(f"[{card}] {key} over phase 20's {len(r['by_shape'])} cases, one call each: "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, F.grid_sample{' backward' * (key == 'K5')} "
+              f"{r['library_ms']:.4f}); bound {bound(*r['work'])[0]:.4f} ms; max_abs_err "
+              f"{r['err']:.3e}", flush=True)
+    for key, (err, ms, plain_ms, work, dev, _) in attn_bwd.items():
+        print(f"[{card}] {key} without rpb per Im2grid step: {ms:.4f} ms, device {dev:.4f} (plain "
+              f"{plain_ms:.4f}); bound {bound(*work)[0]:.4f} ms; max_abs_err {err:.3e}", flush=True)
+
+    rcn_pair = os.path.join(tmp, "PairRCN")
+    os.makedirs(rcn_pair)
+    write_subjects(rcn_pair, size=RCN_SIZE, device=device, n=2, seed=17)
+    data = {SIZE: val_dir, RCN_SIZE: rcn_pair}
+
+    phase(21, "infer.main for PCNet, PRNet and PR++ at 160x192x160")
+    for name in ZOO_SERVED:
+        size, (k1, k2), _ = ZOO[name]
+        serve_baseline(name, size, data[size], os.path.join(tmp, f"exp_{name}"), device, k1, k2,
+                       ZOO_VAL_PAIRS)
+
+    phase(22, "PCNet, PRNet and PR++ forwards, kernels vs plain; ms per pair")
+    for name in ZOO_SERVED:
+        compare_baseline_forward(card, name, ZOO[name][0], data[ZOO[name][0]], device)
+
+    phase(23, "train.main for every baseline family")
+    train_counts, im2grid_counts = None, None
+    for name, (size, pair, step) in ZOO.items():
+        counts = train_baseline(name, data[size], os.path.join(tmp, f"train_{name}"), pair, step)
+        train_counts = counts if train_counts is None else {
+            k: v + counts[k] for k, v in train_counts.items()}
+        if name == "im2grid":
+            im2grid_counts = counts
+
+    phase(24, "one training step per family, kernels vs plain; ms per step")
+    for name, (size, _, _) in ZOO.items():
+        step_baseline(card, name, data[size], device, profile=name in ("pcnet", "prnetplusplus"))
+    torch.cuda.empty_cache()
+    return warps, attn_bwd, train_counts, im2grid_counts
+
+
+def serve_baseline(name, size, data_dir, model_dir, device, k1_pair, k2_pair, n_pairs):
+    """`infer.main` of baseline ``name`` on the ``size`` subjects of
+    ``data_dir`` with a seeded, head-perturbed JAX-format checkpoint written
+    to ``model_dir``: exactly ``k1_pair`` K1 and ``k2_pair`` K2 launches per
+    pair; the ``attn_impl="plain"`` run launches nothing and gives the same
+    Dice and fold. Returns the kernel run's launch counts."""
+    import torch
+
+    write_jax_checkpoint(model_dir, seeded_baseline(name, device))
+    dsc, fold, counts, secs = run_infer(data_dir, model_dir, model=name)
+    n_k1, n_k2 = counts["K1"], counts["K2"]
+    print(f"{name} {size} infer (kernels): {n_pairs} pairs in {secs:.2f} s, K1 launches "
+          f"{n_k1}, K2 launches {n_k2}, dsc {dsc:.6f}, fold {fold:.6f}", flush=True)
+    require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0, f"{name}: Dice {dsc} outside [0, 1]")
+    require(np.isfinite(fold) and 0.0 <= fold <= 1.0, f"{name}: fold {fold} outside [0, 1]")
+    require((n_k1, n_k2) == (k1_pair * n_pairs, k2_pair * n_pairs),
+            f"{name}: K1, K2 launched {n_k1}, {n_k2} times, expected "
+            f"{k1_pair * n_pairs}, {k2_pair * n_pairs}")
+    p_dsc, p_fold, p_counts, p_secs = run_infer(data_dir, model_dir, attn_impl="plain", model=name)
+    p_k1, p_k2 = p_counts["K1"], p_counts["K2"]
+    print(f"{name} {size} infer (plain): {p_secs:.2f} s, K1 launches {p_k1}, K2 launches "
+          f"{p_k2}, dsc {p_dsc:.6f}, fold {p_fold:.6f}", flush=True)
+    require(p_k1 == 0 and p_k2 == 0, f"{name}: the plain run launched a kernel")
+    require(abs(dsc - p_dsc) <= 1e-3 and abs(fold - p_fold) <= 1e-3,
+            f"{name} kernels vs plain infer: dsc {dsc} vs {p_dsc}, fold {fold} vs {p_fold}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def compare_baseline_forward(card, name, size, data_dir, device, profile=True):
+    """Baseline ``name``'s forward on a pair of ``data_dir``, kernels vs
+    plain: flow and every aux field within FLOW_TOL, moved image within
+    MOVED_TOL; ms per pair (median of N_TIMED_BASELINE, in turns), peak
+    memory, and the top device operations of one kernel forward."""
+    import torch
+
+    x, y = forward_pair(data_dir, device)
+    model, plain = seeded_baseline(name, device), seeded_baseline(name, device, "plain")
+    with torch.no_grad():
+        outs, p_outs = model(x, y), plain(x, y)
+    require(len(outs) == len(p_outs) and outs[0].shape == (1, *size, 1)
+            and outs[1].shape == (1, *size, 3), f"{name}: output shapes")
+    require(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite output")
+    moved_err = float((outs[0] - p_outs[0]).abs().max())
+    flow_err = max(float((a - b).abs().max()) for a, b in zip(outs[1:], p_outs[1:]))
+    mag = outs[1].norm(dim=-1)
+    print(f"{name} {size} forward: {len(outs)} outputs, flow |.| max {float(mag.max()):.4f} "
+          f"mean {float(mag.mean()):.4f} voxel; kernels vs plain: flow and aux max abs "
+          f"diff {flow_err:.3e}, moved {moved_err:.3e}", flush=True)
+    require(flow_err <= FLOW_TOL, f"{name}: flow diff {flow_err} > {FLOW_TOL}")
+    require(moved_err <= MOVED_TOL, f"{name}: moved diff {moved_err} > {MOVED_TOL}")
+    del outs, p_outs
+    times, peak = time_forwards({"kernels": model, "plain": plain}, x, y, N_TIMED_BASELINE)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[{card}] {name} {'x'.join(map(str, size))} forward, median of "
+          f"{N_TIMED_BASELINE}: kernels {med['kernels']:.3f} ms/pair, plain "
+          f"{med['plain']:.3f} ms/pair (min {min(times['kernels']):.3f} / "
+          f"{min(times['plain']):.3f}); peak memory kernels {peak['kernels']:.2f} GiB, "
+          f"plain {peak['plain']:.2f} GiB", flush=True)
+    if profile:
+        with torch.no_grad():
+            profile_step(model, x, y, top=8, what=f"{name} kernel forward")
+    del model, plain, x, y
+    torch.cuda.empty_cache()
+
+
 def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
     """Phases 15-19, the bf16 feature path (`compute_dtype="bfloat16"`) on
     the subjects of phases 3 and 8 and the checkpoint of phase 3. Returns
     (phase 15's results, the launch counts of phase 18's kernel run)."""
     import torch
 
-    print("== phase 15: bf16 K1-K5 vs their bf16 plain versions", flush=True)
+    phase(15, "bf16 K1-K5 vs their bf16 plain versions")
     res = check_bf16_kernels(device)
     for key, r in res.items():
         lib = "" if r["library_ms"] is None else f", F.grid_sample bf16 {r['library_ms']:.4f}"
@@ -1264,7 +1678,7 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
               f"{r['f32_ms']:.4f}{lib}); bound {bound(*r['work'])[0]:.4f} ms "
               f"({bound(*r['work'])[1]}); max_abs_err {r['err']:.3e}", flush=True)
 
-    print("== phase 16: infer.main with compute_dtype=bfloat16", flush=True)
+    phase(16, "infer.main with compute_dtype=bfloat16")
     n_pairs = N_SUBJECTS * (N_SUBJECTS - 1)
     model_dir = os.path.join(tmp, "exp")
     for impl in ("auto", "plain"):
@@ -1283,8 +1697,7 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
                          "K2 bf16": 4 * n_pairs})
             require(counts == want, f"bf16 infer launches {counts}, expected {want}")
 
-    print("== phase 17: forwards with excited weights: bf16 kernels, bf16 plain, f32 kernels",
-          flush=True)
+    phase(17, "forwards with excited weights: bf16 kernels, bf16 plain, f32 kernels")
     x, y = forward_pair(test_dir, device)
     names = {"bf16 kernels": ("auto", "bfloat16"), "bf16 plain": ("plain", "bfloat16"),
              "f32 kernels": ("auto", "")}
@@ -1331,7 +1744,7 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
     del models
     torch.cuda.empty_cache()
 
-    print("== phase 18: train.main with compute_dtype=bfloat16", flush=True)
+    phase(18, "train.main with compute_dtype=bfloat16")
     n_steps, n_val = n_pairs, N_VAL_SUBJECTS * (N_VAL_SUBJECTS - 1)
     best, _, losses, counts, secs = run_train(test_dir, val_dir, os.path.join(tmp, "bf16k"),
                                                     compute_dtype="bfloat16")
@@ -1352,7 +1765,7 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
             f"bf16 first step loss, kernels vs plain: {losses[0]} vs {p_losses[0]}")
     torch.cuda.empty_cache()
 
-    print("== phase 19: one bf16 training step, kernels vs plain; ms per step", flush=True)
+    phase(19, "one bf16 training step, kernels vs plain; ms per step")
     models = {"kernels": seeded_model(device, compute_dtype="bfloat16"),
               "plain": seeded_model(device, "plain", "bfloat16"), "f32": seeded_model(device)}
     compare_bf16_step(models, x, y)
@@ -1376,6 +1789,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this runs on the card")
     from smilecode_tpu_torch.kernels import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     device = torch.device("cuda:0")
     torch.backends.cudnn.allow_tf32 = False
@@ -1389,12 +1803,12 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
-    print("== phase 1: K1 attention vs plain", flush=True)
+    phase(1, "K1 attention vs plain")
     k1_err, k1_ms, k1_plain_ms, k1_work, k1_dev, k1_shapes = check_attention(device)
-    print("== phase 2: K2 warp vs plain", flush=True)
+    phase(2, "K2 warp vs plain")
     k2_err, k2_ms, k2_plain_ms, k2_lib_ms, k2_work, k2_shapes = check_warp(device)
 
-    print("== phase 3: infer.main on synthetic 160x192x160 pairs", flush=True)
+    phase(3, "infer.main on synthetic 160x192x160 pairs")
     n_pairs = N_SUBJECTS * (N_SUBJECTS - 1)
     with tempfile.TemporaryDirectory(prefix="smilecode_smoke_") as tmp:
         test_dir, model_dir = os.path.join(tmp, "Test"), os.path.join(tmp, "exp")
@@ -1419,7 +1833,7 @@ def main() -> int:
                 f"kernels vs plain infer: dsc {dsc} vs {p_dsc}, fold {fold} vs {p_fold}")
         f32_infer = (dsc, fold)
 
-        print("== phase 4: full forward, kernels vs plain", flush=True)
+        phase(4, "full forward, kernels vs plain")
         x, y = forward_pair(test_dir, device)
         plain = seeded_model(device, attn_impl="plain")
         with torch.no_grad():
@@ -1434,7 +1848,7 @@ def main() -> int:
         require(flow_err <= FLOW_TOL, f"flow diff {flow_err} > {FLOW_TOL}")
         require(moved_err <= MOVED_TOL, f"moved diff {moved_err} > {MOVED_TOL}")
 
-        print("== phase 5: ms per pair (forward only)", flush=True)
+        phase(5, "ms per pair (forward only)")
         times, peak = time_forwards({"kernels": model, "plain": plain}, x, y)
         med = {k: statistics.median(v) for k, v in times.items()}
         print(f"[{card}] ModeT 160x192x160 forward, median of {N_TIMED}: "
@@ -1446,12 +1860,12 @@ def main() -> int:
         del moved, flow, p_moved, p_flow
         torch.cuda.empty_cache()
 
-        print("== phase 6: K3/K4 attention backward vs plain", flush=True)
+        phase(6, "K3/K4 attention backward vs plain")
         bwd = check_attention_bwd(device)
-        print("== phase 7: K5 warp adjoint vs plain", flush=True)
+        phase(7, "K5 warp adjoint vs plain")
         k5_err, k5_ms, k5_plain_ms, k5_lib_ms, k5_work, k5_shapes = check_warp_bwd(device)
 
-        print("== phase 8: train.main on synthetic 160x192x160 subjects", flush=True)
+        phase(8, "train.main on synthetic 160x192x160 subjects")
         val_dir = os.path.join(tmp, "Val")
         os.makedirs(val_dir)
         write_subjects(val_dir, device=device, n=N_VAL_SUBJECTS, seed=7)
@@ -1480,12 +1894,12 @@ def main() -> int:
                 f"first step loss, kernels vs plain: {losses[0]} vs {p_losses[0]}")
         torch.cuda.empty_cache()
 
-        print("== phase 9: one training step, kernels vs plain", flush=True)
+        phase(9, "one training step, kernels vs plain")
         loss, p_loss, _ = compare_step_grads(model, plain, x, y)
         require(abs(loss - p_loss) <= STEP_LOSS_TOL * abs(p_loss),
                 f"step loss, kernels vs plain: {loss} vs {p_loss}")
 
-        print("== phase 10: ms per training step", flush=True)
+        phase(10, "ms per training step")
         times, peak, steps = time_steps({"kernels": model, "plain": plain}, x, y)
         kernel_step = steps["kernels"]
         med = {k: statistics.median(v) for k, v in times.items()}
@@ -1501,78 +1915,36 @@ def main() -> int:
         del model, plain, kernel_step, steps, x, y
         torch.cuda.empty_cache()
 
-        print("== phase 11: K1 as Im2grid runs it (1 head, no rpb); K3/K4 without rpb", flush=True)
+        phase(11, "K1 as Im2grid runs it (1 head, no rpb); K3/K4 without rpb")
         g_err, g_ms, g_plain_ms, g_work, g_dev, g_shapes = check_attention(
             device, num_heads=(1,) * 5, with_rpb=False)
         check_attention_bwd(device, specs=((1, 1),), with_rpb=False)
-        print("== phase 12: K2 through kernel F's entries at the baselines' shapes", flush=True)
+        phase(12, "K2 through kernel F's entries at the baselines' shapes")
         f_err, f_ms, f_plain_ms, f_lib_ms, f_work, f_shapes = check_warp_f(device)
 
-        print("== phase 13: infer.main for the baselines", flush=True)
+        phase(13, "infer.main for the baselines")
         rcn_dir = os.path.join(tmp, "TestRCN")
         os.makedirs(rcn_dir)
         write_subjects(rcn_dir, size=RCN_SIZE, device=device)
         base_counts = {"K1": 0, "K2": 0}
         for name, size, k1_pair, k2_pair in BASELINES:
-            data_dir = test_dir if size == SIZE else rcn_dir
-            model_dir = os.path.join(tmp, f"exp_{name}")
-            write_jax_checkpoint(model_dir, seeded_baseline(name, device))
-            dsc, fold, counts, secs = run_infer(data_dir, model_dir, model=name)
-            n_k1, n_k2 = counts["K1"], counts["K2"]
-            print(f"{name} {size} infer (kernels): {n_pairs} pairs in {secs:.2f} s, K1 launches "
-                  f"{n_k1}, K2 launches {n_k2}, dsc {dsc:.6f}, fold {fold:.6f}", flush=True)
-            require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0, f"{name}: Dice {dsc} outside [0, 1]")
-            require(np.isfinite(fold) and 0.0 <= fold <= 1.0, f"{name}: fold {fold} outside [0, 1]")
-            require((n_k1, n_k2) == (k1_pair * n_pairs, k2_pair * n_pairs),
-                    f"{name}: K1, K2 launched {n_k1}, {n_k2} times, expected "
-                    f"{k1_pair * n_pairs}, {k2_pair * n_pairs}")
-            base_counts["K1"] += n_k1
-            base_counts["K2"] += n_k2
-            p_dsc, p_fold, counts, p_secs = run_infer(data_dir, model_dir, attn_impl="plain",
-                                                      model=name)
-            p_k1, p_k2 = counts["K1"], counts["K2"]
-            print(f"{name} {size} infer (plain): {p_secs:.2f} s, K1 launches {p_k1}, K2 launches "
-                  f"{p_k2}, dsc {p_dsc:.6f}, fold {p_fold:.6f}", flush=True)
-            require(p_k1 == 0 and p_k2 == 0, f"{name}: the plain run launched a kernel")
-            require(abs(dsc - p_dsc) <= 1e-3 and abs(fold - p_fold) <= 1e-3,
-                    f"{name} kernels vs plain infer: dsc {dsc} vs {p_dsc}, fold {fold} vs {p_fold}")
-            torch.cuda.empty_cache()
+            counts = serve_baseline(name, size, test_dir if size == SIZE else rcn_dir,
+                                    os.path.join(tmp, f"exp_{name}"), device, k1_pair, k2_pair,
+                                    n_pairs)
+            base_counts["K1"] += counts["K1"]
+            base_counts["K2"] += counts["K2"]
 
-        print("== phase 14: baseline forwards, kernels vs plain; ms per pair", flush=True)
+        phase(14, "baseline forwards, kernels vs plain; ms per pair")
         for name, size, _, _ in BASELINES:
-            x, y = forward_pair(test_dir if size == SIZE else rcn_dir, device)
-            model, plain = seeded_baseline(name, device), seeded_baseline(name, device, "plain")
-            with torch.no_grad():
-                outs, p_outs = model(x, y), plain(x, y)
-            require(len(outs) == len(p_outs) and outs[0].shape == (1, *size, 1)
-                    and outs[1].shape == (1, *size, 3), f"{name}: output shapes")
-            require(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite output")
-            moved_err = float((outs[0] - p_outs[0]).abs().max())
-            flow_err = max(float((a - b).abs().max()) for a, b in zip(outs[1:], p_outs[1:]))
-            mag = outs[1].norm(dim=-1)
-            print(f"{name} {size} forward: {len(outs)} outputs, flow |.| max {float(mag.max()):.4f} "
-                  f"mean {float(mag.mean()):.4f} voxel; kernels vs plain: flow and aux max abs "
-                  f"diff {flow_err:.3e}, moved {moved_err:.3e}", flush=True)
-            require(flow_err <= FLOW_TOL, f"{name}: flow diff {flow_err} > {FLOW_TOL}")
-            require(moved_err <= MOVED_TOL, f"{name}: moved diff {moved_err} > {MOVED_TOL}")
-            del outs, p_outs
-            times, peak = time_forwards({"kernels": model, "plain": plain}, x, y, N_TIMED_BASELINE)
-            med = {k: statistics.median(v) for k, v in times.items()}
-            print(f"[{card}] {name} {'x'.join(map(str, size))} forward, median of "
-                  f"{N_TIMED_BASELINE}: kernels {med['kernels']:.3f} ms/pair, plain "
-                  f"{med['plain']:.3f} ms/pair (min {min(times['kernels']):.3f} / "
-                  f"{min(times['plain']):.3f}); peak memory kernels {peak['kernels']:.2f} GiB, "
-                  f"plain {peak['plain']:.2f} GiB", flush=True)
-            with torch.no_grad():
-                profile_step(model, x, y, top=8, what=f"{name} kernel forward")
-            del model, plain, x, y
-            torch.cuda.empty_cache()
+            compare_baseline_forward(card, name, size, test_dir if size == SIZE else rcn_dir,
+                                     device)
         print(f"[{card}] K1 as Im2grid runs it, per pair: {g_ms:.4f} ms, device {g_dev:.4f} "
               f"(plain {g_plain_ms:.4f}); "
               f"K2 via ops.warp over the smooth cases of phase 12: {f_ms:.4f} ms (plain "
               f"{f_plain_ms:.4f})")
 
         bf16, bf16_train_counts = run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer)
+        zoo_warps, zoo_bwd, zoo_counts, im2grid_counts = run_zoo_phases(card, device, tmp, val_dir)
 
     def entry(name, source, line, key, err, ms, plain_ms, work, library_ms=None, counts=None,
               by_shape=None, device=None):
@@ -1596,10 +1968,15 @@ def main() -> int:
                      r["plain_ms"], tuple(r["work"]), r["library_ms"], bf16_train_counts,
                      r["by_shape"], r["device_ms"])
 
-    def bwd_entry(name, line, key):
-        err, ms, plain_ms, work, device, by_shape = bwd[key]
+    def bwd_entry(name, line, key, res=None, counts=None):
+        err, ms, plain_ms, work, device, by_shape = (res or bwd)[key]
         return entry(name, "modet_attn_bwd.cu", line, key, err, ms, plain_ms, work,
-                     by_shape=by_shape, device=device)
+                     counts=counts, by_shape=by_shape, device=device)
+
+    def zoo_entry(name, source, line, key):
+        r = zoo_warps[key]
+        return entry(name, source, line, key, r["err"], r["ms"], r["plain_ms"], tuple(r["work"]),
+                     r["library_ms"], zoo_counts, r["by_shape"])
 
     record = {"kernels": [
         entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1", k1_err, k1_ms,
@@ -1620,7 +1997,16 @@ def main() -> int:
         bf16_entry("modet_attn_bwd_dq", "modet_attn_bwd.cu", "modet_attn.py:183", "K3"),
         bf16_entry("modet_attn_bwd_dk", "modet_attn_bwd.cu", "modet_attn.py:256", "K4"),
         bf16_entry("warp3d_trilinear_bwd", "warp3d_bwd.cu", "warp3d_v4.py:339", "K5"),
+        bwd_entry("modet_attn_bwd_dq (Im2grid training: 1 head, no rpb)", "modet_attn.py:183",
+                  "K3", zoo_bwd, im2grid_counts),
+        bwd_entry("modet_attn_bwd_dk (Im2grid training: 1 head, no rpb)", "modet_attn.py:256",
+                  "K4", zoo_bwd, im2grid_counts),
+        zoo_entry("warp3d_trilinear_fwd (baseline zoo: phase 20 shapes, phase 23 training)",
+                  "warp3d.cu", "warp3d.py:52", "K2"),
+        zoo_entry("warp3d_trilinear_bwd (baseline zoo: phase 20 shapes, phase 23 training)",
+                  "warp3d_bwd.cu", "warp3d_v4.py:339", "K5"),
     ]}
+    print(f"phase seconds: {phase_times(t_start)}")
     print(card_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,12 +4,12 @@
 `smilecode_tpu/config.py` (the JAX package cannot be imported without jax).
 Left out: the JAX-only `fast_path` knob (planes-layout TPU decoder),
 `img_size` (the JAX package needs it to build a parameter template; the port
-does not), `atlas_path` (the atlas dataset is not ported) and, in
-`TrainConfig`, the baselines' knobs (their training is not ported).
-`check_train_config` raises `NotImplementedError` for the training knobs
-whose paths are not ported yet. Added: ``device`` (both configs), where
-`train.main` and `infer.main` run: "cuda" (the default; they raise without
-a card) or "cpu".
+does not) and `atlas_path` (the atlas dataset is not ported). Both configs
+carry the baselines' structural knobs (RCN's ``n_cascade``, RDN's ``stages``
+and ``levels``, RDN's ``dropout_rate``). `check_train_config` raises
+`NotImplementedError` for the training knobs whose paths are not ported
+yet. Added: ``device`` (both configs), where `train.main` and `infer.main`
+run: "cuda" (the default; they raise without a card) or "cpu".
 """
 
 from __future__ import annotations
@@ -51,6 +51,14 @@ class TrainConfig:
     # data-parallel devices and D-axis shards (only 1 is ported)
     dp: int = 1
     spatial: int = 1
+    # RCN: number of cascaded VTNs (the reference trains 10)
+    n_cascade: int = 10
+    # RDN: outer stage recursion count and per-stage level recursion depths
+    # (the reference's stages=4, levels=[4,4,4,4])
+    stages: int = 4
+    levels: Sequence[int] = (4, 4, 4, 4)
+    # RDN MC-dropout rate for the uncertainty protocol (only 0 is ported)
+    dropout_rate: float = 0.0
 
     @property
     def save_dir(self) -> str:
@@ -76,7 +84,9 @@ def check_train_config(cfg: TrainConfig) -> None:
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                          f"got {cfg.compute_dtype!r}")
-
+    if cfg.dropout_rate > 0:
+        raise NotImplementedError(f"dropout_rate={cfg.dropout_rate}: the MC-dropout Estimator is "
+                                  "not ported yet (ROADMAP.md queue 1, item 9a: MC uncertainty)")
 
 
 @dataclasses.dataclass

@@ -31,10 +31,21 @@ import numpy as np
 import torch
 from torch import nn
 
-# the VTN/RCN entries of `smilecode_tpu/convert.py:RENAMES_BY_MODEL` (torch
-# path -> JAX path on the dotted merged path; the first pattern that changes
-# it wins). PCNet's entries come with PCNet.
+# `smilecode_tpu/convert.py:RENAMES_BY_MODEL` (torch path -> JAX path on the
+# dotted merged path; the first pattern that changes it wins), keyed by the
+# port model's class name. PCNet: ChannelAttention's ``fc`` Sequential ->
+# raw ``fc1``/``fc2`` kernels, the single-conv ``weight_conv`` Sequentials ->
+# plain convs, ``upconvN.upconv`` -> ``upconvN``, ResBlock's ``block.2`` ->
+# ``conv``.
 RENAMES_BY_MODEL = {
+    "pcnet": (
+        (r"fc_0\.kernel$", "fc1"),
+        (r"fc_2\.kernel$", "fc2"),
+        (r"weight_conv_(\d+)_0\.", r"weight_conv_\1."),
+        (r"weight_conv_0\.", "weight_conv."),
+        (r"(upconv\d)\.upconv\.", r"\1."),
+        (r"\.block_2\.", ".conv."),
+    ),
     "vtn": ((r"(Upsamp\dto\d|Pred0)\.upconv\.", r"\1."),),
     "rcn": ((r"(Upsamp\dto\d|Pred0)\.upconv\.", r"\1."),),
 }
@@ -80,6 +91,12 @@ def _param_map(model: nn.Module) -> dict:
     return out
 
 
+def _is_kernel(key: str) -> bool:
+    """A weight that takes the kernel layout (named before any rename:
+    PCNet's ``fc.0.weight`` is the kernel ``fc1`` in JAX)."""
+    return torch_key_to_flax_path(key)[-1] == "kernel"
+
+
 def params_from_state_dict(state_dict, model: nn.Module | None = None) -> dict:
     """Port `state_dict` -> ``{"params": nested numpy tree}`` (JAX layout).
     Give ``model`` for any model with transposed convolutions or renames."""
@@ -95,9 +112,9 @@ def params_from_state_dict(state_dict, model: nn.Module | None = None) -> dict:
                 raise KeyError(f"{key!r} is not a parameter of {type(model).__name__}")
             path, transposed = pmap[key]
         w = w.detach().cpu().numpy()
-        if path[-1] == "kernel" and w.ndim == 5:
+        if _is_kernel(key) and w.ndim == 5:
             w = w.transpose(2, 3, 4, 0, 1) if transposed else w.transpose(2, 3, 4, 1, 0)
-        elif path[-1] == "kernel" and w.ndim == 2:
+        elif _is_kernel(key) and w.ndim == 2:
             w = w.T
         node = tree
         for p in path[:-1]:

@@ -10,8 +10,9 @@ their plain versions. float32, with TF32 off in cuDNN convolutions and
 matmuls, for parity with the JAX package; ModeT takes
 ``compute_dtype=bfloat16`` (its feature path in bf16, the flow float32).
 
-Models: modet (modet-cu), im2grid, vtn, rcn, rdn, rdn_share, rdn_diff,
-rdn_diff_share (`models/registry.py`).
+Models: modet (modet-cu), im2grid, pcnet, prnet, prnetplusplus (prnet++,
+prpp), vtn, rcn, rdn, rdn_share, rdn_diff, rdn_diff_share
+(`models/registry.py`).
 
 Usage: python -m smilecode_tpu_torch.infer test_dir=/data/Test model_dir=experiments/<run>
        [model=rdn stages=4 levels=4,4,4,4] [torch_checkpoint=/path/dsc0.xxx.pth.tar]
@@ -70,7 +71,7 @@ def load_weights(model, cfg: InferConfig):
 def main(cfg: InferConfig):
     if cfg.mc_iter > 0:
         raise NotImplementedError("mc_iter > 0: the MC-uncertainty protocol is not ported yet "
-                                  "(ROADMAP.md queue 1, item 9)")
+                                  "(ROADMAP.md queue 1, item 9a)")
     if cfg.dataset != "s2s":
         raise NotImplementedError(f"dataset={cfg.dataset!r} is not ported yet "
                                   "(ROADMAP.md queue 1, item 5)")

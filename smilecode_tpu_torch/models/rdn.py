@@ -111,7 +111,7 @@ class RDN(nn.Module):
         if dropout_rate > 0:
             raise NotImplementedError(
                 f"dropout_rate={dropout_rate}: the MC-dropout Estimator is not ported yet "
-                "(ROADMAP.md queue 1, item 9: MC uncertainty)")
+                "(ROADMAP.md queue 1, item 9a: MC uncertainty)")
         self.warp_impl = baseline_warp_impl(attn_impl)
         self.stages, self.levels = stages, tuple(levels)
         self.share_weights, self.diff, self.return_aux = share_weights, diff, return_aux

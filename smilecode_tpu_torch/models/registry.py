@@ -1,14 +1,16 @@
 """Model registry of the port: name -> ``nn.Module`` and its training loss plan.
 
 Counterpart of `smilecode_tpu/models/registry.py` (`build_model`, `CRITERIA`
-and the `ModelSpec` loss plan). ModeT is ported for inference and training;
-Im2grid, VTN, RCN and the four deterministic RDN variants for inference
-(their loss plans raise `NotImplementedError`); PCNet and PRNet/PR++ raise
-`NotImplementedError` naming their ROADMAP item.
+and the `ModelSpec` loss plan), with the same names: ModeT (modet,
+modet-cu), Im2grid, PCNet, PRNet, PR++ (prnetplusplus, prnet++, prpp), VTN,
+RCN and the four deterministic RDN variants (rdn, rdn_share, rdn_diff,
+rdn_diff_share), each served and trained.
 
 A loss plan is a list of criterion names applied index-wise to the model's
 (possibly sliced) training outputs against the fixed volume:
-``loss = sum criterions[n](outputs[n], fixed) * weights[n]``.
+``loss = sum criterions[n](outputs[n], fixed) * weights[n]``. RCN and RDN
+drop the composed flow (``outs[0:1] + outs[2:]``) and regularise each
+cascade's or stage's field.
 """
 
 from __future__ import annotations
@@ -32,14 +34,11 @@ def _grad_l2(pred, fixed):
 CRITERIA = {"ncc": _ncc, "grad_l2": _grad_l2}
 
 MODET_NAMES = ("modet", "modet-cu", "modet_cu", "modetcu")
-# JAX registry names that are not ported yet (ROADMAP.md queue 1, item 8)
-NOT_PORTED = ("pcnet", "prnet", "prnetplusplus", "prnet++", "prpp")
-# ported for inference; their training is ROADMAP.md queue 1, item 8
-BASELINE_NAMES = ("im2grid", "vtn", "rcn")
+PRPP_NAMES = ("prnetplusplus", "prnet++", "prpp")
 
 
 def build_model(name: str, cfg, device=None, generator: torch.Generator | None = None):
-    """Build ``name`` from ``cfg`` (an InferConfig) on ``device``.
+    """Build ``name`` from ``cfg`` (an InferConfig or a TrainConfig) on ``device``.
 
     "modet-cu" is the reference's fused-CUDA-operator variant; here it always
     takes the kernel wrappers (attn_impl="auto") whatever ``cfg.attn_impl``.
@@ -66,14 +65,19 @@ def build_model(name: str, cfg, device=None, generator: torch.Generator | None =
             device=device,
             generator=generator,
         )
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md queue 1, item 8: baselines)")
     kw = {"attn_impl": cfg.attn_impl, "device": device, "generator": generator}
     if name == "im2grid":
         from smilecode_tpu_torch.models.im2grid import Im2grid
 
         return Im2grid(**kw)
+    if name == "pcnet":
+        from smilecode_tpu_torch.models.pcnet import PCNet
+
+        return PCNet(**kw)
+    if name == "prnet" or name in PRPP_NAMES:
+        from smilecode_tpu_torch.models.prnet import PRNet, PRNetPlusPlus
+
+        return (PRNet if name == "prnet" else PRNetPlusPlus)(**kw)
     if name == "vtn":
         from smilecode_tpu_torch.models.rcn import build_vtn
 
@@ -101,16 +105,16 @@ class LossPlan:
     select_train_outputs: Callable = lambda outs: outs
 
 
-def loss_plan(name: str) -> LossPlan:
-    """The training loss plan of model ``name`` (JAX `build_model`'s spec)."""
+def loss_plan(name: str, cfg=None) -> LossPlan:
+    """The training loss plan of model ``name`` (JAX `build_model`'s spec);
+    RCN's and RDN's depend on ``cfg.n_cascade`` and ``cfg.stages`` (defaults
+    10 and 4, the reference's)."""
     name = name.lower()
-    if name in MODET_NAMES:
+    if name in MODET_NAMES or name in ("im2grid", "pcnet", "prnet", "vtn") or name in PRPP_NAMES:
         return LossPlan(("ncc", "grad_l2"))  # (moved, flow): NCC + L2 diffusion
-    if name in BASELINE_NAMES or name.startswith("rdn"):
-        raise NotImplementedError(
-            f"training {name!r} is not ported yet (ROADMAP.md queue 1, item 8: training of "
-            "the baselines); the port runs its inference")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP.md queue 1, item 8: baselines)")
+    if name == "rcn" or name.startswith("rdn"):
+        # NCC on the moved image, L2 diffusion on each cascade's (RCN) or
+        # stage's (RDN) field; the composed flow is dropped
+        depth = getattr(cfg, "n_cascade", 10) if name == "rcn" else getattr(cfg, "stages", 4)
+        return LossPlan(("ncc",) + ("grad_l2",) * depth, lambda outs: outs[0:1] + outs[2:])
     raise ValueError(f"unknown model {name!r}")

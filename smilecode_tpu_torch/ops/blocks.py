@@ -72,7 +72,8 @@ def reset_torch_default_(model: nn.Module, generator: torch.Generator | None):
             reset_conv_(m, generator)
         elif isinstance(m, nn.Linear):
             torch_uniform_(m.weight, m.in_features, generator)
-            torch_uniform_(m.bias, m.in_features, generator)
+            if m.bias is not None:
+                torch_uniform_(m.bias, m.in_features, generator)
 
 
 def channels_last_convs_(model: nn.Module):

@@ -50,3 +50,11 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     b, d, h, w, c = x.shape
     x = x.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c)
     return x.mean(dim=(2, 4, 6))
+
+
+def upsample2_nearest(x: torch.Tensor) -> torch.Tensor:
+    """2x nearest upsampling of (B, D, H, W, C) (torch Upsample mode='nearest'
+    parity): every voxel becomes a 2x2x2 block."""
+    b, d, h, w, c = x.shape
+    x = x[:, :, None, :, None, :, None, :].expand(b, d, 2, h, 2, w, 2, c)
+    return x.reshape(b, 2 * d, 2 * h, 2 * w, c)

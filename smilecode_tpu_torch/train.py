@@ -3,7 +3,9 @@
 * AMSGrad as optax computes it (`optim.py`), poly-0.9 per-epoch learning
   rate rounded to 8 decimals;
 * loss = sum criterions[n](outputs[n], fixed) * weights[n], with the model's
-  loss plan (`models/registry.py`);
+  loss plan (`models/registry.py`; the weights list is extended by its last
+  entry, so RCN's and RDN's per-cascade or per-stage terms share the
+  regulariser's weight);
 * per-epoch validation: warp x_seg with the flow (nearest), Dice over the 54
   VOI labels; checkpoint named ``dsc{:.3f}.ckpt`` in the JAX format, rolling
   keep-``max_keep``;
@@ -21,7 +23,13 @@ checkpoints stay float32, so a checkpoint trained in either dtype loads
 into the other. Weights are drawn from a ``torch.Generator`` seeded with
 ``cfg.seed`` (other numbers than JAX's from the same seed).
 
+Every model of the registry trains: ModeT, Im2grid, PCNet, PRNet, PR++, VTN,
+RCN (``n_cascade``) and the deterministic RDN variants (``stages``,
+``levels``); the baselines in float32 only. The printed "Reg" is the
+second criterion's loss, as in the JAX package's `train.main`.
+
 Usage: python -m smilecode_tpu_torch.train train_dir=/data/Train val_dir=/data/Val
+       [model=pcnet | model=rcn n_cascade=10 | model=rdn_diff stages=4 levels=4,4,4,4]
        [compute_dtype=bfloat16] [device=cpu]
 """
 
@@ -146,7 +154,7 @@ def _train(cfg: TrainConfig, device: torch.device, exp_dir: str, metrics: Metric
     torch.backends.cuda.matmul.allow_tf32 = False
     model = build_model(cfg.model, cfg, device=device,
                         generator=torch.Generator().manual_seed(cfg.seed))
-    plan = loss_plan(cfg.model)
+    plan = loss_plan(cfg.model, cfg)
     n_params = sum(p.numel() for p in model.parameters())
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"model {cfg.model}: {n_params:,} params; device: {device} ({where}); "

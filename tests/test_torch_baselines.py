@@ -1,8 +1,10 @@
-"""Port baselines (Im2grid, VTN, RCN, RDN) vs the JAX package: module names
-and weight conversion for every model and variant, Im2grid's forward and
-`infer.main`, the models' kernel-wrapper calls per pair, and the
-VTN/RCN size rule. VTN/RCN forwards: `test_torch_baselines_rcn.py`; RDN:
-`test_torch_baselines_rdn.py`.
+"""Port baselines (Im2grid, PCNet, PRNet, PR++, VTN, RCN, RDN) vs the JAX
+package: module names and weight conversion for every model and variant,
+Im2grid's forward and `infer.main`, the models' kernel-wrapper calls per
+pair, the VTN/RCN size rule, and the registry against the JAX registry.
+VTN/RCN forwards: `test_torch_baselines_rcn.py`; RDN:
+`test_torch_baselines_rdn.py`; PCNet: `test_torch_pcnet.py`; PRNet and
+PR++: `test_torch_prnet.py`; training: `test_torch_baselines_train.py`.
 
 Forward parity: the JAX model's params (the template of JAX ``init`` by
 `jax.eval_shape`, values drawn from a numpy seed in torch's default ranges;
@@ -25,6 +27,9 @@ import jax
 import jax.numpy as jnp
 
 from smilecode_tpu.convert import convert_state_dict, renames_for
+from smilecode_tpu.models import PCNet as JaxPCNet
+from smilecode_tpu.models import PRNet as JaxPRNet
+from smilecode_tpu.models import PRNetPlusPlus as JaxPRNetPlusPlus
 from smilecode_tpu.models import RCN as JaxRCN
 from smilecode_tpu.models import RDN as JaxRDN
 from smilecode_tpu.models import VTN as JaxVTN
@@ -62,6 +67,10 @@ MODELS = {
                  (32, 32, 32)),
     "rdn_diff_share": (lambda: JaxRDN(share_weights=True, diff=True, **RDN_SMALL), RDN_SMALL,
                        (32, 32, 32)),
+    # PRNet/PR++ at 32^3: at 16^3 their coarsest level is one voxel
+    "pcnet": (lambda: JaxPCNet(), {}, (16, 16, 16)),
+    "prnet": (lambda: JaxPRNet(), {}, (32, 32, 32)),
+    "prnetplusplus": (lambda: JaxPRNetPlusPlus(), {}, (32, 32, 32)),
 }
 
 
@@ -78,13 +87,14 @@ def jax_template(name):
 
 
 # flow heads whose range is widened so that the flows move voxels
-HEAD_GAIN = {"Pred0": 20.0, "conv_4": 5.0}
+HEAD_GAIN = {"Pred0": 20.0, "conv_4": 5.0, "flow": 10.0, "reg_conv3": 5.0, "reg_conv2": 5.0,
+             "reg_conv1": 5.0, "reg_conv0_1": 5.0}
 
 
 def random_jax_params(template, seed):
     """Numpy values in the template's shapes: U(-b, b), b = 1/sqrt(fan_in)
     for kernels and biases (torch's default range; `HEAD_GAIN` times that
-    for the flow heads of VTN and RDN), 1 ± 0.5 for alpha."""
+    for the flow heads of VTN, RDN, PRNet/PR++ and PCNet), 1 ± 0.5 for alpha."""
     rng = np.random.default_rng(seed)
     fan_in = {}
 
@@ -195,6 +205,18 @@ def test_state_dict_keys_follow_the_reference():
         "rcn": ["vtn.0.encoder.conv1.main.weight", "vtn.1.Pred0.upconv.weight"],
         "rdn": ["encoder.conv0.main.weight", "est3_0.conv.0.weight", "est0_1.conv.4.bias"],
         "rdn_share": ["est3.conv.2.weight", "est0.conv.4.weight"],
+        "pcnet": ["encoder_float.conv0.main.weight", "encoder_fixed.conv3.0.weight",
+                  "encoder_float.conv1.1.block.2.weight", "conv_bottleNeck.1.main.bias",
+                  "reg_conv3.weight", "reg_conv0.1.bias", "upconv2.upconv.weight",
+                  "upconv0.upconv.bias", "dfi_0.conv.1.main.weight",
+                  "dfi_0.weight_conv.2.0.weight", "dfi_2.weight_conv.0.0.bias",
+                  "nff_1.weight_conv.0.weight", "nff_2.channel_attention.fc.0.weight",
+                  "nff_0.channel_attention.fc.2.weight"],
+        "prnet": ["net.encoder.block1.main.weight", "net.decoder1.Conv.main.weight",
+                  "net.decoder5.main.bias", "prblock1.flow.weight", "prblock5.flow.bias"],
+        "prnetplusplus": ["net.encoder.block5.main.weight", "prblock2.conv1.0.weight",
+                          "prblock3.conv1.1.bias", "prblock4.conv2.0.weight",
+                          "prblock5.conv2.1.bias", "prblock1.flow.weight"],
     }
     for name, want in keys.items():
         sd = port_model(name).state_dict()
@@ -203,6 +225,11 @@ def test_state_dict_keys_follow_the_reference():
         assert not any(k.endswith(("Pred0.upconv.bias", "Upsamp6to5.upconv.bias")) for k in sd)
         assert not any(".conv.3." in k for k in sd)  # the Estimator's LeakyReLU
     assert "est3_1.conv.0.weight" not in port_model("rdn_share").state_dict()
+    pcnet = port_model("pcnet").state_dict()
+    # bias-free channel-attention MLP; ResBlock's norm and activation hold no weights
+    assert not any(k.endswith(("fc.0.bias", "fc.2.bias", "block.0.weight", "block.1.weight"))
+                   for k in pcnet)
+    assert "dfi_2.weight_conv.1.0.weight" not in pcnet and "dfi_0.weight_conv.2.0.weight" in pcnet
 
 
 def test_seeded_init():
@@ -234,6 +261,7 @@ def test_im2grid_forward_matches_jax_at_32():
 @pytest.mark.parametrize("name,attn,warps", [
     ("im2grid", 5, 9), ("vtn", 0, 1), ("rcn", 0, 19),
     ("rdn", 0, 136), ("rdn_share", 0, 136), ("rdn_diff", 0, 644), ("rdn_diff_share", 0, 644),
+    ("pcnet", 0, 33), ("prnet", 0, 9), ("prnetplusplus", 0, 9),
 ])
 def test_kernel_wrapper_calls_per_pair(monkeypatch, name, attn, warps):
     """Every attention and bilinear warp of a pair goes through the kernel
@@ -280,26 +308,53 @@ def test_vtn_refuses_lpba_size_in_both_packages():
 
 
 def test_registry_and_config():
+    """The port's registry takes exactly the JAX registry's names, with the
+    JAX loss plans' criterions and output selection; `TrainConfig` carries
+    the baselines' knobs, and ``dropout_rate > 0`` raises citing item 9a."""
+    from smilecode_tpu.config import TrainConfig as JaxTrainConfig
+    from smilecode_tpu.models.registry import build_model as jax_build_model
+    from smilecode_tpu_torch.config import TrainConfig, check_train_config
+
     cfg = InferConfig()
     assert (cfg.n_cascade, cfg.stages, cfg.levels, cfg.dropout_rate) == (10, 4, (4, 4, 4, 4), 0.0)
+    tcfg = TrainConfig()
+    assert (tcfg.n_cascade, tcfg.stages, tcfg.levels, tcfg.dropout_rate) == (10, 4, (4, 4, 4, 4),
+                                                                              0.0)
     rdn = build_model("rdn_diff_share", InferConfig(stages=1, levels=(1, 1, 1, 1)))
     assert isinstance(rdn, RDN) and rdn.share_weights and rdn.diff and rdn.warp_impl == "guarded"
     plain = build_model("rdn", InferConfig(attn_impl="plain", stages=1, levels=(1, 1, 1, 1)))
     assert not plain.share_weights and not plain.diff and plain.warp_impl == "plain"
     assert len(build_model("rcn", InferConfig(n_cascade=3)).vtn) == 3
     assert build_model("im2grid", InferConfig()).warp_impl == "guarded"
-    for name in ("pcnet", "prnet", "prnet++"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(name, cfg)
-    with pytest.raises(NotImplementedError, match="MC"):
+
+    names = ("modet", "modet-cu", "modet_cu", "modetcu", "im2grid", "pcnet", "prnet",
+             "prnetplusplus", "prnet++", "prpp", "vtn", "rcn", "rdn", "rdn_share", "rdn_diff",
+             "rdn_diff_share")
+    outs = tuple(f"out{i}" for i in range(8))
+    for name in names:
+        for knobs in ({}, {"n_cascade": 3, "stages": 2, "levels": (2, 1, 1, 2)}):
+            spec = jax_build_model(name, JaxTrainConfig(model=name, **knobs))
+            plan = loss_plan(name, TrainConfig(model=name, **knobs))
+            assert plan.criterions == tuple(spec.criterions), (name, knobs)
+            assert plan.select_train_outputs(outs) == tuple(spec.select_train_outputs(outs))
+        model = build_model(name, InferConfig(attn_impl="plain", stages=1, levels=(1, 1, 1, 1),
+                                              n_cascade=1), device="meta")
+        assert type(model).__name__.lower() == type(spec.module).__name__.lower(), name
+        assert getattr(model, "warp_impl", "plain") == "plain"
+    for bad in ("nope", "pcnet2", "prnet+"):
+        with pytest.raises(ValueError, match="unknown"):
+            build_model(bad, cfg, device="meta")
+        with pytest.raises(ValueError, match="unknown"):
+            loss_plan(bad)
+
+    with pytest.raises(NotImplementedError, match="item 9a"):
         build_model("rdn", InferConfig(dropout_rate=0.1))
+    with pytest.raises(NotImplementedError, match="item 9a"):
+        check_train_config(TrainConfig(model="rdn", dropout_rate=0.1))
     with pytest.raises(NotImplementedError, match="bf16"):
-        build_model("rdn", InferConfig(compute_dtype="bfloat16"))
+        build_model("pcnet", InferConfig(compute_dtype="bfloat16"))
     with pytest.raises(ValueError, match="attn_impl"):
         build_model("vtn", InferConfig(attn_impl="xla"))
-    for name in ("im2grid", "vtn", "rcn", "rdn_diff"):
-        with pytest.raises(NotImplementedError, match="training of the baselines"):
-            loss_plan(name)
 
 
 def write_subjects(test_dir, shape, n=3, seed=13):

@@ -236,7 +236,7 @@ def warp_flow(shape, kind, seed):
     """(2, *shape, 3) float32 flow: a number is the scale of a N(0, 1) flow;
     "wild" is uniform in +-20 voxels, "far" puts every sample 100 voxels
     outside the volume, "nan" is NaN everywhere, "nan1" a N(0, 4) flow whose
-    channel 1 is NaN at every second w."""
+    channel 1 is NaN at every second w; "smooth" a +-3 voxel sine field."""
     if kind == "nan1":
         flow = rand((2, *shape, 3), seed, 2.0)
         flow[:, :, :, ::2, 1] = float("nan")
@@ -246,6 +246,10 @@ def warp_flow(shape, kind, seed):
                                 .astype(np.float32))
     if kind in ("far", "nan"):
         return torch.full((2, *shape, 3), 100.0 if kind == "far" else float("nan"))
+    if kind == "smooth":  # +-3 voxels, one period across the volume
+        axes = [torch.linspace(0, 2 * np.pi, n) for n in shape]
+        grid = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+        return (3.0 * torch.sin(grid + torch.arange(3.0) + seed)).expand(2, *shape, 3).contiguous()
     return rand((2, *shape, 3), seed, kind)
 
 
@@ -289,6 +293,15 @@ WARP_CASES = [
     ((5, 6, 7), (5, 6, 7), 3, "nan", False),
     ((5, 6, 7), (5, 6, 7), 8, "nan1", False),
     ((5, 6, 7), (5, 6, 7), 8, 2.0, True),  # misaligned view: scalar path
+    # a source coarser than the flow (PR++'s T(flow, w)): rescale < 1, and
+    # in K5 up to 2 output voxels per axis scatter into one source cell
+    ((5, 6, 4), (9, 11, 7), 3, "smooth", False),
+    ((5, 6, 4), (9, 11, 7), 3, "wild", False),
+    ((5, 6, 4), (9, 11, 7), 16, "smooth", False),
+    ((5, 6, 4), (9, 11, 7), 16, "wild", False),
+    # the d_src scatter at RDN's widest rows, many voxels per source cell
+    ((3, 4, 3), (9, 11, 7), 64, "smooth", False),
+    ((3, 4, 3), (9, 11, 7), 128, "wild", False),
 ]
 
 

@@ -74,7 +74,8 @@ def test_criteria_and_modet_plan_match_jax():
     outs = ("moved", "flow")
     assert plan.select_train_outputs(outs) == outs
     assert isinstance(plan, LossPlan)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_plan("rcn")
+    rcn = loss_plan("rcn")  # the reference's 10 cascades; the composed flow is dropped
+    assert rcn.criterions == ("ncc",) + ("grad_l2",) * 10
+    assert rcn.select_train_outputs(("moved", "flow", "w1", "w2")) == ("moved", "w1", "w2")
     with pytest.raises(ValueError, match="unknown"):
         loss_plan("nope")

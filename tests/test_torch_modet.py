@@ -147,10 +147,8 @@ def test_registry():
     model = build_model("modet-cu", InferConfig(attn_impl="plain"))
     assert model.attn_impl == "auto"
     assert build_model("modet", InferConfig(attn_impl="plain")).attn_impl == "plain"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("pcnet", cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("prnet++", cfg)
+    assert type(build_model("pcnet", cfg, device="meta")).__name__ == "PCNet"
+    assert type(build_model("prnet++", cfg, device="meta")).__name__ == "PRNetPlusPlus"
     assert type(build_model("rdn-diff", InferConfig(stages=1, levels=(1, 1, 1, 1)))).__name__ == "RDN"
     assert type(build_model("im2grid", cfg)).__name__ == "Im2grid"
     bf16 = build_model("modet", InferConfig(compute_dtype="bfloat16"))
