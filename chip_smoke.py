@@ -127,8 +127,37 @@ at 160x192x160, RCN at 128x192x128, each at its reference width and depth):
    plain step on a 64^3 crop finds them, within twice the plain step's
    float32 rounding: `compare_step_grads`), ms per step (median of 3, in
    turns) and peak memory, and a profile of one kernel step for PCNet and
-   PR++. Every plain step fits at the reference's depth (rdn_diff_share's
-   peaks at ~48 GiB), so no depth is cut.
+   PR++. rdn_diff_share runs here at stages 2 (`ZOO_STEP_KNOBS`; its plain
+   step takes ~11 s at stages 4), the others at the reference's depth.
+
+The last TPU kernels and driver paths:
+
+25. The root probe scripts' checks through `smilecode_tpu_torch.probes.main`
+   on the card: all 17 runs of their 14 kernels exact, P1-P4 launched
+   exactly 6, 8, 2 and 1 times; each kernel vs its plain version, exactly,
+   on the scripts' inputs and on the card tests' edge cases (amounts and
+   bounds as int32 tensors on the card under
+   ``torch.cuda.set_sync_debug_mode("error")``, one launch per call); call
+   ms, device ms, the plain version's, the one PyTorch call that computes
+   the same function (`torch.roll`, ``x + 1``, ``x * 2``; for P4 the pair
+   `torch.div` floor and `torch.remainder`) and the bound per kernel.
+26. RDN's MC-dropout uncertainty protocol: `infer.main(model=rdn,
+   dropout_rate=0.3, mc_iter=8)` (stages 4, levels 4,4,4,4) on 2
+   160x192x160 subjects with a seeded, head-perturbed checkpoint, twice
+   with the kernels (the same MC samples and statistics bit for bit) and
+   once plain from the same generator seed (per pair every sample's moved
+   image within 1e-4, epi and err within 1e-3 relative, UCE within 1e-2);
+   exactly 8 x 136 K2 launches per pair, none plain; a
+   forward with the dropout head and no generator equals the dropout-free
+   one bit for bit; ms per MC sample (kernels and plain in turns, median
+   of 5) and the idle share of one kernel sample.
+27. `train.main` (ModeT, f32, 2 steps and 2 validation pairs) and then
+   `infer.main` of its checkpoint with ``dataset=half`` (80x96x80 pairs of
+   the 160x192x160 subjects; K1-K5 at a shape no other phase launches)
+   and ``dataset=atlas`` (each subject to a third subject as the atlas),
+   kernels and plain: phase 8's launches per step and per validation pair
+   and first-loss gate, phase 3's Dice and fold gate; on one half pair,
+   one step's loss and every gradient, kernels vs plain (phase 9's gates).
 
 Every failed check raises, so the exit code is non-zero; without a CUDA card
 it exits non-zero before printing any result. Each phase's seconds and the
@@ -139,7 +168,9 @@ kernel runs of phase 13, then the bf16 K1-K5 with their launches in the
 training run of phase 18, then K3 and K4 as Im2grid's training runs them
 (phase 20's times, the launches of phase 23's Im2grid run) and K2 and K5 at
 the zoo's warp shapes (phase 20's times, the launches of every phase 23
-kernel run); each with its bound (bytes or float32 operations
+kernel run), then P1-P4 (phase 25's times and launches; ``replaces`` the
+first script kernel each serves, ``serves`` all of them); each with its
+bound (bytes or float32 operations
 at the card's published peaks) and, for K2 and K5, the time of
 `F.grid_sample` (forward or backward) on the same inputs, and per distinct
 shape (``ms_by_shape``, ``bound_ms_by_shape``, ``device_ms_by_shape``; for
@@ -242,6 +273,11 @@ STEP_KEYS = ("K1", "K3", "K4", "K2", "K5", "K5 d_src")
 ZOO_SERVED = ("pcnet", "prnet", "prnetplusplus")  # served by phases 21 and 22
 ZOO_STEPS, ZOO_VAL_PAIRS = 2, 2  # train.main on 2 subjects, validated on the same 2
 N_TIMED_ZOO_STEPS = 3
+# phase 24 runs these families at a cut depth, to keep the script within its
+# time budget: rdn_diff_share's plain step takes ~11 s at stages 4 on the
+# H100 (PERF.md §6). Every kernel and shape of its step stays; phase 23
+# trains it at the reference's depth.
+ZOO_STEP_KNOBS = {"rdn_diff_share": {"stages": 2}}
 # kernel F's entries at the baselines' warps: (what, source shape, flow shape, C)
 F_CASES = [("RDN level-0 features", (80, 96, 80), (80, 96, 80), 16),
            ("RDN level-1 features", (40, 48, 40), (40, 48, 40), 32),
@@ -926,9 +962,10 @@ def flow_gap(a, b):
     return float(err.mean()), float(np.percentile(err, 99))
 
 
-def seeded_baseline(name, device, attn_impl="auto"):
+def seeded_baseline(name, device, attn_impl="auto", **knobs):
     """Baseline ``name`` as `build_model` makes it (the reference's depth:
-    RCN 10 cascades, RDN stages 4 and levels (4, 4, 4, 4)) from seed 0, with
+    RCN 10 cascades, RDN stages 4 and levels (4, 4, 4, 4), unless ``knobs``
+    say otherwise; ``dropout_rate`` adds no parameter) from seed 0, with
     the flow heads perturbed from a numpy seed (`BASELINE_HEADS`): their
     N(0, 1e-5) or zero init would leave the flows near identity, where a
     warp bug hides."""
@@ -937,8 +974,8 @@ def seeded_baseline(name, device, attn_impl="auto"):
     from smilecode_tpu_torch.config import InferConfig
     from smilecode_tpu_torch.models.registry import build_model
 
-    model = build_model(name, InferConfig(model=name, attn_impl=attn_impl), device=device,
-                        generator=torch.Generator().manual_seed(0))
+    model = build_model(name, InferConfig(model=name, attn_impl=attn_impl, **knobs),
+                        device=device, generator=torch.Generator().manual_seed(0))
     part, std = BASELINE_HEADS[name]
     rng = np.random.default_rng(9)
     with torch.no_grad():
@@ -1062,9 +1099,10 @@ def vector_counts() -> str:
             f"K5 {warp3d_trilinear_bwd.launches_vector}")
 
 
-def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype="", model="modet"):
-    """train.main of ``model`` for one epoch; returns (best_dsc, exp_dir,
-    step losses, launch counts, seconds)."""
+def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype="", model="modet", **kw):
+    """train.main of ``model`` for one epoch (``kw``: more TrainConfig
+    fields, e.g. ``dataset``); returns (best_dsc, exp_dir, step losses,
+    launch counts, seconds)."""
     import torch
 
     from smilecode_tpu_torch import train
@@ -1072,7 +1110,7 @@ def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype="", mode
 
     cfg = TrainConfig(model=model, train_dir=train_dir, val_dir=val_dir, max_epoch=1,
                       attn_impl=attn_impl, save_root=os.path.join(root, "experiments"),
-                      log_root=os.path.join(root, "logs"), compute_dtype=compute_dtype)
+                      log_root=os.path.join(root, "logs"), compute_dtype=compute_dtype, **kw)
     reset_launch_counts()
     t0 = time.perf_counter()
     best = train.main(cfg)
@@ -1142,7 +1180,7 @@ def compare_step_grads(model, plain, x, y, plan=None, zero=()):
     return float(loss), float(p_loss), max(worst["real"][0], worst["zero"][0])
 
 
-def zero_gradient_params(name, device, plan, x, y):
+def zero_gradient_params(name, device, plan, x, y, knobs=None):
     """The biases of baseline ``name`` whose exact gradient is zero: at most
     ZERO_GRAD_REL of the model's largest in a float64 plain step on the
     leading 64^3 crop of (x, y) (every model takes 64^3). A conv bias ahead
@@ -1152,7 +1190,7 @@ def zero_gradient_params(name, device, plan, x, y):
     vanish at full size."""
     from smilecode_tpu_torch.train import make_loss_and_grads
 
-    model = seeded_baseline(name, device, "plain").train().double()
+    model = seeded_baseline(name, device, "plain", **(knobs or {})).train().double()
     crop = (slice(None), slice(0, 64), slice(0, 64), slice(0, 64))
     make_loss_and_grads(model, plan, (1.0, 1.0))(x[crop].double(), y[crop].double())
     gmax = max(float(p.grad.abs().max()) for p in model.parameters())
@@ -1346,18 +1384,22 @@ def write_jax_checkpoint(model_dir, model):
         pickle.dump(state, f)
 
 
-def run_infer(test_dir, model_dir, attn_impl="auto", model="modet", compute_dtype=""):
-    """infer.main through its config; returns (dsc, fold, launch counts, s)."""
+def run_infer(test_dir, model_dir, attn_impl="auto", model="modet", compute_dtype="",
+              mc_record=None, **kw):
+    """infer.main through its config (``kw``: more InferConfig fields);
+    returns its two results (dsc and fold, or with ``mc_iter`` the mean UCE
+    and epi), the launch counts and the seconds. ``mc_record``: infer.main's
+    list of each pair's MC stack and statistics."""
     import torch
 
     from smilecode_tpu_torch import infer
     from smilecode_tpu_torch.config import InferConfig
 
     cfg = InferConfig(model=model, test_dir=test_dir, model_dir=model_dir, attn_impl=attn_impl,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, **kw)
     reset_launch_counts()
     t0 = time.perf_counter()
-    dsc, fold = infer.main(cfg)
+    dsc, fold = infer.main(cfg, mc_record=mc_record)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     print(f"infer.main {model} ({attn_impl}, {compute_dtype or 'float32'}): {vector_counts()}",
@@ -1365,11 +1407,14 @@ def run_infer(test_dir, model_dir, attn_impl="auto", model="modet", compute_dtyp
     return dsc, fold, launch_counts(), seconds
 
 
-def forward_pair(test_dir, device):
-    from smilecode_tpu_torch.data import Compose, Loader, LPBABrainInferDatasetS2S, NumpyType, Seg_norm
+def forward_pair(test_dir, device, dataset="s2s"):
+    """The first (x, y) pair of ``test_dir`` that infer.main's ``dataset``
+    gives."""
+    from smilecode_tpu_torch.data import Compose, Loader, NumpyType, Seg_norm, pair_dataset
 
     paths = sorted(os.path.join(test_dir, p) for p in os.listdir(test_dir))
-    ds = LPBABrainInferDatasetS2S(paths, Compose([Seg_norm(), NumpyType((np.float32, np.int16))]))
+    ds = pair_dataset(dataset, paths, Compose([Seg_norm(), NumpyType((np.float32, np.int16))]),
+                      True)
     x, y, _, _ = next(iter(Loader(ds, device=device)))
     return x, y
 
@@ -1516,24 +1561,26 @@ def step_baseline(card, name, data_dir, device, profile=False):
     `compare_step_grads`); ms per step (median of N_TIMED_ZOO_STEPS, in
     turns) and peak memory of each; with ``profile``, the top device
     operations of one kernel step. The kernel and plain models keep the
-    reference's depth: the largest plain step, rdn_diff_share's, peaks at
-    ~48 GiB of the card's 80."""
+    reference's depth but for `ZOO_STEP_KNOBS` (rdn_diff_share at stages 2;
+    at stages 4 its plain step peaks at ~48 GiB of the card's 80)."""
     import torch
 
     from smilecode_tpu_torch.config import TrainConfig
     from smilecode_tpu_torch.models.registry import loss_plan
 
+    knobs = ZOO_STEP_KNOBS.get(name, {})
     x, y = forward_pair(data_dir, device)
-    plan = loss_plan(name, TrainConfig(model=name))
-    zero = zero_gradient_params(name, device, plan, x, y)
-    model = seeded_baseline(name, device).train()
-    plain = seeded_baseline(name, device, "plain").train()
+    plan = loss_plan(name, TrainConfig(model=name, **knobs))
+    zero = zero_gradient_params(name, device, plan, x, y, knobs)
+    model = seeded_baseline(name, device, **knobs).train()
+    plain = seeded_baseline(name, device, "plain", **knobs).train()
     loss, p_loss, _ = compare_step_grads(model, plain, x, y, plan, zero)
     require(abs(loss - p_loss) <= STEP_LOSS_TOL * abs(p_loss),
             f"{name} step loss, kernels vs plain: {loss} vs {p_loss}")
     times, peak, steps = time_steps({"kernels": model, "plain": plain}, x, y, plan,
                                     N_TIMED_ZOO_STEPS)
-    print(f"[{card}] {name} {'x'.join(map(str, x.shape[1:4]))} training step, median of "
+    print(f"[{card}] {name}{''.join(f' {k}={v}' for k, v in knobs.items())} "
+          f"{'x'.join(map(str, x.shape[1:4]))} training step, median of "
           f"{N_TIMED_ZOO_STEPS}: " + "; ".join(
               f"{k} {statistics.median(t):.3f} ms (min {min(t):.3f}), peak {peak[k]:.2f} GiB"
               for k, t in times.items()), flush=True)
@@ -1782,6 +1829,316 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
     return res, counts
 
 
+PROBE_LAUNCHES = {"P1": 6, "P2": 8, "P3": 2, "P4": 1}  # per run of the probe scripts' checks
+PROBE_NAMES = {"P1": "probe_roll", "P2": "probe_row_window_sum", "P3": "probe_affine",
+               "P4": "probe_floor_divmod"}
+MC_ITER, MC_DROPOUT, MC_STAGES_K2 = 8, 0.3, 136  # phase 26; K2 per RDN forward (`BASELINES`)
+MC_REL_TOL, MC_UCE_REL_TOL = 1e-3, 1e-2  # kernels vs plain: epi and err, UCE
+
+
+def probe_work(probe, args, out):
+    """(bytes, operations) of one probe call: its X rows that the function
+    needs (P2: the rows its window reads on this run's bounds), its SMEM
+    ints and its output, each moved once; P2's adds (and products when
+    weighted), P3's product and sum per element; P1 and P4 do no float
+    arithmetic (P4's integer operations are negligible at 41 values)."""
+    from smilecode_tpu_torch.probes import Smem
+
+    out_bytes = out.numel() * out.element_size()
+    smem = sum(4 * len(a) for a in probe.args if isinstance(a, Smem))
+    if probe.kernel == "P2":
+        x, n, base, stride, bounds = args[:5]
+        lo, hi = (int(v) for v in (bounds.tolist() if hasattr(bounds, "tolist") else bounds))
+        t = max(hi - lo, 0)
+        rows = {base + stride * u + (0 if probe.kwargs.get("bcast") else r)
+                for u in range(lo, hi) for r in range(n)}
+        rows = {r for r in rows if 0 <= r < x.shape[0]}
+        ops = n * x.shape[1] * t * (2 if probe.kwargs.get("weighted") else 1)
+        return len(rows) * x.shape[1] * 4 + smem + out_bytes, ops
+    x_bytes = args[0].numel() * args[0].element_size() if probe.x else 0  # P4: t is its Smem
+    return x_bytes + smem + out_bytes, 2 * out.numel() if probe.kernel == "P3" else 0
+
+
+def probe_library(probe, args):
+    """The one PyTorch call that computes the probe's function, or None:
+    `torch.roll` (P1), ``x + 1`` / ``x * 2`` (P3). P4's floor division and
+    modulo take two calls (`floor_divmod_pair`); P2 has none."""
+    import torch
+
+    if probe.kernel == "P1":
+        shift = -probe.args[0][0] if isinstance(probe.args[0], tuple) else -probe.args[0]
+        return lambda: torch.roll(args[0], shift, probe.args[1])
+    if probe.kernel == "P3":
+        alpha, beta = probe.args
+        return (lambda: args[0] + beta) if alpha == 1.0 else (lambda: args[0] * alpha)
+    return None
+
+
+def check_probe_edges(device):
+    """P1-P4 vs their plain versions on `probes.EDGE_CASES`, the card tests'
+    edge cases (amounts negative or past the axis, empty windows, rows
+    outside X, both weight modes, t in -20..20), the amounts and bounds as
+    int32 tensors on the card under ``torch.cuda.set_sync_debug_mode
+    ("error")`` (`probes.launch_edge_case`): exact, one launch per call and
+    no sync in a wrapper. Returns the case count."""
+    import torch
+
+    from smilecode_tpu_torch.probes import EDGE_CASES, launch_edge_case
+
+    for case in EDGE_CASES:
+        out = launch_edge_case(case, device)
+        require(out.shape == case.want.shape and torch.equal(out, case.want),
+                f"{case.kernel} edge case {case.id}: kernel differs from the plain version")
+    return len(EDGE_CASES)
+
+
+def run_probe_phase(card, device):
+    """Phase 25: `probes.main` on the card (every probe run exact, P1-P4
+    launched exactly `PROBE_LAUNCHES` times), then each kernel against its
+    plain version on the card, on the scripts' inputs and the edge cases,
+    with call ms, device ms, the plain version's, the library call's and
+    the bound per kernel (means per call over the scripts' runs). Returns
+    {kernel: record}."""
+    import torch
+
+    from smilecode_tpu_torch import probes
+    from smilecode_tpu_torch.kernels import probes as kp
+
+    for fn in kp.KERNELS.values():
+        fn.launches = 0
+    results = probes.main(device="cuda")
+    counts = {k: fn.launches for k, fn in kp.KERNELS.items()}
+    print(f"probes.main on the card: {len(results)} runs, launches {counts}", flush=True)
+    require(len(results) == len(probes.PROBES) and all(err == 0 for _, _, err in results),
+            f"probe errors {results}")
+    require(counts == PROBE_LAUNCHES, f"probe launches {counts}, expected {PROBE_LAUNCHES}")
+    n_edge = check_probe_edges(device)
+
+    recs = {}
+    for kernel in PROBE_LAUNCHES:
+        runs = [p for p in probes.PROBES if p.kernel == kernel]
+        r = {"err": 0.0, "ms": [], "device_ms": [], "plain_ms": [], "library_ms": [], "work": [],
+             "serves": sorted({p.where for p in runs}, key=[p.where for p in runs].index)}
+        for p in runs:
+            args = probes.probe_args(p, device)
+            out = kp.KERNELS[kernel](*args, **p.kwargs)
+            ref = kp.PLAIN[kernel](*args, **p.kwargs)
+            r["err"] = max(r["err"], float((out.double() - ref.double()).abs().max()))
+            require(torch.equal(out, ref), f"{p.name}: kernel differs from the plain version")
+            call = lambda: kp.KERNELS[kernel](*args, **p.kwargs)  # noqa: E731
+            r["ms"].append(event_ms(call, 200, warmup=5))
+            r["device_ms"].append(device_ms(call, 200))
+            r["plain_ms"].append(event_ms(lambda: kp.PLAIN[kernel](*args, **p.kwargs), 20))
+            lib = probe_library(p, args)
+            if lib is not None:
+                r["library_ms"].append(event_ms(lib, 200, warmup=5))
+            r["work"].append(probe_work(p, args, out))
+        if kernel == "P4":  # floor division and modulo: two PyTorch calls
+            t, m = probes.probe_args(runs[0], device)
+            r["library_pair_ms"] = event_ms(
+                lambda: (torch.div(t, m, rounding_mode="floor") * m, torch.remainder(t, m)), 200, 5)
+        rec = {k: float(np.mean(v)) for k, v in r.items() if k in ("ms", "device_ms", "plain_ms")}
+        rec.update(err=r["err"], work=tuple(np.mean(r["work"], axis=0)), serves=r["serves"],
+                   library_ms=float(np.mean(r["library_ms"])) if r["library_ms"] else None,
+                   library_pair_ms=r.get("library_pair_ms"), launches=counts[kernel])
+        bound_ms, by = bound(*rec["work"])
+        lib = ("none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}") + (
+            "" if rec["library_pair_ms"] is None
+            else f" (torch.div floor + torch.remainder {rec['library_pair_ms']:.4f})")
+        print(f"[{card}] {kernel} {PROBE_NAMES[kernel]} over its {len(runs)} probe runs "
+              f"({', '.join(r['serves'])}), per call: {rec['ms']:.4f} ms, device "
+              f"{rec['device_ms']:.4f} (plain {rec['plain_ms']:.4f}, library {lib}); bound "
+              f"{bound_ms:.6f} ms ({by}): launch-bound; max_abs_err {rec['err']:.1e}", flush=True)
+        recs[kernel] = rec
+    print(f"P1-P4 vs plain on {n_edge} edge cases: exact, one launch each, no host sync",
+          flush=True)
+    return recs
+
+
+def run_mc_phase(card, device, tmp, data_dir):
+    """Phase 26: RDN's MC-dropout uncertainty protocol through `infer.main`
+    (rdn, stages 4, levels 4,4,4,4, dropout_rate MC_DROPOUT, MC_ITER
+    samples) on the 2 subjects of ``data_dir`` (2 ordered pairs) with a
+    seeded, head-perturbed JAX-format checkpoint: twice with the kernels
+    (bit for bit the same MC samples and statistics), once plain, whose
+    masks are the same draws of the generator seeded 24 (every sample's
+    moved image within MOVED_TOL, phase 14's gate; epi and err within
+    MC_REL_TOL, UCE within MC_UCE_REL_TOL, per pair); exactly MC_ITER x
+    MC_STAGES_K2 K2 launches per pair, none plain; a forward with the dropout head but no
+    generator equals the dropout-free forward, bit for bit. Then ms per MC
+    sample, kernels and plain in turns, and the idle share of one kernel
+    sample. Returns the kernel run's launch counts."""
+    import torch
+
+    model_dir = os.path.join(tmp, "exp_rdn_mc")
+    write_jax_checkpoint(model_dir, seeded_baseline("rdn", device))
+    n_pairs = N_VAL_SUBJECTS * (N_VAL_SUBJECTS - 1)
+    runs = {}
+    for what, impl in (("kernels", "auto"), ("kernels again", "auto"), ("plain", "plain")):
+        record = []
+        uce, epi, counts, secs = run_infer(data_dir, model_dir, attn_impl=impl, model="rdn",
+                                           mc_record=record, dropout_rate=MC_DROPOUT,
+                                           mc_iter=MC_ITER)
+        runs[what] = (uce, epi, counts, record)
+        print(f"MC uncertainty rdn ({what}): {n_pairs} pairs x {MC_ITER} samples in "
+              f"{secs:.2f} s, mean UCE {uce:.6f}, mean epi {epi:.6e}, K2 launches "
+              f"{counts['K2']}", flush=True)
+    k_counts = runs["kernels"][2]
+    want = dict.fromkeys(k_counts, 0)
+    want["K2"] = MC_ITER * MC_STAGES_K2 * n_pairs
+    require(k_counts == want, f"MC launches {k_counts}, expected {want}")
+    require(not any(runs["plain"][2].values()), "the plain MC run launched a kernel")
+    require(all(len(runs[w][3]) == n_pairs for w in runs), "MC: pairs recorded per run")
+    for i, (k, again, p) in enumerate(zip(*(runs[w][3] for w in ("kernels", "kernels again",
+                                                                  "plain")))):
+        (k_preds, k), (a_preds, again), (p_preds, p) = k, again, p
+        require(np.array_equal(k_preds, a_preds) and all(np.array_equal(a, b)
+                                                         for a, b in zip(k, again)),
+                f"MC pair {i}: the repeated kernel run differs")
+        require(k_preds.shape == p_preds.shape == (MC_ITER, 1, *SIZE, 1)
+                and bool(np.isfinite(k_preds).all()), f"MC pair {i}: stack {k_preds.shape}")
+        moved = np.abs(k_preds - p_preds).reshape(MC_ITER, -1)
+        moved_max, moved_p99 = float(moved.max()), float(np.percentile(moved, 99))
+        rel = {name: abs(float(np.mean(k[j])) - float(np.mean(p[j]))) / abs(float(np.mean(p[j])))
+               for j, name in ((1, "epi"), (3, "err"))}
+        rel["uce"] = abs(k[4] - p[4]) / abs(p[4])
+        print(f"MC pair {i}: moved images, kernels vs plain over the {MC_ITER} samples: max abs "
+              f"diff {moved_max:.3e} (worst sample {int(moved.max(axis=1).argmax())}), p99 "
+              f"{moved_p99:.3e}; epi {float(np.mean(k[1])):.6e} vs plain "
+              f"{float(np.mean(p[1])):.6e}, err {float(np.mean(k[3])):.6e} vs "
+              f"{float(np.mean(p[3])):.6e}, UCE {k[4]:.6e} vs {p[4]:.6e}; relative differences "
+              f"epi {rel['epi']:.3e}, err {rel['err']:.3e}, UCE {rel['uce']:.3e}; repeated kernel "
+              f"run: bit for bit", flush=True)
+        require(np.isfinite(k[4]) and float(np.mean(k[1])) > 0, f"MC pair {i}: epi or UCE")
+        require(moved_max <= MOVED_TOL, f"MC pair {i}: moved diff {moved_max} > {MOVED_TOL}")
+        require(rel["epi"] <= MC_REL_TOL and rel["err"] <= MC_REL_TOL
+                and rel["uce"] <= MC_UCE_REL_TOL, f"MC pair {i}: kernels vs plain {rel}")
+    del runs
+
+    x, y = forward_pair(data_dir, device)
+    models = {"kernels": seeded_baseline("rdn", device, dropout_rate=MC_DROPOUT),
+              "plain": seeded_baseline("rdn", device, "plain", dropout_rate=MC_DROPOUT)}
+    with torch.no_grad():
+        off = seeded_baseline("rdn", device)(x, y)
+        no_gen = models["kernels"](x, y)
+    require(all(torch.equal(a, b) for a, b in zip(off, no_gen)),
+            "RDN with a dropout head and no generator differs from the dropout-free forward")
+    del off, no_gen
+    gens = {k: torch.Generator(device=device).manual_seed(24) for k in models}
+    samples = {k: (lambda m, g: lambda a, b: m(a, b, generator=g))(m, gens[k])
+               for k, m in models.items()}
+    times, peak = time_forwards(samples, x, y, N_TIMED_BASELINE)
+    print(f"[{card}] rdn MC sample (dropout {MC_DROPOUT}, {'x'.join(map(str, SIZE))}), median of "
+          f"{N_TIMED_BASELINE}: " + "; ".join(
+              f"{k} {statistics.median(t):.3f} ms (min {min(t):.3f}), peak {peak[k]:.2f} GiB"
+              for k, t in times.items()), flush=True)
+    with torch.no_grad():
+        profile_step(samples["kernels"], x, y, top=6, what="rdn MC sample (kernels)")
+    del models, samples, x, y
+    torch.cuda.empty_cache()
+    return k_counts
+
+
+def modet_train_launches(n_steps, n_val):
+    want = {"K1": 5 * (n_steps + n_val), "K2": 9 * (n_steps + n_val), "K3": 5 * n_steps,
+            "K4": 5 * n_steps, "K5": 9 * n_steps, "K5 d_src": 8 * n_steps}
+    want.update({f"{k} bf16": 0 for k in want})
+    return want
+
+
+def step_times(root, exp_dir):
+    """The ms per step that `train.main` logged under ``root`` (its
+    ``metrics.jsonl``, beside the checkpoints of ``exp_dir``)."""
+    save_dir = os.path.basename(os.path.normpath(exp_dir))
+    with open(os.path.join(root, "logs", save_dir, "metrics.jsonl")) as f:
+        return [round(json.loads(line)["step_ms"], 3) for line in f if '"iter"' in line]
+
+
+def run_dataset_phase(card, device, tmp, data_dir):
+    """Phase 27: `train.main` (ModeT, f32) for 2 steps and its validation,
+    then `infer.main` of the trained checkpoint, with ``dataset=half`` (the
+    2 subjects of ``data_dir`` at stride 2: 80x96x80 pairs) and
+    ``dataset=atlas`` (each subject to a third 160x192x160 subject as the
+    atlas), kernels and plain: exact launches (phase 8's per step and per
+    validation pair), the plain runs launch nothing, first losses within
+    STEP_LOSS_TOL (phase 8's gate), Dice and fold within 1e-3 (phase 3's);
+    for ``half``, also the loss and every gradient of one step on a half
+    pair, kernels vs plain (`half_step`, phase 9's gates). Returns the launch counts of the kernel runs, summed."""
+    import torch
+
+    atlas_dir = os.path.join(tmp, "Atlas")
+    os.makedirs(atlas_dir)
+    write_subjects(atlas_dir, size=SIZE, device=device, n=1, seed=27)
+    atlas = os.path.join(atlas_dir, "subject_00.pkl")
+    total = None
+    for dataset, shape in (("half", tuple(s // 2 for s in SIZE)), ("atlas", SIZE)):
+        kw = {"dataset": dataset, "atlas_path": atlas}
+        n_steps = n_val = N_VAL_SUBJECTS * (N_VAL_SUBJECTS - 1) if dataset == "half" \
+            else N_VAL_SUBJECTS
+        root = os.path.join(tmp, f"train_{dataset}")
+        best, exp_dir, losses, counts, secs = run_train(data_dir, data_dir,
+                                                        os.path.join(root, "kernels"), **kw)
+        print(f"train {dataset} {'x'.join(map(str, shape))} (kernels): {n_steps} steps + {n_val} "
+              f"validation pairs in {secs:.2f} s, losses {losses}, best dsc {best:.6f}, "
+              f"launches {counts}", flush=True)
+        require(len(losses) == n_steps and bool(np.isfinite(losses).all()),
+                f"{dataset}: losses {losses}")
+        want = modet_train_launches(n_steps, n_val)
+        require(counts == want, f"{dataset}: train launches {counts}, expected {want}")
+        _, _, p_losses, p_counts, p_secs = run_train(data_dir, data_dir,
+                                                     os.path.join(root, "plain"),
+                                                     attn_impl="plain", **kw)
+        step_ms = {impl: step_times(os.path.join(root, impl), exp_dir)
+                   for impl in ("kernels", "plain")}
+        print(f"train {dataset} (plain): {p_secs:.2f} s, losses {p_losses}; ms per step (host "
+              f"clock, the first with warm-up): kernels {step_ms['kernels']}, plain "
+              f"{step_ms['plain']}", flush=True)
+        require(not any(p_counts.values()), f"{dataset}: the plain training run launched a kernel")
+        require(abs(losses[0] - p_losses[0]) <= STEP_LOSS_TOL * abs(p_losses[0]),
+                f"{dataset}: first step loss, kernels vs plain: {losses[0]} vs {p_losses[0]}")
+        dsc, fold, i_counts, i_secs = run_infer(data_dir, exp_dir, **kw)
+        p_dsc, p_fold, ip_counts, _ = run_infer(data_dir, exp_dir, attn_impl="plain", **kw)
+        print(f"infer {dataset} of the trained checkpoint: {n_val} pairs in {i_secs:.2f} s, "
+              f"dsc {dsc:.6f} (plain {p_dsc:.6f}), fold {fold:.6f} (plain {p_fold:.6f}), "
+              f"K1 {i_counts['K1']}, K2 {i_counts['K2']} launches", flush=True)
+        require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0 and np.isfinite(fold) and 0 <= fold <= 1,
+                f"{dataset}: dsc {dsc}, fold {fold}")
+        require(i_counts == {**dict.fromkeys(i_counts, 0), "K1": 5 * n_val, "K2": 9 * n_val},
+                f"{dataset}: infer launches {i_counts}")
+        require(not any(ip_counts.values()), f"{dataset}: the plain infer run launched a kernel")
+        require(abs(dsc - p_dsc) <= 1e-3 and abs(fold - p_fold) <= 1e-3,
+                f"{dataset}: kernels vs plain infer: dsc {dsc} vs {p_dsc}, fold {fold} vs {p_fold}")
+        for c in (counts, i_counts):
+            total = c if total is None else {k: v + c[k] for k, v in total.items()}
+        if dataset == "half":
+            half_step(device, data_dir, shape)
+        torch.cuda.empty_cache()
+    return total
+
+
+def half_step(device, data_dir, shape):
+    """Phase 27's gradient gate at the half shapes: one loss-and-gradients
+    pass of the seeded ModeT, kernels vs plain, on the first ``dataset=half``
+    pair of ``data_dir`` (phase 9's gates, `compare_step_grads`), K1-K5 at
+    the five levels 80x96x80 .. 5x6x5, which no other phase launches; the
+    kernel pass launches each kernel exactly as one training step does."""
+    import torch
+
+    x, y = forward_pair(data_dir, device, "half")
+    require(tuple(x.shape) == (1, *shape, 1), f"half pair {tuple(x.shape)}")
+    model, plain = seeded_model(device), seeded_model(device, attn_impl="plain")
+    reset_launch_counts()
+    loss, p_loss, _ = compare_step_grads(model, plain, x, y)
+    counts = launch_counts()
+    want = modet_train_launches(1, 0)
+    print(f"half step {'x'.join(map(str, shape))}: launches {counts}", flush=True)
+    require(counts == want, f"half step launches {counts}, expected {want}")
+    require(abs(loss - p_loss) <= STEP_LOSS_TOL * abs(p_loss),
+            f"half step loss, kernels vs plain: {loss} vs {p_loss}")
+    del model, plain, x, y
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1946,6 +2303,13 @@ def main() -> int:
         bf16, bf16_train_counts = run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer)
         zoo_warps, zoo_bwd, zoo_counts, im2grid_counts = run_zoo_phases(card, device, tmp, val_dir)
 
+        phase(25, "P1-P4: the probe scripts' checks on the card, each kernel vs plain")
+        probe_recs = run_probe_phase(card, device)
+        phase(26, "RDN's MC-dropout uncertainty protocol through infer.main")
+        run_mc_phase(card, device, tmp, val_dir)
+        phase(27, "train.main and infer.main with dataset=half and dataset=atlas")
+        run_dataset_phase(card, device, tmp, val_dir)
+
     def entry(name, source, line, key, err, ms, plain_ms, work, library_ms=None, counts=None,
               by_shape=None, device=None):
         bound_ms, bound_by = bound(*work)
@@ -1978,6 +2342,19 @@ def main() -> int:
         return entry(name, source, line, key, r["err"], r["ms"], r["plain_ms"], tuple(r["work"]),
                      r["library_ms"], zoo_counts, r["by_shape"])
 
+    def probe_entry(kernel, r):
+        """P1-P4: ms per call over the scripts' runs; they replace the root
+        probe scripts' kernels (``serves``), not the package's."""
+        bound_ms, bound_by = bound(*r["work"])
+        rec = {"name": f"{PROBE_NAMES[kernel]} ({kernel})", "route": "cuda",
+               "source": "smilecode_tpu_torch/csrc/probes.cu", "replaces": r["serves"][0],
+               "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": r["library_ms"], "device_ms": r["device_ms"], "serves": r["serves"]}
+        if r["library_pair_ms"] is not None:
+            rec["library_pair_ms"] = r["library_pair_ms"]
+        return rec
+
     record = {"kernels": [
         entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1", k1_err, k1_ms,
               k1_plain_ms, k1_work, by_shape=k1_shapes, device=k1_dev),
@@ -2005,6 +2382,7 @@ def main() -> int:
                   "warp3d.cu", "warp3d.py:52", "K2"),
         zoo_entry("warp3d_trilinear_bwd (baseline zoo: phase 20 shapes, phase 23 training)",
                   "warp3d_bwd.cu", "warp3d_v4.py:339", "K5"),
+        *(probe_entry(kernel, r) for kernel, r in probe_recs.items()),
     ]}
     print(f"phase seconds: {phase_times(t_start)}")
     print(card_line())

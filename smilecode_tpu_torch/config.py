@@ -2,14 +2,15 @@
 
 `TrainConfig`, `InferConfig` and `apply_cli_overrides` are copied from
 `smilecode_tpu/config.py` (the JAX package cannot be imported without jax).
-Left out: the JAX-only `fast_path` knob (planes-layout TPU decoder),
+Left out: the JAX-only `fast_path` knob (planes-layout TPU decoder) and
 `img_size` (the JAX package needs it to build a parameter template; the port
-does not) and `atlas_path` (the atlas dataset is not ported). Both configs
-carry the baselines' structural knobs (RCN's ``n_cascade``, RDN's ``stages``
-and ``levels``, RDN's ``dropout_rate``). `check_train_config` raises
-`NotImplementedError` for the training knobs whose paths are not ported
-yet. Added: ``device`` (both configs), where `train.main` and `infer.main`
-run: "cuda" (the default; they raise without a card) or "cpu".
+does not). Both configs carry the dataset variant (``dataset`` s2s, half or
+atlas, with ``atlas_path``) and the baselines' structural knobs (RCN's
+``n_cascade``, RDN's ``stages``, ``levels`` and MC-dropout
+``dropout_rate``). `check_train_config` raises `NotImplementedError` for
+the training knobs whose paths are not ported yet (multi-GPU). Added:
+``device`` (both configs), where `train.main` and `infer.main` run: "cuda"
+(the default; they raise without a card) or "cpu".
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ class TrainConfig:
     attn_impl: str = "auto"
     # "" = float32; "bfloat16" runs ModeT's feature path in bf16
     compute_dtype: str = ""
-    dataset: str = "s2s"  # s2s (half | atlas are not ported yet)
+    # dataset variant: "s2s" (all ordered pairs), "half" (stride-2
+    # downsampled pairs), "atlas" (register every subject to one atlas)
+    dataset: str = "s2s"
+    atlas_path: str = ""
     # "cuda" runs on the card and raises without one; "cpu" asks for the CPU
     device: str = "cuda"
     # data-parallel devices and D-axis shards (only 1 is ported)
@@ -57,7 +61,8 @@ class TrainConfig:
     # (the reference's stages=4, levels=[4,4,4,4])
     stages: int = 4
     levels: Sequence[int] = (4, 4, 4, 4)
-    # RDN MC-dropout rate for the uncertainty protocol (only 0 is ported)
+    # RDN MC-dropout rate for the uncertainty protocol (0 = off; training
+    # never drops: `models/rdn.py:Estimator`)
     dropout_rate: float = 0.0
 
     @property
@@ -78,15 +83,9 @@ def check_train_config(cfg: TrainConfig) -> None:
     if cfg.dp != 1 or cfg.spatial != 1:
         raise NotImplementedError(f"dp={cfg.dp}, spatial={cfg.spatial}: multi-GPU training is "
                                   "not ported yet (ROADMAP.md queue 1, item 10)")
-    if cfg.dataset != "s2s":
-        raise NotImplementedError(f"dataset={cfg.dataset!r} is not ported yet "
-                                  "(ROADMAP.md queue 1, item 5)")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                          f"got {cfg.compute_dtype!r}")
-    if cfg.dropout_rate > 0:
-        raise NotImplementedError(f"dropout_rate={cfg.dropout_rate}: the MC-dropout Estimator is "
-                                  "not ported yet (ROADMAP.md queue 1, item 9a: MC uncertainty)")
 
 
 @dataclasses.dataclass
@@ -105,19 +104,20 @@ class InferConfig:
     # "" = float32; "bfloat16" runs ModeT's feature path in bf16 (other
     # models: float32 only)
     compute_dtype: str = ""
-    dataset: str = "s2s"  # s2s (half | atlas are not ported yet)
+    dataset: str = "s2s"  # s2s | half | atlas
+    atlas_path: str = ""
     # "cuda" runs on the card and raises without one; "cpu" asks for the CPU
     device: str = "cuda"
     # load a reference PyTorch .pth.tar instead of a JAX-format checkpoint
     torch_checkpoint: str = ""
     # structural knobs of the baselines (must match the checkpoint): RCN
     # cascade depth, RDN stage and per-level recursions, RDN MC-dropout rate
-    # (only 0 is ported)
     n_cascade: int = 10
     stages: int = 4
     levels: Sequence[int] = (4, 4, 4, 4)
     dropout_rate: float = 0.0
-    # MC-dropout uncertainty protocol (not ported yet)
+    # MC-dropout uncertainty protocol (`RDN/utils.py:377-504`): mc_iter > 0
+    # runs mc_iter stochastic forwards per pair (requires dropout_rate > 0)
     mc_iter: int = 0
 
 

@@ -12,11 +12,18 @@ matmuls, for parity with the JAX package; ModeT takes
 
 Models: modet (modet-cu), im2grid, pcnet, prnet, prnetplusplus (prnet++,
 prpp), vtn, rcn, rdn, rdn_share, rdn_diff, rdn_diff_share
-(`models/registry.py`).
+(`models/registry.py`). Pairs: all ordered pairs of ``test_dir``'s
+subjects (``dataset=s2s``, and any other name, as the JAX driver), the
+same at stride 2 (``dataset=half``), or each subject to the atlas at
+``atlas_path`` (``dataset=atlas``).
+
+With ``mc_iter > 0`` (RDN with ``dropout_rate > 0``) it runs the
+MC-dropout uncertainty protocol instead (`run_mc_uncertainty`).
 
 Usage: python -m smilecode_tpu_torch.infer test_dir=/data/Test model_dir=experiments/<run>
        [model=rdn stages=4 levels=4,4,4,4] [torch_checkpoint=/path/dsc0.xxx.pth.tar]
-       [compute_dtype=bfloat16] [device=cpu]
+       [compute_dtype=bfloat16] [dataset=half | dataset=atlas atlas_path=/data/atlas.pkl]
+       [model=rdn dropout_rate=0.3 mc_iter=25] [device=cpu]
 """
 
 from __future__ import annotations
@@ -30,8 +37,15 @@ import torch
 
 from smilecode_tpu_torch.config import InferConfig, apply_cli_overrides
 from smilecode_tpu_torch.convert import load_torch_checkpoint, state_dict_from_jax
-from smilecode_tpu_torch.data import Compose, Loader, LPBABrainInferDatasetS2S, NumpyType, Seg_norm
+from smilecode_tpu_torch.data import (
+    Compose,
+    Loader,
+    NumpyType,
+    Seg_norm,
+    pair_dataset,
+)
 from smilecode_tpu_torch.metrics import dice_val_voi, fold_fraction
+from smilecode_tpu_torch.metrics_ext import get_mc_preds, uceloss, uncert_regression_gal
 from smilecode_tpu_torch.models.registry import build_model
 from smilecode_tpu_torch.ops.warp import warp
 from smilecode_tpu_torch.utils import AverageMeter, latest_checkpoint, load_checkpoint, resolve_device
@@ -68,13 +82,70 @@ def load_weights(model, cfg: InferConfig):
     return model
 
 
-def main(cfg: InferConfig):
-    if cfg.mc_iter > 0:
-        raise NotImplementedError("mc_iter > 0: the MC-uncertainty protocol is not ported yet "
-                                  "(ROADMAP.md queue 1, item 9a)")
-    if cfg.dataset != "s2s":
-        raise NotImplementedError(f"dataset={cfg.dataset!r} is not ported yet "
-                                  "(ROADMAP.md queue 1, item 5)")
+def mc_pair_stats(preds: np.ndarray, y: np.ndarray):
+    """The MC statistics of one pair (`smilecode_tpu/infer.py:112-122`), on
+    the host: ``preds`` (N, B, D, H, W, C) float32 MC samples of the moved
+    image, ``y`` the fixed image. Gal's decomposition when the samples carry
+    an aleatoric channel (C > 1); else ale 0 and epi the unbiased variance
+    over samples. Returns (ale, epi, uncert, err) arrays and the UCE."""
+    if preds.shape[-1] > 1:
+        ale, epi, uncert = uncert_regression_gal(preds, reduction=None)
+        pred_mean = preds[..., :-1].mean(axis=0)
+    else:
+        ale = np.zeros_like(preds[0])
+        epi = preds.var(axis=0, ddof=1).mean(axis=-1, keepdims=True)
+        uncert = ale + epi
+        pred_mean = preds.mean(axis=0)
+    err = (pred_mean[..., : uncert.shape[-1]] - y) ** 2
+    uce, _, _, _ = uceloss(err, uncert)
+    return ale, epi, uncert, err, uce
+
+
+def run_mc_uncertainty(model, loader, cfg: InferConfig, device: torch.device, record=None):
+    """MC-dropout uncertainty protocol (`smilecode_tpu/infer.py:
+    run_mc_uncertainty`, `RDN/utils.py:377-504`): ``cfg.mc_iter`` stochastic
+    forwards per pair, their dropout masks drawn from one
+    ``torch.Generator`` on ``device`` seeded 24 (one stream across all
+    pairs, the counterpart of JAX's ``PRNGKey(24)``), then `mc_pair_stats`
+    on the moved images. Prints per pair and the means; returns (mean UCE,
+    mean epi). A list passed as ``record`` gets, per pair, the stack of MC
+    samples and its `mc_pair_stats`.
+
+    The moved image has one channel, so the aleatoric term is zero and the
+    uncertainty is the epistemic MC variance alone, as in the JAX package.
+    """
+
+    def apply_fn(moving, fixed, generator):
+        return model(moving, fixed, generator=generator)[:2]
+
+    meters = {k: AverageMeter() for k in ("ale", "epi", "uncert", "uce", "err")}
+    generator = torch.Generator(device=device).manual_seed(24)
+    for i, batch in enumerate(loader):
+        x, y = batch[0], batch[1]
+        img_list, _ = get_mc_preds(apply_fn, x, y, mc_iter=cfg.mc_iter, generator=generator)
+        preds = np.stack(img_list, axis=0)
+        ale, epi, uncert, err, uce = mc_pair_stats(preds, y.cpu().numpy())
+        if record is not None:
+            record.append((preds, (ale, epi, uncert, err, uce)))
+        means = {"ale": float(np.mean(ale)), "epi": float(np.mean(epi)),
+                 "uncert": float(np.mean(uncert)), "err": float(np.mean(err)), "uce": uce}
+        for k, v in means.items():
+            meters[k].update(v)
+        print("pair {}: ale {:.6f}, epi {:.6f}, uncert {:.6f}, err {:.6f}, UCE {:.6f}".format(
+            i, means["ale"], means["epi"], means["uncert"], means["err"], uce))
+    print("MC uncertainty ({} samples): ale {:.6f} +- {:.6f}, epi {:.6f} +- {:.6f}, "
+          "UCE {:.6f} +- {:.6f}".format(
+              cfg.mc_iter, meters["ale"].avg, meters["ale"].std, meters["epi"].avg,
+              meters["epi"].std, meters["uce"].avg, meters["uce"].std))
+    return meters["uce"].avg, meters["epi"].avg
+
+
+def main(cfg: InferConfig, mc_record=None):
+    """The protocol above; ``mc_record`` is `run_mc_uncertainty`'s
+    ``record``."""
+    if cfg.mc_iter > 0 and cfg.dropout_rate <= 0:
+        raise SystemExit("mc_iter > 0 requires dropout_rate > 0 "
+                         "(a deterministic net has zero MC variance)")
     device = resolve_device(cfg.device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -82,8 +153,10 @@ def main(cfg: InferConfig):
 
     test_composed = Compose([Seg_norm(), NumpyType((np.float32, np.int16))])
     test_paths = sorted(glob.glob(os.path.join(cfg.test_dir, "*.pkl")))
-    test_set = LPBABrainInferDatasetS2S(test_paths, transforms=test_composed)
+    test_set = pair_dataset(cfg.dataset, test_paths, test_composed, True, cfg.atlas_path)
     loader = Loader(test_set, batch_size=1, device=device)
+    if cfg.mc_iter > 0:
+        return run_mc_uncertainty(model, loader, cfg, device, record=mc_record)
     step = make_infer_step(model)
 
     eval_dsc_def = AverageMeter()

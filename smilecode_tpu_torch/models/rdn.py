@@ -13,8 +13,10 @@ Estimator set for all stages, ``est{level}``, vs one per stage,
 ``est{level}_{stage}``) and ``diff`` (each increment is integrated by
 `vecint` before composing, and the stationary-velocity composition ``sv``
 of each stage is returned in place of its flow). ``return_aux`` emits the
-per-stage fields (training) or just (moved, flow). The MC-dropout head of
-the JAX package (``dropout_rate > 0``) is not ported.
+per-stage fields (training) or just (moved, flow). ``dropout_rate > 0``
+adds the JAX package's MC-dropout head to every Estimator, live only in a
+forward that is given a ``generator`` (the MC-uncertainty protocol,
+`infer.run_mc_uncertainty`).
 
 Kernels: every bilinear warp, `vecint`'s included, reaches K2 through
 ``ops.warp(impl="guarded")``, the counterpart of kernel F's entry. Per
@@ -71,18 +73,42 @@ class RDNEncoder(nn.Module):
         return out0, out1, out2, out3
 
 
-class Estimator(nn.Module):
-    """concat(fixed, moving features) -> 3 convs -> LeakyReLU(0.1) -> flow conv."""
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: keep each value with
+    probability 1 - rate and divide it by 1 - rate, else 0; the keep mask
+    is drawn from ``generator`` (on ``x``'s device)."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, channels: int):
+
+class Estimator(nn.Module):
+    """concat(fixed, moving features) -> 3 convs -> LeakyReLU(0.1) ->
+    [dropout] -> flow conv.
+
+    With ``dropout_rate > 0`` the MC-dropout head of
+    `smilecode_tpu/models/rdn.py:Estimator` sits after the activation and
+    before the flow conv. It drops only in a forward given a ``generator``,
+    as the JAX head drops only when a "dropout" rng is passed; it is not
+    tied to ``.train()``, so `train.main` (which passes none, as the JAX
+    driver passes no dropout rng) trains deterministically whatever the
+    rate.
+    """
+
+    def __init__(self, channels: int, dropout_rate: float = 0.0):
         super().__init__()
         c = channels
+        self.dropout_rate = dropout_rate
         self.conv = nn.Sequential(nn.Conv3d(c, c, 3, 1, 1), nn.Conv3d(c, c, 3, 1, 1),
                                   nn.Conv3d(c, c, 3, 1, 1), nn.LeakyReLU(0.1),
                                   nn.Conv3d(c, 3, 3, 1, 1))
 
-    def forward(self, fixed_fm, float_fm):
-        return conv3d_ndhwc(self.conv, torch.cat([fixed_fm, float_fm], -1))
+    def forward(self, fixed_fm, float_fm, generator: torch.Generator | None = None):
+        x = torch.cat([fixed_fm, float_fm], -1)
+        if generator is None or self.dropout_rate <= 0:
+            return conv3d_ndhwc(self.conv, x)
+        h = dropout(conv3d_ndhwc(self.conv[:4], x), self.dropout_rate, generator)
+        return conv3d_ndhwc(self.conv[4], h)
 
 
 def _scaled_downsample(flow, factor: float):
@@ -99,7 +125,8 @@ class RDN(nn.Module):
     attn_impl: "auto" sends every bilinear warp through the Hopper kernel
     wrapper (K2 for CUDA tensors, the plain version for CPU tensors);
     "plain" forces the plain version. Weights are drawn on the CPU from
-    ``generator`` (`ops/blocks.py`).
+    ``generator`` (`ops/blocks.py`). ``dropout_rate``: the Estimators'
+    MC-dropout rate, live only in ``forward(moving, fixed, generator=g)``.
     """
 
     def __init__(self, channels: int = 16, stages: int = 1,
@@ -108,10 +135,6 @@ class RDN(nn.Module):
                  attn_impl: str = "auto", device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if dropout_rate > 0:
-            raise NotImplementedError(
-                f"dropout_rate={dropout_rate}: the MC-dropout Estimator is not ported yet "
-                "(ROADMAP.md queue 1, item 9a: MC uncertainty)")
         self.warp_impl = baseline_warp_impl(attn_impl)
         self.stages, self.levels = stages, tuple(levels)
         self.share_weights, self.diff, self.return_aux = share_weights, diff, return_aux
@@ -121,7 +144,7 @@ class RDN(nn.Module):
             for level in range(4):
                 est_ch = 2 * c * 2 ** level  # concat of fixed and moving features
                 for stage in range(1 if share_weights else stages):
-                    setattr(self, self._est_name(level, stage), Estimator(est_ch))
+                    setattr(self, self._est_name(level, stage), Estimator(est_ch, dropout_rate))
         self.to_empty(device=device or "cpu")
         self.reset_parameters(generator)
         channels_last_convs_(self)
@@ -144,7 +167,10 @@ class RDN(nn.Module):
     def _vecint(self, vec):
         return vecint(vec, VECINT_STEPS, impl=self.warp_impl)
 
-    def forward(self, moving, fixed):
+    def forward(self, moving, fixed, generator: torch.Generator | None = None):
+        """``generator``: draws the Estimators' dropout masks, in the order
+        of their calls (MC dropout); None, or ``dropout_rate`` 0, runs the
+        deterministic forward."""
         f0m, f1m, f2m, f3m = self.encoder(moving)
         f0f, f1f, f2f, f3f = self.encoder(fixed)
 
@@ -164,11 +190,11 @@ class RDN(nn.Module):
             # level 4 (1/16)
             for j in range(self.levels[3]):
                 if j == 0:
-                    w = est[3](f3f, fm3)
+                    w = est[3](f3f, fm3, generator)
                     sv = w if self.diff else None
                     sflow = self._vecint(w) if self.diff else w
                 else:
-                    w = est[3](f3f, self._warp(fm3, sflow))
+                    w = est[3](f3f, self._warp(fm3, sflow), generator)
                     if self.diff:
                         sv = self._warp(sv, w) + w
                         w = self._vecint(w)
@@ -180,7 +206,7 @@ class RDN(nn.Module):
                 if self.diff:
                     sv = upsample2_trilinear(2 * sv)
                 for _ in range(self.levels[lvl]):
-                    w = est[lvl](ff, self._warp(fm, sflow))
+                    w = est[lvl](ff, self._warp(fm, sflow), generator)
                     if self.diff:
                         sv = self._warp(sv, w) + w
                         w = self._vecint(w)

@@ -6,6 +6,10 @@
   loss plan (`models/registry.py`; the weights list is extended by its last
   entry, so RCN's and RDN's per-cascade or per-stage terms share the
   regulariser's weight);
+* pairs: all ordered pairs of ``train_dir``'s subjects (``dataset=s2s``,
+  and any other name, as the JAX driver), the same at stride 2
+  (``dataset=half``), or each subject to the atlas at ``atlas_path``
+  (``dataset=atlas``);
 * per-epoch validation: warp x_seg with the flow (nearest), Dice over the 54
   VOI labels; checkpoint named ``dsc{:.3f}.ckpt`` in the JAX format, rolling
   keep-``max_keep``;
@@ -30,7 +34,8 @@ second criterion's loss, as in the JAX package's `train.main`.
 
 Usage: python -m smilecode_tpu_torch.train train_dir=/data/Train val_dir=/data/Val
        [model=pcnet | model=rcn n_cascade=10 | model=rdn_diff stages=4 levels=4,4,4,4]
-       [compute_dtype=bfloat16] [device=cpu]
+       [compute_dtype=bfloat16] [dataset=half | dataset=atlas atlas_path=/data/atlas.pkl]
+       [device=cpu]
 """
 
 from __future__ import annotations
@@ -48,10 +53,9 @@ from smilecode_tpu_torch.convert import params_from_state_dict, state_dict_from_
 from smilecode_tpu_torch.data import (
     Compose,
     Loader,
-    LPBABrainDatasetS2S,
-    LPBABrainInferDatasetS2S,
     NumpyType,
     Seg_norm,
+    pair_dataset,
 )
 from smilecode_tpu_torch.metrics import dice_val_voi
 from smilecode_tpu_torch.models.registry import CRITERIA, build_model, loss_plan
@@ -169,8 +173,8 @@ def _train(cfg: TrainConfig, device: torch.device, exp_dir: str, metrics: Metric
     val_composed = Compose([Seg_norm(), NumpyType((np.float32, np.int16))])
     train_paths = sorted(glob.glob(os.path.join(cfg.train_dir, "*.pkl")))
     val_paths = sorted(glob.glob(os.path.join(cfg.val_dir, "*.pkl")))
-    train_set = LPBABrainDatasetS2S(train_paths, transforms=train_composed)
-    val_set = LPBABrainInferDatasetS2S(val_paths, transforms=val_composed)
+    train_set = pair_dataset(cfg.dataset, train_paths, train_composed, False, cfg.atlas_path)
+    val_set = pair_dataset(cfg.dataset, val_paths, val_composed, True, cfg.atlas_path)
     train_loader = Loader(train_set, batch_size=cfg.batch_size, shuffle=True, seed=cfg.seed,
                           num_workers=cfg.num_workers, device=device)
     val_loader = Loader(val_set, batch_size=1, shuffle=False, num_workers=cfg.num_workers,

@@ -347,10 +347,11 @@ def test_registry_and_config():
         with pytest.raises(ValueError, match="unknown"):
             loss_plan(bad)
 
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        build_model("rdn", InferConfig(dropout_rate=0.1))
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        check_train_config(TrainConfig(model="rdn", dropout_rate=0.1))
+    # the MC-dropout head is ported: RDN takes dropout_rate > 0 and so does training
+    rdn = build_model("rdn", InferConfig(dropout_rate=0.1, stages=1, levels=(1, 1, 1, 1)),
+                      device="meta")
+    assert {m.dropout_rate for m in rdn.modules() if hasattr(m, "dropout_rate")} == {0.1}
+    check_train_config(TrainConfig(model="rdn", dropout_rate=0.1))
     with pytest.raises(NotImplementedError, match="bf16"):
         build_model("pcnet", InferConfig(compute_dtype="bfloat16"))
     with pytest.raises(ValueError, match="attn_impl"):

@@ -14,7 +14,8 @@ scatter whose order changes from run to run). The bf16 instances against
 their bf16 plain versions on the same bf16 inputs: bf16 outputs within 2 bf16
 ulps of the largest magnitude, 2^-7 * max|ref| (both compute in float32 and
 round once; a sum in another order can flip the last bit), float32 outputs
-(drpb, d_flow) as above.
+(drpb, d_flow) as above. The probe kernels P1-P4 equal their plain versions
+exactly: they round each product and sum in the plain versions' order.
 """
 
 import numpy as np
@@ -31,6 +32,7 @@ from smilecode_tpu_torch.kernels.modet_attn import (
     modet_attention_bwd_plain,
     modet_attention_plain,
 )
+from smilecode_tpu_torch.kernels import probes
 from smilecode_tpu_torch.kernels.warp3d import (
     warp3d_trilinear,
     warp3d_trilinear_bwd,
@@ -607,3 +609,48 @@ def test_bf16_autograd_runs_the_bf16_kernels(dev):
     assert all(fn.launches_bf16 == n + 1 for fn, n in before.items())
     assert (q.grad.dtype, k.grad.dtype, rpb.grad.dtype) == (BF16, BF16, torch.float32)
     assert (src.grad.dtype, flow.grad.dtype) == (BF16, torch.float32)
+
+
+# The probe kernels P1-P4 (csrc/probes.cu) vs their plain versions, exactly,
+# on the edge cases of `smilecode_tpu_torch.probes.EDGE_CASES` (the table
+# chip_smoke.py's phase 25 runs too). Amounts and bounds are ints or int32
+# tensors on the card; the tensor case runs under
+# torch.cuda.set_sync_debug_mode("error"), which raises at any copy to the
+# host or sync inside the wrapper; every call launches its kernel once.
+def _edge_params():
+    from smilecode_tpu_torch.probes import EDGE_CASES, Smem
+
+    for case in EDGE_CASES:
+        if not any(isinstance(a, Smem) for a in case.args):  # no ints: checked for syncs
+            yield pytest.param(case, True, id=case.id)
+            continue
+        for on_device in (False, True):
+            yield pytest.param(case, on_device,
+                               id=f"{case.id}-{'on-device' if on_device else 'by-value'}")
+
+
+@pytest.mark.parametrize("case,on_device", list(_edge_params()))
+def test_probe_kernel_matches_plain(dev, case, on_device):
+    from smilecode_tpu_torch.probes import launch_edge_case
+
+    out = launch_edge_case(case, dev, on_device)
+    assert out.shape == case.want.shape and torch.equal(out, case.want)
+    if case.kernel == "P1":
+        a, axis = case.args[0][0], case.args[1]
+        assert torch.equal(out, torch.from_numpy(np.roll(case.x, -a, axis)))
+    if case.kernel == "P4":
+        m = case.args[0]
+        assert out.tolist() == [[(v // m) * m for v in range(-20, 21)],
+                                [v % m for v in range(-20, 21)]]
+
+
+def test_probe_scripts_run_exactly_on_the_card(dev):
+    """The entry point's 17 runs of the scripts' 14 probes: every error 0,
+    and P1-P4 launched 6, 8, 2 and 1 times."""
+    from smilecode_tpu_torch import probes as entry
+
+    before = {k: fn.launches for k, fn in probes.KERNELS.items()}
+    results = entry.main(device="cuda")
+    assert len(results) == 17 and all(err == 0 for _, _, err in results)
+    assert {k: fn.launches - before[k] for k, fn in probes.KERNELS.items()} == {
+        "P1": 6, "P2": 8, "P3": 2, "P4": 1}

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 from smilecode_tpu.convert import convert_state_dict
 from smilecode_tpu.models import ModeT as JaxModeT
 from smilecode_tpu.utils.checkpoint import save_checkpoint
-from smilecode_tpu_torch.config import InferConfig
+from smilecode_tpu_torch.config import InferConfig, TrainConfig, check_train_config
 from smilecode_tpu_torch.convert import (
     load_torch_checkpoint,
     params_from_state_dict,
@@ -216,12 +216,16 @@ def test_infer_main_matches_jax_driver(infer_setup):
 
 
 def test_infer_main_rejects_unported_modes(infer_setup):
+    """MC uncertainty without dropout exits as the JAX driver does; the
+    multi-GPU knobs are training's and still raise there."""
     from smilecode_tpu_torch import infer as torch_infer
 
-    with pytest.raises(NotImplementedError, match="MC"):
+    with pytest.raises(SystemExit, match="dropout_rate"):
         torch_infer.main(InferConfig(mc_iter=2, device="cpu"))
-    with pytest.raises(NotImplementedError, match="half"):
-        torch_infer.main(InferConfig(dataset="half", device="cpu"))
+    with pytest.raises(SystemExit, match="dropout_rate"):
+        torch_infer.main(InferConfig(mc_iter=2, dropout_rate=0.0, dataset="half", device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        check_train_config(TrainConfig(dp=2))
 
 
 _NO_JAX = r"""

@@ -1,0 +1,144 @@
+"""The probe kernels' plain route vs the root probe scripts' own kernels.
+
+Each of the 17 probe runs of `_probe_prims.py`, `_probe2.py`, `_probe3.py`
+and `_probe4.py` (14 kernels; k1 with three amounts, k1b with two), through
+the port's wrappers on CPU tensors (their plain versions), equals the
+script's numpy ``want`` and the script's own kernel run by Pallas in
+interpret mode on the script's inputs, exactly: the values are
+integer-valued float32 (or int32), so there is no rounding to allow for.
+
+The scripts call `pl.pallas_call` when imported, with no interpret flag,
+which fails without a TPU. So they are not imported: their imports and the
+``def`` nodes of the kernels are read with `ast` and executed into a
+namespace, and each kernel is called through ``pl.pallas_call(...,
+interpret=True)`` with the script's own operand memory spaces (SMEM
+scalars, VMEM arrays). One shim: `pltpu.roll` of this JAX refuses a
+negative static shift ("shift must be non-negative"), which k2 passes
+(-3), so the namespace's `pltpu.roll` takes a static shift modulo the axis
+length, the same rotation; traced shifts are passed on unchanged.
+"""
+
+import ast
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from smilecode_tpu_torch import probes
+from smilecode_tpu_torch.kernels import probes as kernels
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMEM = pl.BlockSpec(memory_space=pltpu.SMEM)
+VMEM = pl.BlockSpec(memory_space=pltpu.VMEM)
+
+
+def _roll(x, shift, axis):
+    if isinstance(shift, int):
+        shift %= x.shape[axis]
+    return pltpu.roll(x, shift, axis)
+
+
+def load_kernels(script, names):
+    """The script's imports and the ``def``s in ``names``, executed into a
+    namespace whose `pltpu` takes a negative static roll shift."""
+    path = os.path.join(ROOT, script)
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    keep = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))
+            or (isinstance(n, ast.FunctionDef) and n.name in names)]
+    assert {n.name for n in keep if isinstance(n, ast.FunctionDef)} == set(names)
+    ns = {}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)
+    ns["pltpu"] = types.SimpleNamespace(**{k: getattr(pltpu, k) for k in dir(pltpu)
+                                           if not k.startswith("_")})
+    ns["pltpu"].roll = _roll
+    return ns
+
+
+# per probe run: (script, kernel, extra defs, SMEM operands, X, output shape, output dtype)
+F32, I32 = jnp.float32, jnp.int32
+JAX_RUNS = {
+    **{f"k1 amt={a}": ("_probe_prims.py", "k1", (), [[a]], "X32", (32, 128), F32)
+       for a in (0, 3, 5)},
+    **{f"k1b amt={a}": ("_probe_prims.py", "k1b", (), [[a]], "X32", (32, 128), F32)
+       for a in (0, 7)},
+    "k2": ("_probe_prims.py", "k2", (), [], "X32", (32, 128), F32),
+    "k3": ("_probe_prims.py", "k3", (), [[2, 7]], "X32", (8, 128), F32),
+    "k4": ("_probe2.py", "k4", (), [], "X64", (64, 128), F32),
+    "k5": ("_probe2.py", "k5", (), [], "X64", (64, 128), F32),
+    "k6": ("_probe2.py", "k6", (), [[-3]], None, (2,), I32),
+    "k7": ("_probe2.py", "k7", (), [[1, 3]], "X64", (16, 128), F32),
+    "k8a": ("_probe3.py", "k8a", ("body_roll",), [], "X64", (16, 128), F32),
+    "k8b": ("_probe3.py", "k8b", (), [[1, 3]], "X64", (16, 128), F32),
+    "k8d": ("_probe3.py", "k8d", ("body_roll",), [[1, 3]], "X64", (16, 128), F32),
+    "k8e": ("_probe3.py", "k8e", (), [[1, 3]], "X64", (16, 128), F32),
+    "k9": ("_probe4.py", "k9", (), [], "X64", (16, 128), F32),
+    "k10": ("_probe4.py", "k10", (), [], "X64", (8, 128), F32),
+}
+RUNS = {probe.name: probe for probe in probes.PROBES}
+
+
+def run_script_kernel(name):
+    script, kernel, extra, smem, x, shape, dtype = JAX_RUNS[name]
+    ns = load_kernels(script, (kernel, *extra))
+    args = [jnp.asarray(v, jnp.int32) for v in smem]
+    if x is not None:
+        args.append(jnp.asarray(probes.XS[x]))
+    kw = {}
+    if smem:  # the script's specs: SMEM scalars, a VMEM array, the output in VMEM (k6: SMEM)
+        kw = dict(in_specs=[SMEM] * len(smem) + [VMEM] * (x is not None),
+                  out_specs=SMEM if x is None else VMEM)
+    return np.asarray(pl.pallas_call(ns[kernel], out_shape=jax.ShapeDtypeStruct(shape, dtype),
+                                     interpret=True, **kw)(*args))
+
+
+def test_every_probe_run_has_a_script_kernel():
+    assert set(RUNS) == set(JAX_RUNS) and len(RUNS) == 17
+    assert {p.kernel for p in RUNS.values()} == {"P1", "P2", "P3", "P4"}
+    assert all(p.where.startswith(JAX_RUNS[name][0]) for name, p in RUNS.items())
+
+
+@pytest.mark.parametrize("name", list(JAX_RUNS))
+def test_plain_route_equals_the_script(name):
+    probe = RUNS[name]
+    got = probes.run_probe(probe, "cpu").numpy()
+    script = run_script_kernel(name)
+    assert got.dtype == script.dtype and got.shape == probe.want.shape
+    np.testing.assert_array_equal(got, probe.want)
+    np.testing.assert_array_equal(got.reshape(script.shape), script)  # k6: (2, 1) vs (2,)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_floor_divmod_plain_is_pythons(m):
+    t = torch.arange(-20, 21, dtype=torch.int32)
+    out = kernels.floor_divmod(t, m)
+    assert out.dtype == torch.int32
+    assert out.tolist() == [[(v // m) * m for v in range(-20, 21)], [v % m for v in range(-20, 21)]]
+
+
+def test_wrappers_check_their_arguments():
+    x = torch.zeros((4, 5))
+    with pytest.raises(TypeError, match="float32"):
+        kernels.roll(x.double(), 1, 0)
+    with pytest.raises(ValueError, match="axis"):
+        kernels.roll(x, 1, 2)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.row_window_sum(x, 2, 0, 1, torch.tensor([0, 2]))
+    with pytest.raises(ValueError, match="stride"):
+        kernels.row_window_sum(x, 2, 0, 2, (0, 2))
+    with pytest.raises(ZeroDivisionError):
+        kernels.floor_divmod(torch.arange(3, dtype=torch.int32), 0)
+    assert all(fn.launches == 0 for fn in kernels.KERNELS.values())  # CPU: the plain versions
+
+
+def test_probes_main_runs_on_the_cpu(capsys):
+    results = probes.main(device="cpu")
+    assert len(results) == 17 and all(err == 0 for _, _, err in results)
+    assert "17 probe runs on cpu: all exact" in capsys.readouterr().out
