@@ -159,6 +159,30 @@ The last TPU kernels and driver paths:
    and first-loss gate, phase 3's Dice and fold gate; on one half pair,
    one step's loss and every gradient, kernels vs plain (phase 9's gates).
 
+The last single-device modules:
+
+28. The extended losses (`losses/extended.py`: SSIM 3D and 2D, MIND-SSC,
+   global and local MI, `grad2d` l1/l2, `grad3d_itv`, the three
+   displacement energies) and the repaired `grad3d` l1 on a smooth
+   160x192x160 subject (plane waves in an ellipsoid: exact 0 background,
+   exact 1) and that subject
+   warped by the seeded ModeT's flow (K1, K2), the flow feeding the
+   regularizers, `ssim2d` and `grad2d` on a 192x160 slice: float32 value
+   and every gradient against the same function in float64 on the card
+   (phase 9's gates: 1e-4 relative, 1e-3 of the largest gradient), ms per
+   value-and-gradient (median of 5, `utils.profiling.StepTimer`) and peak
+   memory; SSIM and MIND give the same bits with cuDNN's TF32 on.
+29. The data tools into the main path: 2 synthetic raw subjects written as
+   Analyze ``.hdr``/``.img.gz`` (int16 image, uint8 labels, little- and
+   big-endian) on a 181x217x175 grid; `data.preprocess.make_pkl_dataset`
+   turns them into 160x192x160 pkls; `native` equals numpy exactly on
+   those volumes (`seg_remap` uint16, `minmax_normalize` on a raw image,
+   `halfres` f32/u16, `dice_counts`; host ms beside numpy's), and the
+   OpenMP runtimes mapped are printed; `infer.main` (ModeT f32) on the pkls
+   with phase 3's checkpoint: finite Dice, exactly 5 K1 and 9 K2 launches
+   per pair; one `utils.profiling.trace` of a forward into
+   ``chiprun_out/trace_forward/``.
+
 Every failed check raises, so the exit code is non-zero; without a CUDA card
 it exits non-zero before printing any result. Each phase's seconds and the
 total print before the record. The kernels' JSON record lists
@@ -2138,6 +2162,326 @@ def half_step(device, data_dir, shape):
     del model, plain, x, y
     torch.cuda.empty_cache()
 
+# --------------------------------------------------------------- phases 28-29
+
+LOSS_VALUE_TOL, LOSS_GRAD_TOL = STEP_LOSS_TOL, STEP_GRAD_TOL  # phase 9's gates, f32 vs f64
+N_TIMED_LOSS = 5
+# phase 29: the raw Analyze grid (z, y, x) of the synthetic subjects, larger
+# than the 160x192x160 crop on every axis, as LPBA40's raw volumes are
+RAW_GRID = (181, 217, 175)
+N_RAW_SUBJECTS = 2
+
+
+def smooth_subject(size, seed, device):
+    """A smooth texture inside an ellipsoid, zero outside, divided by its
+    maximum: an exact 0 background and an exact 1; (1, D, H, W, 1). The
+    texture is a sum of six random plane waves, not a trilinear upsampling:
+    a trilinear cell is exactly multilinear, and there each of MIND-SSC's
+    six symmetric pairs of shift channels ties exactly, so that float32
+    and float64 rounding pick different minima (a point where the loss has
+    no gradient, held against the JAX package's choice on the CPU)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    grids = torch.meshgrid(*(torch.linspace(-1, 1, s, device=device, dtype=torch.float64)
+                             for s in size), indexing="ij")
+    f = torch.zeros(size, device=device, dtype=torch.float64)
+    for _ in range(6):
+        k, shift = rng.uniform(2.0, 8.0, 3) * rng.choice([-1, 1], 3), rng.uniform(0, 2 * np.pi)
+        f += torch.cos(sum(float(ki) * g for ki, g in zip(k, grids)) + shift)
+    f = (f - f.min()) / (f.max() - f.min()) + 0.25
+    img = torch.where(sum(g * g for g in grids) <= 0.8, f, torch.zeros_like(f)).float()
+    return (img / img.max())[None, ..., None].contiguous()
+
+
+def loss_cases():
+    """Phase 28's losses: (name, function, inputs), the inputs being "images"
+    (the subject and its warp), "flow" (ModeT's flow), "slice images" and
+    "slice flow" (the H x W slice at the middle of D)."""
+    from smilecode_tpu_torch.losses import core, extended as ext
+
+    return (
+        ("ssim3d", ext.ssim3d, "images"),
+        ("ssim3d_loss", ext.ssim3d_loss, "images"),
+        ("ssim2d", ext.ssim2d, "slice images"),
+        ("mind_loss", ext.mind_loss, "images"),
+        ("mutual_information", ext.mutual_information, "images"),
+        ("local_mutual_information", ext.local_mutual_information, "images"),
+        ("grad2d l1", lambda f: ext.grad2d(f, "l1"), "slice flow"),
+        ("grad2d l2", lambda f: ext.grad2d(f, "l2"), "slice flow"),
+        ("grad3d_itv", ext.grad3d_itv, "flow"),
+        ("displacement gradient-l1", lambda f: ext.displacement_regularizer(f, "gradient-l1"),
+         "flow"),
+        ("displacement gradient-l2", lambda f: ext.displacement_regularizer(f, "gradient-l2"),
+         "flow"),
+        ("displacement bending", lambda f: ext.displacement_regularizer(f, "bending"), "flow"),
+        ("grad3d l1 (core)", lambda f: core.grad3d(f, "l1"), "flow"),
+    )
+
+
+def loss_inputs(device, size=SIZE):
+    """Phase 28's float32 inputs: a smooth subject, the subject warped by
+    the flow of the seeded ModeT's forward that registers it to a second
+    subject (K1 and K2), and that flow."""
+    import torch
+
+    subject = smooth_subject(size, 28, device)
+    other = smooth_subject(size, 29, device)
+    model = seeded_model(device)
+    with torch.no_grad():
+        moved, flow = model(subject, other)
+    del model
+    images = (subject, moved.contiguous())
+    flow = flow.contiguous()
+    mid = size[0] // 2
+    return {"images": images, "flow": (flow,),
+            "slice images": tuple(t[:, mid].contiguous() for t in images),
+            "slice flow": (flow[:, mid].contiguous(),)}
+
+
+def value_and_grads(fn, inputs):
+    """``fn``'s value and its gradient with respect to each input."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    val = fn(*leaves)
+    return val, torch.autograd.grad(val, leaves)
+
+
+def run_loss_phase(card, device, size=SIZE, n=N_TIMED_LOSS):
+    """Phase 28: each extended loss (and the repaired `grad3d` l1) at
+    ``size``, value and gradients in float32 against the same function in
+    float64 on the same inputs (phase 9's gates: value within 1e-4
+    relative, each gradient within 1e-3 of its largest float64 magnitude);
+    ms per value-and-gradient (median of ``n`` by the port's `StepTimer`)
+    and its peak memory above the inputs'; SSIM and MIND give the same bits
+    with cuDNN's TF32 on. Returns {name: record}."""
+    import torch
+
+    from smilecode_tpu_torch.utils.profiling import StepTimer, memory_stats
+
+    device = torch.device(device)
+    groups = loss_inputs(device, size)
+    flow = groups["flow"][0]
+    print(f"phase 28 inputs: subject and moved {tuple(groups['images'][0].shape)}, "
+          f"moved in [{float(groups['images'][1].min()):.4f}, "
+          f"{float(groups['images'][1].max()):.4f}], flow max |.| {float(flow.abs().max()):.4f} "
+          f"voxel, background share {float((groups['images'][0] == 0).float().mean()):.4f}",
+          flush=True)
+    records = {}
+    for name, fn, kind in loss_cases():
+        ins = groups[kind]
+        ins64 = [t.double() for t in ins]
+        timer = StepTimer()
+        value_and_grads(fn, ins)  # warm-up
+        peak = 0.0
+        for _ in range(n):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+                torch.cuda.reset_peak_memory_stats(device)
+            base = memory_stats(device).get("allocated_bytes.all.current", 0)
+            timer.start()
+            val, grads = value_and_grads(fn, ins)
+            timer.stop([val, grads])
+            peak = max(peak, (memory_stats(device).get("allocated_bytes.all.peak", 0) - base)
+                       / 2**30)
+        val64, grads64 = value_and_grads(fn, ins64)
+        v, v64 = float(val.detach()), float(val64.detach())
+        rel = abs(v - v64) / abs(v64)
+        errs = [float((g.double() - g64).abs().max() / g64.abs().max()) for g, g64 in
+                zip(grads, grads64)]
+        records[name] = {"value": v, "value_f64": v64, "value_rel_err": rel,
+                         "grad_err": max(errs), "ms": timer.median_ms, "peak_gib": peak}
+        print(f"[{card}] {name:26s} {'x'.join(map(str, ins[0].shape[1:-1]))}: value {v:.8g} "
+              f"(f64 {v64:.10g}, rel err {rel:.2e}), gradient err {max(errs):.2e} of its "
+              f"largest; {timer.median_ms:.3f} ms per value-and-gradient (median of {n}), "
+              f"peak {peak:.3f} GiB", flush=True)
+        require(np.isfinite(v) and all(bool(torch.isfinite(g).all()) for g in grads),
+                f"{name}: non-finite value or gradient")
+        require(rel <= LOSS_VALUE_TOL, f"{name}: f32 value {v} vs f64 {v64}")
+        require(max(errs) <= LOSS_GRAD_TOL, f"{name}: f32 gradient err {max(errs)} of its largest")
+        del val, grads, val64, grads64, ins64
+    if device.type == "cuda":  # the shifted-slice sums use no cuDNN: TF32 cannot touch them
+        from smilecode_tpu_torch.losses import extended as ext
+
+        before = torch.backends.cudnn.allow_tf32
+        try:
+            for name, fn in (("ssim3d", ext.ssim3d), ("mind_loss", ext.mind_loss)):
+                torch.backends.cudnn.allow_tf32 = False
+                off = value_and_grads(fn, groups["images"])
+                torch.backends.cudnn.allow_tf32 = True
+                on = value_and_grads(fn, groups["images"])
+                require(bool(torch.equal(off[0], on[0])) and
+                        all(torch.equal(a, b) for a, b in zip(off[1], on[1])),
+                        f"{name} changed with cuDNN's TF32 on")
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+        print("ssim3d and mind_loss: the same value and gradient bits with cuDNN's TF32 on",
+              flush=True)
+    del groups, flow
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return records
+
+
+def write_analyze(path_stem, vol, endian):
+    """An Analyze 7.5 ``.hdr`` and gzipped ``.img`` of ``vol`` (z, y, x),
+    x fastest, in byte order ``endian``."""
+    import gzip
+    import struct
+
+    dz, dy, dx = vol.shape
+    hdr = bytearray(348)
+    struct.pack_into(endian + "i", hdr, 0, 348)
+    struct.pack_into(endian + "4h", hdr, 40, 3, dx, dy, dz)
+    struct.pack_into(endian + "h", hdr, 70, {np.dtype("int16"): 4, np.dtype("uint8"): 2}[vol.dtype])
+    with open(path_stem + ".hdr", "wb") as f:
+        f.write(bytes(hdr))
+    with gzip.open(path_stem + ".img.gz", "wb", compresslevel=1) as f:
+        f.write(vol.astype(vol.dtype.newbyteorder(endian)).tobytes())
+
+
+def write_raw_subjects(raw_dir, device, n=N_RAW_SUBJECTS, grid=RAW_GRID, size=SIZE):
+    """``n`` LPBA40-like raw subjects on ``grid``: an int16 skull-stripped
+    image (a smooth texture in an ellipsoid of ``size``, 0 outside, off the
+    grid's centre) and uint8 raw LPBA labels, little-endian for the first,
+    big-endian for the next, as ``S<k>/S<k>.skullstripped`` and
+    ``S<k>/S<k>.label``."""
+    from smilecode_tpu_torch.data.trans import LPBA_SEG_TABLE
+
+    for k in range(1, n + 1):
+        img = smooth_subject(size, 40 + k, device)[0, ..., 0].cpu().numpy()
+        lab = smooth_subject(size, 50 + k, device)[0, ..., 0].cpu().numpy()
+        vol = np.zeros(grid, np.int16)
+        lbl = np.zeros(grid, np.uint8)
+        o = [(g - s - 2 * k * (i != 1)) // 2 for i, (g, s) in enumerate(zip(grid, size))]
+        box = tuple(slice(a, a + s) for a, s in zip(o, size))
+        vol[box] = np.round(img * 900).astype(np.int16)
+        ids = LPBA_SEG_TABLE[1:][np.minimum((lab * 54).astype(np.int64), 53)]
+        lbl[box] = np.where(img > 0, ids, 0).astype(np.uint8)
+        sub = os.path.join(raw_dir, f"S{k}")
+        os.makedirs(sub)
+        endian = "<" if k % 2 else ">"
+        write_analyze(os.path.join(sub, f"S{k}.skullstripped"), vol, endian)
+        write_analyze(os.path.join(sub, f"S{k}.label"), lbl, endian)
+
+
+def host_ms(fn, *args, n=3):
+    """Median host ms of ``fn(*args)`` over ``n`` calls, and its result."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def openmp_runtimes():
+    """The OpenMP runtime files mapped into this process."""
+    with open("/proc/self/maps") as f:
+        return sorted({line.split()[-1] for line in f
+                       if "gomp" in line or "libiomp" in line or "libomp" in line})
+
+
+def run_data_tools_phase(card, device, tmp, model_dir, trace_dir="chiprun_out/trace_forward",
+                         size=SIZE, grid=RAW_GRID):
+    """Phase 29: raw Analyze subjects -> the port's `make_pkl_dataset` ->
+    `native` equal to numpy exactly on those full-size volumes (host ms of
+    each beside numpy's) -> `infer.main` (ModeT f32, phase 3's checkpoint in
+    ``model_dir``) on the pkls, exactly phase 3's launches per pair; one
+    `utils.profiling.trace` of a forward into ``trace_dir``."""
+    import torch
+
+    from smilecode_tpu_torch import native
+    from smilecode_tpu_torch.data import datasets, preprocess, trans
+    from smilecode_tpu_torch.metrics import dice_val_voi_np
+    from smilecode_tpu_torch.utils.profiling import trace
+
+    raw_dir, pkl_dir = os.path.join(tmp, "Raw"), os.path.join(tmp, "Pkl")
+    t0 = time.perf_counter()
+    write_raw_subjects(raw_dir, device, grid=grid, size=size)
+    t1 = time.perf_counter()
+    preprocess.make_pkl_dataset(raw_dir, pkl_dir, shape=size, verbose=True)
+    t2 = time.perf_counter()
+    names = sorted(os.listdir(pkl_dir))
+    print(f"{N_RAW_SUBJECTS} raw {'x'.join(map(str, grid))} Analyze subjects written in "
+          f"{t1 - t0:.2f} s; make_pkl_dataset {t2 - t1:.2f} s -> {names}", flush=True)
+    require(names == [f"subject_{k:02d}.pkl" for k in range(1, N_RAW_SUBJECTS + 1)],
+            f"pkls {names}")
+    subjects = [datasets.pkload(os.path.join(pkl_dir, name)) for name in names]
+    for img, lbl in subjects:
+        require(img.shape == lbl.shape == size and img.dtype == np.float32
+                and lbl.dtype == np.uint16, f"pkl {img.shape} {img.dtype}, {lbl.shape} {lbl.dtype}")
+        require(img.min() == 0.0 and img.max() == 1.0, "pkl image not min-max normalised")
+
+    t0 = time.perf_counter()
+    native.library()
+    print(f"native build and load: {time.perf_counter() - t0:.2f} s -> {native.library_path()}; "
+          f"OpenMP runtimes mapped: {openmp_runtimes()}; torch threads {torch.get_num_threads()}",
+          flush=True)
+    (img0, lbl0), (_, lbl1) = subjects[0], subjects[1]
+    raw = preprocess._read_analyze_img_gz(
+        os.path.join(raw_dir, "S1", "S1.skullstripped.img.gz")).astype(np.float32)
+    table = trans.LPBA_SEG_TABLE
+    seg0, seg1 = trans.seg_remap(lbl0, table), trans.seg_remap(lbl1, table)
+
+    def np_counts(p, t, nlabels=55):
+        p, t = p.reshape(-1).astype(np.int64), t.reshape(-1).astype(np.int64)
+        inter = np.bincount(np.where(p == t, p, nlabels), minlength=nlabels + 1)[:nlabels]
+        return inter, np.bincount(p, minlength=nlabels)[:nlabels], \
+            np.bincount(t, minlength=nlabels)[:nlabels]
+
+    checks = (("seg_remap u16", native.seg_remap, trans.seg_remap, (lbl0, table)),
+              ("minmax_normalize f32", native.minmax_normalize, native.minmax_normalize_np,
+               (raw,)),
+              ("halfres f32", native.halfres, datasets.halfres, (img0,)),
+              ("halfres u16", native.halfres, datasets.halfres, (lbl0,)),
+              ("dice_counts", lambda p, t: native.dice_counts(p, t, 55), np_counts, (seg0, seg1)))
+    for name, fast, plain, args in checks:
+        ms, got = host_ms(fast, *args)
+        p_ms, want = host_ms(plain, *args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w)
+                   for g, w in zip(got, want))
+        print(f"[{card}] native {name:20s} {'x'.join(map(str, args[0].shape))}: {ms:.3f} host ms "
+              f"(numpy {p_ms:.3f}), equal: {same}", flush=True)
+        require(same, f"native {name} differs from numpy")
+    ms, fast = host_ms(native.dice_val_voi_native, seg0, seg1)
+    p_ms, slow = host_ms(dice_val_voi_np, seg0, seg1)
+    print(f"[{card}] dice_val_voi_native {ms:.3f} host ms (numpy loop {p_ms:.3f}): "
+          f"{fast:.12f} vs {slow:.12f}", flush=True)
+    require(abs(fast - slow) <= 1e-12, f"dice_val_voi_native {fast} vs numpy {slow}")
+
+    n_pairs = N_RAW_SUBJECTS * (N_RAW_SUBJECTS - 1)
+    dsc, fold, counts, secs = run_infer(pkl_dir, model_dir)
+    print(f"infer.main on the preprocessed pkls: {n_pairs} pairs in {secs:.2f} s, dsc {dsc:.6f}, "
+          f"fold {fold:.6f}, launches {counts}", flush=True)
+    require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0 and np.isfinite(fold),
+            f"preprocessed pkls: dsc {dsc}, fold {fold}")
+    require(counts == {**dict.fromkeys(counts, 0), "K1": 5 * n_pairs, "K2": 9 * n_pairs},
+            f"infer launches on the preprocessed pkls {counts}")
+
+    x, y = forward_pair(pkl_dir, device)
+    model = seeded_model(device)
+    before = set(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else set()
+    with torch.no_grad():
+        model(x, y)  # warm-up
+        torch.cuda.synchronize()
+        with trace(trace_dir) as prof:
+            model(x, y)
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0
+              and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    files = sorted(set(os.listdir(trace_dir)) - before)
+    mib = sum(os.path.getsize(os.path.join(trace_dir, f)) for f in files) / 2**20
+    print(f"utils.profiling.trace of one forward: {len(events)} device operations, "
+          f"{sum(e.device_time_total for e in events) / 1e3:.3f} device ms; {trace_dir}: "
+          f"{files} ({mib:.2f} MiB)", flush=True)
+    require(events and files, "the trace holds no device operation or wrote no file")
+    del model, x, y
+    torch.cuda.empty_cache()
+
 
 def main() -> int:
     import torch
@@ -2309,6 +2653,11 @@ def main() -> int:
         run_mc_phase(card, device, tmp, val_dir)
         phase(27, "train.main and infer.main with dataset=half and dataset=atlas")
         run_dataset_phase(card, device, tmp, val_dir)
+
+        phase(28, "the extended losses at 160x192x160: float32 value and gradient vs float64")
+        run_loss_phase(card, device)
+        phase(29, "Analyze subjects -> make_pkl_dataset -> native vs numpy -> infer.main; a trace")
+        run_data_tools_phase(card, device, tmp, model_dir)
 
     def entry(name, source, line, key, err, ms, plain_ms, work, library_ms=None, counts=None,
               by_shape=None, device=None):

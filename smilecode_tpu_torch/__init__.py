@@ -15,7 +15,7 @@ axis ordered ``(dd, dh, dw)`` in voxels.
 
 __version__ = "0.1.0"
 
-from smilecode_tpu_torch.ops.resize import interp_trilinear, upsample2_trilinear
+from smilecode_tpu_torch.ops.resize import interp_trilinear, resize_flow, upsample2_trilinear
 from smilecode_tpu_torch.ops.warp import base_grid, warp
 
-__all__ = ["warp", "base_grid", "interp_trilinear", "upsample2_trilinear"]
+__all__ = ["warp", "base_grid", "resize_flow", "interp_trilinear", "upsample2_trilinear"]

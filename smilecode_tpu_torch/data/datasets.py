@@ -15,6 +15,8 @@ import pickle
 
 import numpy as np
 
+from smilecode_tpu_torch import native
+
 
 def pkload(fname):
     with open(fname, "rb") as f:
@@ -29,9 +31,8 @@ def pair_indices(index: int, n: int) -> tuple[int, int]:
 
 
 def halfres(vol: np.ndarray) -> np.ndarray:
-    """``vol[::2, ::2, ::2]``, contiguous, dtype kept (the half datasets;
-    `smilecode_tpu/native/__init__.py:halfres` without its native copy,
-    which gives the same array)."""
+    """``vol[::2, ::2, ::2]``, contiguous, dtype kept: the numpy version of
+    `native.halfres`, which the half datasets call."""
     return np.ascontiguousarray(vol[::2, ::2, ::2])
 
 
@@ -50,7 +51,7 @@ class _PairDataset:
     def _load(self, path):
         img, seg = pkload(path)
         if self.half:
-            img, seg = halfres(img), halfres(seg)
+            img, seg = native.halfres(img), native.halfres(seg)
         return img, seg
 
 

@@ -3,7 +3,9 @@
 Copied from `smilecode_tpu/data/trans.py`: ``Base.__call__`` samples a shape
 once then applies ``tf(img, k)`` to each element of a list (k=0 image, k=1
 label). `Seg_norm` remaps the 54 raw LPBA label ids to 0..54 (a label not in
-the table becomes 0); `NumpyType` casts per-element dtypes.
+the table becomes 0) through `native.seg_remap`; `seg_remap` here is its
+numpy version. `NumpyType` casts per-element dtypes. The RCN/RDN transform
+zoo is `data/trans_ext.py`.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 import collections.abc
 
 import numpy as np
+
+from smilecode_tpu_torch import native
 
 # Raw LPBA40 label ids, in order; index in this table = normalized label.
 LPBA_SEG_TABLE = np.array(
@@ -63,7 +67,7 @@ class Seg_norm(Base):
     def tf(self, img, k=0):
         if k == 0:
             return img
-        return seg_remap(img, self.seg_table)
+        return native.seg_remap(img, self.seg_table)
 
 
 class NumpyType(Base):

@@ -52,12 +52,19 @@ def ncc_vxm(y_true: torch.Tensor, y_pred: torch.Tensor, win: int = 9) -> torch.T
     return -torch.mean(cc)
 
 
+def abs_(x: torch.Tensor) -> torch.Tensor:
+    """|x| with `jnp.abs`'s derivative: +1 at 0, where `torch.abs` gives 0.
+    A flow is constant at a zero-initialised head, in the background and in
+    a warp's out-of-volume zeros, so equal neighbours are common."""
+    return torch.where(x >= 0, x, -x)
+
+
 def grad3d(flow: torch.Tensor, penalty: str = "l1", loss_mult: float | None = None) -> torch.Tensor:
     """Diffusion regularizer: mean |forward difference| (or squared) per axis
     of a (B, D, H, W, C) field."""
-    dd = torch.abs(flow[:, 1:] - flow[:, :-1])
-    dh = torch.abs(flow[:, :, 1:] - flow[:, :, :-1])
-    dw = torch.abs(flow[:, :, :, 1:] - flow[:, :, :, :-1])
+    dd = abs_(flow[:, 1:] - flow[:, :-1])
+    dh = abs_(flow[:, :, 1:] - flow[:, :, :-1])
+    dw = abs_(flow[:, :, :, 1:] - flow[:, :, :, :-1])
     if penalty == "l2":
         dd, dh, dw = dd * dd, dh * dh, dw * dw
     elif penalty != "l1":

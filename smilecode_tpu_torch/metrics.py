@@ -1,14 +1,15 @@
 """Evaluation metrics on device: LPBA VOI Dice, Jacobian determinant, folding.
 
 Counterpart of `smilecode_tpu/metrics.py`: Dice over the 54 VOI labels with
-the same f32 arithmetic, the Jacobian determinant of ``disp + grid`` with
-np.gradient semantics (central differences inside, one-sided at the
-borders: ``torch.gradient`` with ``edge_order=1``), and the fraction of
-voxels with determinant <= 0.
+the same f32 arithmetic (and `dice_val_voi_np`, the numpy loop), the
+Jacobian determinant of ``disp + grid`` with np.gradient semantics (central
+differences inside, one-sided at the borders: ``torch.gradient`` with
+``edge_order=1``), and the fraction of voxels with determinant <= 0.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from smilecode_tpu_torch.ops.warp import base_grid
@@ -35,6 +36,21 @@ def dice_val_voi(y_pred: torch.Tensor, y_true: torch.Tensor, labels: tuple = VOI
     inter, n_pred, n_true = inter[lbl], n_pred[lbl], n_true[lbl]
     dsc = 2.0 * inter.float() / ((n_pred + n_true).float() + 1e-5)
     return dsc.mean()
+
+
+def dice_val_voi_np(y_pred: np.ndarray, y_true: np.ndarray, labels=VOI_LBLS) -> float:
+    """Numpy mirror of the reference's per-label loop (the plain version of
+    `native.dice_val_voi_native`)."""
+    pred = np.asarray(y_pred).reshape(-1)
+    true = np.asarray(y_true).reshape(-1)
+    dscs = []
+    for i in labels:
+        pred_i = pred == i
+        true_i = true == i
+        inter = np.sum(pred_i * true_i)
+        union = np.sum(pred_i) + np.sum(true_i)
+        dscs.append(2.0 * inter / (union + 1e-5))
+    return float(np.mean(dscs))
 
 
 def jacobian_determinant(disp: torch.Tensor) -> torch.Tensor:

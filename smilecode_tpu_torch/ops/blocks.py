@@ -1,9 +1,11 @@
 """Shared conv building blocks (channels-last NDHWC at the boundary).
 
 Counterpart of `smilecode_tpu/ops/blocks.py`: ConvBlock (Conv3d +
-LeakyReLU(0.1)) and ConvInsBlock (+InstanceNorm3d). Each block owns its
-conv as ``main`` so the `state_dict` keys are the reference's
-(``encoder.conv0_0.main.weight``). The JAX package's bare ``Conv3d``,
+LeakyReLU(0.1)), ConvInsBlock (+InstanceNorm3d), UpConvBlock
+(ConvTranspose3d(k4, s2), a crop of one voxel per border, IN, LeakyReLU)
+and DeconvBlock (UpConvBlock, skip concat, two ConvInsBlocks). Each block
+owns its conv as ``main`` (``upconv`` for the transposed one) so the
+`state_dict` keys are the reference's (``encoder.conv0_0.main.weight``). The JAX package's bare ``Conv3d``,
 ``ConvTranspose3d`` (k4 s2 p0, then cropped by the caller) and ``Dense`` are
 ``nn.Conv3d``, ``nn.ConvTranspose3d`` and ``nn.Linear`` here, applied to
 NDHWC tensors by `conv3d_ndhwc`; ``normal_init`` is `normal_`.
@@ -139,3 +141,34 @@ class ConvInsBlock(ConvBlock):
 
     def forward(self, x):
         return leaky_relu(instance_norm(conv3d_ndhwc(self.main, x)), self.alpha)
+
+
+class UpConvBlock(nn.Module):
+    """ConvTranspose3d(k, s) then a crop of one voxel per border, IN and
+    LeakyReLU(alpha): exactly 2x the input size at the defaults
+    (`smilecode_tpu/ops/blocks.py:176`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 4,
+                 stride: int = 2, alpha: float = 0.1):
+        super().__init__()
+        self.upconv = nn.ConvTranspose3d(in_channels, out_channels, kernel_size, stride)
+        self.alpha = alpha
+
+    def forward(self, x):
+        x = conv3d_ndhwc(self.upconv, x)[:, 1:-1, 1:-1, 1:-1]
+        return leaky_relu(instance_norm(x), self.alpha)
+
+
+class DeconvBlock(nn.Module):
+    """UpConvBlock to ``skip_channels``, concat the skip, then two
+    ConvInsBlocks (`smilecode_tpu/ops/blocks.py:194`). The JAX names
+    ``conv_0``/``conv_1`` are the Sequential ``conv.0``/``conv.1``."""
+
+    def __init__(self, dec_channels: int, skip_channels: int):
+        super().__init__()
+        self.upconv = UpConvBlock(dec_channels, skip_channels)
+        self.conv = nn.Sequential(ConvInsBlock(2 * skip_channels, skip_channels),
+                                  ConvInsBlock(skip_channels, skip_channels))
+
+    def forward(self, dec, skip):
+        return self.conv(torch.cat([self.upconv(dec), skip], dim=-1))

@@ -45,6 +45,22 @@ def upsample2_trilinear(x: torch.Tensor) -> torch.Tensor:
     return interp_trilinear(x, (2 * d, 2 * h, 2 * w))
 
 
+def resize_flow(x: torch.Tensor, factor: float) -> torch.Tensor:
+    """ResizeTransform parity: resize a flow field and rescale its magnitude.
+
+    ``factor`` is the reference's ``1 / vel_resize``; the output size is
+    ``int(n * factor)`` per axis. The magnitude is rescaled after a
+    downsampling and before an upsampling, as in the JAX package; factor 1
+    is the identity."""
+    if factor == 1:
+        return x
+    _, d, h, w, _ = x.shape
+    out_shape = (int(d * factor), int(h * factor), int(w * factor))
+    if factor < 1:
+        return interp_trilinear(x, out_shape) * factor
+    return interp_trilinear(x * factor, out_shape)
+
+
 def avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """AvgPool3d(kernel=2, stride=2) over (B, D, H, W, C), as reshape + mean."""
     b, d, h, w, c = x.shape

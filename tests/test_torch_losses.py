@@ -61,6 +61,24 @@ def test_grad3d_matches_jax_value_and_grad(penalty, loss_mult):
         grad3d(torch.from_numpy(flow), "l3")
 
 
+@pytest.mark.parametrize("loss_mult", [None, 2.5])
+def test_grad3d_l1_gradient_at_equal_neighbours_matches_jax(loss_mult):
+    """Equal neighbours: ``jnp.abs``'s derivative at 0 is +1, where
+    ``torch.abs``'s is 0, so a constant region's forward differences carry
+    gradient. The flow has zero slabs along D (a zero-initialised head or a
+    warp's out-of-volume zeros), a constant block and a plane constant
+    along W; ties along every axis. Same tolerances as above."""
+    (flow,) = volumes((6, 7, 8), 3, seed=5)[:1]
+    flow[:, :2] = 0.0
+    flow[:, 3:5, 2:6, 1:7] = 0.25
+    flow[:, 5, :, :, 1] = flow[:, 5, :, :1, 1]
+    val, (g,) = value_and_grad_torch(lambda f: grad3d(f, "l1", loss_mult), flow)
+    jval, jg = jax.value_and_grad(lambda f: jax_grad3d(f, "l1", loss_mult))(jnp.asarray(flow))
+    np.testing.assert_allclose(val, float(jval), rtol=1e-6)
+    np.testing.assert_allclose(g, np.asarray(jg), rtol=0, atol=1e-6)
+    assert np.abs(np.asarray(jg)).max() > 1e3 * 1e-6
+
+
 def test_criteria_and_modet_plan_match_jax():
     moved, fixed = volumes((10, 10, 10), 1, seed=3)
     (flow,) = volumes((10, 10, 10), 3, seed=4)[:1]

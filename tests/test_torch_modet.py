@@ -241,6 +241,12 @@ import smilecode_tpu_torch
 pkg = pathlib.Path(smilecode_tpu_torch.__file__).parent
 for mod in pkgutil.walk_packages([str(pkg)], "smilecode_tpu_torch."):
     importlib.import_module(mod.name)
+for name in ("losses.extended", "data.trans_ext", "data.rand", "data.preprocess", "native",
+             "utils.profiling"):
+    assert "smilecode_tpu_torch." + name in sys.modules, name
+import numpy as np
+from smilecode_tpu_torch import native
+assert native.halfres(np.ones((3, 3, 3), np.float32)).shape == (2, 2, 2)
 for path in pkg.rglob("*.py"):
     for node in ast.walk(ast.parse(path.read_text())):
         names = []
