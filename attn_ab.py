@@ -88,6 +88,13 @@ def build_checkouts(dirs):
     return libs
 
 
+def takes_koff(top) -> bool:
+    """Whether the attention entry points of the checkout at ``top`` take the
+    halo-k argument ``koff`` (before the stream)."""
+    with open(os.path.join(top, "smilecode_tpu_torch", "csrc", "modet_attn.cu")) as f:
+        return "int koff" in f.read()
+
+
 def registers(log: str):
     """{mangled kernel name: registers per thread} from a ptxas -v log."""
     regs, name = {}, None
@@ -139,19 +146,24 @@ def geometry(kernel, shape, isz):
     return bh, bw, cd, blocks, ring + (bh * stride + heads * 27 * 9) * 4
 
 
-def kernel_fns(lib, old_k4: bool):
-    """{kernel: {dtype: entry point}} of a built checkout, with argument
-    types: this checkout's, or for ``old_k4`` the parent K4's."""
+def kernel_fns(lib, old_k4: bool, koff: bool = True):
+    """{kernel: {dtype: entry point, "koff": its koff argument or ()}} of a
+    built checkout, with argument types: this checkout's, or for ``old_k4``
+    the parent K4's; without ``koff`` (a checkout before the halo-k mode) the
+    entry points take no koff."""
     import torch
 
     from smilecode_tpu_torch.kernels import modet_attn as ma
 
+    def types(argtypes):
+        return argtypes if koff else argtypes[:-2] + argtypes[-1:]
+
     fns = {}
     for kernel, base, argtypes in (
-            ("K1", "smilecode_modet_attn_fwd", ma._FWD_ARGTYPES),
-            ("K3", "smilecode_modet_attn_bwd_dq", ma._DQ_ARGTYPES),
-            ("K4", "smilecode_modet_attn_bwd_dk", _OLD_DK if old_k4 else ma._DK_ARGTYPES)):
-        fns[kernel] = {}
+            ("K1", "smilecode_modet_attn_fwd", types(ma._FWD_ARGTYPES)),
+            ("K3", "smilecode_modet_attn_bwd_dq", types(ma._DQ_ARGTYPES)),
+            ("K4", "smilecode_modet_attn_bwd_dk", _OLD_DK if old_k4 else types(ma._DK_ARGTYPES))):
+        fns[kernel] = {"koff": (0,) if koff and not (old_k4 and kernel == "K4") else ()}
         for dt, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
             fn = getattr(lib, base + sfx)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -167,7 +179,7 @@ def call_k1(fn, q, k, rpb):
     b, d, h, w, heads, hd = q.shape
     out = torch.empty((b, d, h, w, heads * 3), dtype=q.dtype, device=q.device)
     code = fn[q.dtype](q.data_ptr(), k.data_ptr(), rpb.data_ptr(), out.data_ptr(), b, d, h, w,
-                       heads, hd, 1.0, *ma._launch_args(q, k),
+                       heads, hd, 1.0, *ma._launch_args(q, k), *fn["koff"],
                        torch.cuda.current_stream().cuda_stream)
     cs.require(code == 0, f"K1 launch: CUDA error {code}")
     return out
@@ -185,7 +197,7 @@ def call_k3(fn, q, k, rpb, g):
                        device=q.device)
     code = fn[q.dtype](q.data_ptr(), k.data_ptr(), rpb.data_ptr(), g.data_ptr(), dq.data_ptr(),
                        dl.data_ptr(), part.data_ptr(), b, d, h, w, heads, hd, 1.0,
-                       *ma._launch_args(q, k), torch.cuda.current_stream().cuda_stream)
+                       *ma._launch_args(q, k), *fn["koff"], torch.cuda.current_stream().cuda_stream)
     cs.require(code == 0, f"K3 launch: CUDA error {code}")
     return dq, dl, part
 
@@ -199,7 +211,7 @@ def call_k4(fn, old, q, dl):
     dk = torch.empty_like(q)
     extra = () if old else ma.dk_geometry(q.shape, q.element_size())[:3]
     code = fn[q.dtype](q.data_ptr(), dl.data_ptr(), dk.data_ptr(), b, d, h, w, heads, hd, 1.0,
-                       *extra, torch.cuda.current_stream().cuda_stream)
+                       *extra, *fn["koff"], torch.cuda.current_stream().cuda_stream)
     cs.require(code == 0, f"K4 launch: CUDA error {code}")
     return dk
 
@@ -250,7 +262,7 @@ def main() -> int:
     regs["new"] = registers(_build.build_info["log"])
     runs = {}
     for name, (lib, _) in built.items():
-        f = kernel_fns(lib, name == "parent")
+        f = kernel_fns(lib, name == "parent", takes_koff(dirs[name]))
         runs[name] = {"K1": lambda q, k, r, dl, g, f=f: call_k1(f["K1"], q, k, r),
                       "K3": lambda q, k, r, dl, g, f=f: call_k3(f["K3"], q, k, r, g),
                       "K4": lambda q, k, r, dl, g, f=f, old=name == "parent":

@@ -120,12 +120,13 @@ at 160x192x160, RCN at 128x192x128, each at its reference width and depth):
 22. Their forwards, kernels vs plain, as phase 14.
 23. `train.main` for every family (2 steps on 2 subjects, validated on the
    same 2 pairs): exact K1, K3, K4, K2, K5 launches and scatters per step
-   (`ZOO`) plus the validation forwards; losses finite; the plain run
-   launches nothing and its first loss is within 1e-4.
+   (`ZOO`) plus the validation forwards; losses finite; for Im2grid
+   (`ZOO_PLAIN_TRAIN`) the plain run launches nothing and its first loss is
+   within 1e-4 (phase 24 holds every family's step against plain).
 24. One training step per family, kernels vs plain, same weights and batch
    (phase 9's gates; the biases whose exact gradient is zero, as a float64
    plain step on a 64^3 crop finds them, within twice the plain step's
-   float32 rounding: `compare_step_grads`), ms per step (median of 3, in
+   float32 rounding: `compare_step_grads`), ms per step (median of 2, in
    turns) and peak memory, and a profile of one kernel step for PCNet and
    PR++. rdn_diff_share runs here at stages 2 (`ZOO_STEP_KNOBS`; its plain
    step takes ~11 s at stages 4), the others at the reference's depth.
@@ -183,6 +184,36 @@ The last single-device modules:
    per pair; one `utils.profiling.trace` of a forward into
    ``chiprun_out/trace_forward/``.
 
+Multi-GPU training (`train.main(dp=, spatial=)`, `parallel/`), two ranks on
+the one card (gloo with CUDA tensors; all_gather, all_to_all and send/recv
+staged through pinned host buffers, the sums on the card):
+
+30. The kernel modes of the D-sharded step vs their plain versions at the
+   spatial=2 slabs of ModeT at 160x192x160 (80x192x160 ... 5x12x10 per
+   rank): K1, K3 and K4 in halo-k mode (k of D+2 slices, its border slices
+   a real neighbour's, zeros at the volume's ends; K4's dk over all D+2),
+   K2 and K5 in D-origin mode at the nine warps (the source gathered to the
+   full depth, d0 = rank * slab depth; K5's d_src over the gathered depth),
+   each shard, smooth and wild flows; the gates of phases 1, 2, 6 and 7, the
+   bf16 instances within 2 bf16 ulps; call ms, device ms, the plain
+   version's and, for K2 and K5, `F.grid_sample` (and its backward) on the
+   gathered source, per step of rank 1's slabs.
+31. `train.main(dp=2, batch_size=2)` at 160x192x160, float32, 2 epochs of
+   1 step on 2 subjects: per rank exactly K1 5, K3 5, K4 5, K2 9, K5 9 (8
+   scatters) per step and no mode launch, rank 0 also its validation
+   forwards; the first step's loss and averaged gradients vs the
+   single-process batch-2 step of the same seed and batch (phase 9's
+   gates); the parameters after the two steps equal bit for bit on both
+   ranks.
+32. `train.main(spatial=2)` (1 epoch of 2 steps): per rank exactly K1/K3/K4
+   5 each in halo-k mode and K2/K5 9 each in D-origin mode (8 scatters) per
+   step and nothing else but rank 0's validation; its first loss vs the
+   unsharded step's. Then the seeded ModeT's sharded forward and
+   loss-and-gradients pass vs the unsharded ones: flow within 1e-3 voxel,
+   moved image within 1e-4, the loss and every gradient at phase 9's gates,
+   exactly one step's mode launches; ms per sharded step (median of 3) and
+   each rank's peak GiB beside the unsharded step's.
+
 Every failed check raises, so the exit code is non-zero; without a CUDA card
 it exits non-zero before printing any result. Each phase's seconds and the
 total print before the record. The kernels' JSON record lists
@@ -193,14 +224,17 @@ training run of phase 18, then K3 and K4 as Im2grid's training runs them
 (phase 20's times, the launches of phase 23's Im2grid run) and K2 and K5 at
 the zoo's warp shapes (phase 20's times, the launches of every phase 23
 kernel run), then P1-P4 (phase 25's times and launches; ``replaces`` the
-first script kernel each serves, ``serves`` all of them); each with its
+first script kernel each serves, ``serves`` all of them), then the five
+modes of the D-sharded step (phase 30's times, rank 0's launches in phase
+32's `train.main(spatial=2)`); each with its
 bound (bytes or float32 operations
 at the card's published peaks) and, for K2 and K5, the time of
 `F.grid_sample` (forward or backward) on the same inputs, and per distinct
 shape (``ms_by_shape``, ``bound_ms_by_shape``, ``device_ms_by_shape``; for
 K2 and K5 also ``library_ms_by_shape``, ``variant_by_shape``,
-``library_device_ms_by_shape``; ms per call). K1, K3 and K4 also carry
-``device_ms``, their device time over the path's five level shapes. Device
+``library_device_ms_by_shape``; ms per call). ModeT's K1-K5 rows and the
+modes' also carry ``device_ms``, their device time over the path's calls
+(the five level shapes, or the nine warps). Device
 ms: the calls queued behind a spin kernel, so that CUDA events time the
 kernels alone, without the wrapper's host time. The `infer.main` and
 `train.main` runs print how many K2 and K5 launches took the vector path. The last two lines are that
@@ -296,7 +330,10 @@ ZOO = {"im2grid": (SIZE, (5, 9), (5, 5, 5, 9, 9, 8)),
 STEP_KEYS = ("K1", "K3", "K4", "K2", "K5", "K5 d_src")
 ZOO_SERVED = ("pcnet", "prnet", "prnetplusplus")  # served by phases 21 and 22
 ZOO_STEPS, ZOO_VAL_PAIRS = 2, 2  # train.main on 2 subjects, validated on the same 2
-N_TIMED_ZOO_STEPS = 3
+# phase 23's plain train.main runs (the families whose plain run is checked
+# to launch nothing); phase 24 holds every family's step against plain
+ZOO_PLAIN_TRAIN = ("im2grid",)
+N_TIMED_ZOO_STEPS = 2
 # phase 24 runs these families at a cut depth, to keep the script within its
 # time budget: rdn_diff_share's plain step takes ~11 s at stages 4 on the
 # H100 (PERF.md §6). Every kernel and shape of its step stays; phase 23
@@ -438,40 +475,46 @@ def warp_work(kernel: str, src_voxels: int, voxels: int, c: int, isz: int, scatt
     return nbytes, voxels * (60 + 16 * c * (2 if scatter else 1))
 
 
-def grid_sample_args(src, flow, requires_grad=False):
+def grid_sample_args(src, flow, requires_grad=False, d0=None):
     """`F.grid_sample`'s input (N, C, D, H, W) and normalised (x, y, z) grid
     for the warp of ``src`` by ``flow`` (align_corners=True, zeros outside):
-    the library call that computes K2's function, in src's dtype."""
+    the library call that computes K2's function, in src's dtype. ``d0``:
+    K2's D-origin mode, coordinates (fd + d0, fh, fw) + flow into a source
+    of its own depth."""
     import torch
 
     fd, fh, fw = flow.shape[1:4]
     axes = [torch.arange(n, dtype=torch.float32, device=flow.device) for n in (fd, fh, fw)]
     coords = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1) + flow
-    size = torch.tensor([max(n - 1, 1) for n in (fd, fh, fw)], dtype=torch.float32,
+    extent = (fd, fh, fw)
+    if d0 is not None:
+        coords[..., 0] += d0
+        extent = src.shape[1:4]
+    size = torch.tensor([max(n - 1, 1) for n in extent], dtype=torch.float32,
                         device=flow.device)
     grid = (2 * coords / size - 1).flip(-1).to(src.dtype).contiguous()
     inp = src.permute(0, 4, 1, 2, 3).contiguous()
     return inp.requires_grad_(requires_grad), grid.requires_grad_(requires_grad)
 
 
-def library_warp_ms(src, flow, g=None, want_dsrc=True, iters=10, timer=None):
+def library_warp_ms(src, flow, g=None, want_dsrc=True, iters=10, timer=None, d0=None):
     """CUDA-event ms (or ``timer``'s, e.g. `device_ms`) of `F.grid_sample`
     on (src, flow), or with ``g`` of its backward (d_input only when
     ``want_dsrc``, and d_grid); a bf16 source takes a bf16 grid, which
     grid_sample requires. Timed here as a yardstick only: the port never
     calls it. None when this torch build has no such call for src's dtype."""
     try:
-        return _library_warp_ms(src, flow, g, want_dsrc, iters, timer or event_ms)
+        return _library_warp_ms(src, flow, g, want_dsrc, iters, timer or event_ms, d0)
     except (RuntimeError, NotImplementedError) as e:
         print(f"  F.grid_sample on {src.dtype}: not available ({str(e).splitlines()[0]})")
         return None
 
 
-def _library_warp_ms(src, flow, g, want_dsrc, iters, timer):
+def _library_warp_ms(src, flow, g, want_dsrc, iters, timer, d0=None):
     import torch
     import torch.nn.functional as F
 
-    inp, grid = grid_sample_args(src, flow)
+    inp, grid = grid_sample_args(src, flow, d0=d0)
     if g is None:
         return timer(lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="zeros",
                                            align_corners=True), iters)
@@ -495,6 +538,15 @@ def warp_path(fn, before, c, src, what):
     took = fn.launches_vector - before
     require(took == int(vector), f"{what}: {took} vector-path launches, expected {int(vector)}")
     return f"vector G={_lanes_per_voxel(c, src.element_size(), 0)}" if vector else "scalar"
+
+
+def warp_path_device_ms(by_shape, bwd=False) -> float:
+    """Device ms over a pair's (K2) or a step's (K5, the moved image's
+    without the scatter) nine warps, from `check_warp`'s or
+    `check_warp_bwd`'s per-shape device ms."""
+    return sum(by_shape[shape_label(c, level_shape(level), " without d_src"
+                                    if bwd and what == "moved image" else "")]["device_ms"]
+               for what, c, level in warp_calls())
 
 
 def shape_label(c, shape, extra=""):
@@ -1109,9 +1161,9 @@ def reset_launch_counts():
 
     for fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk,
                warp3d_trilinear, warp3d_trilinear_bwd):
-        fn.launches = fn.launches_bf16 = 0
-    warp3d_trilinear_bwd.scatters = warp3d_trilinear_bwd.scatters_bf16 = 0
-    warp3d_trilinear.launches_vector = warp3d_trilinear_bwd.launches_vector = 0
+        for name in list(vars(fn)):
+            if name.startswith(("launches", "scatters")):
+                setattr(fn, name, 0)
 
 
 def vector_counts() -> str:
@@ -1546,13 +1598,13 @@ def check_zoo_warps(device):
     return res
 
 
-def train_baseline(name, data_dir, root, pair, step):
+def train_baseline(name, data_dir, root, pair, step, plain=True):
     """Phase 23 for baseline ``name``: `train.main` on the 2 subjects of
     ``data_dir`` (2 steps, then 2 validation pairs) with the kernels: exact
     launches (``step`` per step, ``pair`` K1 and K2 per validation pair),
-    finite losses; the ``attn_impl="plain"`` run launches nothing and its
-    first loss is within STEP_LOSS_TOL. Returns the kernel run's launch
-    counts."""
+    finite losses; with ``plain``, the ``attn_impl="plain"`` run launches
+    nothing and its first loss is within STEP_LOSS_TOL. Returns the kernel
+    run's launch counts."""
     import torch
 
     best, _, losses, counts, secs = run_train(data_dir, data_dir, os.path.join(root, "kernels"),
@@ -1567,6 +1619,8 @@ def train_baseline(name, data_dir, root, pair, step):
     require(len(losses) == ZOO_STEPS and bool(np.isfinite(losses).all()), f"{name}: losses {losses}")
     require(counts == want, f"{name}: train launches {counts}, expected {want}")
     torch.cuda.empty_cache()
+    if not plain:
+        return counts
 
     _, _, p_losses, p_counts, p_secs = run_train(data_dir, data_dir, os.path.join(root, "plain"),
                                                  attn_impl="plain", model=name)
@@ -1654,7 +1708,8 @@ def run_zoo_phases(card, device, tmp, val_dir):
     phase(23, "train.main for every baseline family")
     train_counts, im2grid_counts = None, None
     for name, (size, pair, step) in ZOO.items():
-        counts = train_baseline(name, data[size], os.path.join(tmp, f"train_{name}"), pair, step)
+        counts = train_baseline(name, data[size], os.path.join(tmp, f"train_{name}"), pair, step,
+                                plain=name in ZOO_PLAIN_TRAIN)
         train_counts = counts if train_counts is None else {
             k: v + counts[k] for k, v in train_counts.items()}
         if name == "im2grid":
@@ -2483,6 +2538,505 @@ def run_data_tools_phase(card, device, tmp, model_dir, trace_dir="chiprun_out/tr
     torch.cuda.empty_cache()
 
 
+
+# ---- the multi-GPU slice (phases 30-32) ------------------------------------
+
+SP_SHARDS = 2  # spatial=2: the D-sharded step's shards
+N_TIMED_SP = 3  # timed sharded steps per rank (phase 32)
+
+
+def shard_shape(level: int, size=SIZE, shards=SP_SHARDS):
+    """A rank's D slab of level ``level``'s shape under ``shards`` D shards."""
+    d, h, w = level_shape(level, size)
+    return (d // shards, h, w)
+
+
+def halo_k(k, rank, dl):
+    """Rank ``rank``'s k slab of the global (B, D, ...) ``k`` with its 1-slice
+    D halo: the neighbours' slices, zeros at the volume's ends (what
+    `parallel.spatial.halo_exchange` gives it)."""
+    import torch
+
+    zero = torch.zeros_like(k[:, :1])
+    lo = k[:, rank * dl - 1:rank * dl] if rank > 0 else zero
+    hi = k[:, (rank + 1) * dl:(rank + 1) * dl + 1] if (rank + 1) * dl < k.shape[1] else zero
+    return torch.cat([lo, k[:, rank * dl:(rank + 1) * dl], hi], 1).contiguous()
+
+
+def halo_work(kernel: str, shape, isz: int):
+    """`attn_work` of a halo-k call on q of ``shape``: K1 and K3 read two more
+    k slices, K4 writes two more dk slices."""
+    nbytes, ops = attn_work(kernel, shape, isz)
+    return nbytes + 2 * int(np.prod(shape[2:])) * isz, ops
+
+
+def check_halo_attention(device, size=SIZE):
+    """Phase 30, attention: K1, K3 and K4 in halo-k mode vs their plain
+    versions at the spatial=2 slabs of the five levels, each shard (rank 0's
+    halo from its next neighbour, rank 1's from its previous one, zeros at
+    the volume's ends), the gates of phases 1 and 6; the bf16 instances at
+    the same shapes within 2 bf16 ulps (drpb DRPB_TOL). Times on rank 1's
+    slabs. Returns {"K1 halo" | "K3 halo" | "K4 halo": dict(err, ms,
+    plain_ms, device_ms, work, by_shape)}, ms summed over a step's five
+    calls."""
+    import torch
+
+    from smilecode_tpu_torch.kernels.modet_attn import (
+        modet_attention,
+        modet_attention_bwd_dk,
+        modet_attention_bwd_dk_plain,
+        modet_attention_bwd_dq,
+        modet_attention_bwd_dq_plain,
+        modet_attention_plain,
+    )
+
+    rng = np.random.default_rng(30)
+    res = {key: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "work": np.zeros(2),
+                 "by_shape": {}} for key in ("K1 halo", "K3 halo", "K4 halo")}
+    for level, heads in zip((5, 4, 3, 2, 1), NUM_HEADS):
+        dl = shard_shape(level, size)[0]
+        full = (1, *level_shape(level, size), heads, HEAD_DIM)
+        q_all, k_all = (torch.from_numpy(rng.standard_normal(full, dtype=np.float32)).to(device)
+                        for _ in range(2))
+        rpb = torch.from_numpy(rng.standard_normal((heads, 3, 3, 3), dtype=np.float32) * 0.5).to(
+            device)
+        g_all = torch.from_numpy(rng.standard_normal((*full[:4], heads * 3),
+                                                     dtype=np.float32)).to(device)
+        for rank in range(SP_SHARDS):
+            q = q_all[:, rank * dl:(rank + 1) * dl].contiguous()
+            g = g_all[:, rank * dl:(rank + 1) * dl].contiguous()
+            k = halo_k(k_all, rank, dl)
+            shape = tuple(q.shape)
+            what = f"halo-k level {level} rank {rank} q {shape}"
+            out = modet_attention(q, k, rpb, 1.0, k_halo=True)
+            err1 = float((out - modet_attention_plain(q, k, rpb, 1.0, k_halo=True)).abs().max())
+            require(bool(torch.isfinite(out).all()) and err1 <= ATTN_TOL,
+                    f"K1 {what}: max abs err {err1} > {ATTN_TOL}")
+            dq, dl_, part = modet_attention_bwd_dq(q, k, rpb, 1.0, g, k_halo=True)
+            p_dq, p_dl, p_drpb = modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g, k_halo=True)
+            dk = modet_attention_bwd_dk(q, p_dl, 1.0, k_halo=True)
+            p_dk = modet_attention_bwd_dk_plain(q, p_dl, 1.0, k_halo=True)
+            require(dk.shape == k.shape, f"K4 {what}: dk {tuple(dk.shape)}, k {tuple(k.shape)}")
+            drpb = part.sum(0).reshape(heads, 3, 3, 3)
+            errs = {}
+            for name, a, b, tol in (
+                    ("dq", dq, p_dq, BWD_TOL * float(p_dq.abs().max())),
+                    ("dl", dl_, p_dl, BWD_TOL * float(p_dl.abs().max())),
+                    ("drpb", drpb, p_drpb, DRPB_TOL * float(p_dl.abs().sum(dim=(0, 1, 2, 3)).max())),
+                    ("dk", dk, p_dk, BWD_TOL * float(p_dk.abs().max()))):
+                err = float((a - b).abs().max())
+                require(bool(torch.isfinite(a).all()) and err <= tol,
+                        f"{what}: {name} max abs err {err} > {tol}")
+                errs[name] = err
+            # the border slices of dk are the neighbours' cotangents: data, not zeros
+            require(rank == 0 or float(p_dk[:, 0].abs().max()) > 0, f"{what}: dk border is zero")
+            res["K1 halo"]["err"] = max(res["K1 halo"]["err"], err1)
+            res["K3 halo"]["err"] = max(res["K3 halo"]["err"], errs["dq"], errs["dl"], errs["drpb"])
+            res["K4 halo"]["err"] = max(res["K4 halo"]["err"], errs["dk"])
+            line = (f"{what}, k {tuple(k.shape)}: K1 {err1:.3e}, K3 dq {errs['dq']:.3e} dl "
+                    f"{errs['dl']:.3e} drpb {errs['drpb']:.3e}, K4 dk {errs['dk']:.3e}")
+            # the bf16 instances, on the same inputs rounded
+            qb, kb, gb = q.bfloat16(), k.bfloat16(), g.bfloat16()
+            bf16_err(modet_attention(qb, kb, rpb, 1.0, k_halo=True),
+                     modet_attention_plain(qb, kb, rpb, 1.0, k_halo=True), f"bf16 K1 {what}")
+            b_dq, b_dl, b_part = modet_attention_bwd_dq(qb, kb, rpb, 1.0, gb, k_halo=True)
+            pb_dq, pb_dl, pb_drpb = modet_attention_bwd_dq_plain(qb, kb, rpb, 1.0, gb, k_halo=True)
+            bf16_err(b_dq, pb_dq, f"bf16 K3 dq {what}")
+            bf16_err(b_dl, pb_dl, f"bf16 K3 dl {what}")
+            b_err = float((b_part.sum(0).reshape(heads, 3, 3, 3) - pb_drpb).abs().max())
+            b_tol = DRPB_TOL * float(pb_dl.float().abs().sum(dim=(0, 1, 2, 3)).max())
+            require(b_err <= b_tol, f"bf16 K3 drpb {what}: {b_err} > {b_tol}")
+            bf16_err(modet_attention_bwd_dk(qb, pb_dl, 1.0, k_halo=True),
+                     modet_attention_bwd_dk_plain(qb, pb_dl, 1.0, k_halo=True), f"bf16 K4 {what}")
+            line += "; bf16 K1, K3, K4 within 2 ulps"
+            if rank == SP_SHARDS - 1:
+                calls = {"K1 halo": (lambda: modet_attention(q, k, rpb, 1.0, k_halo=True),
+                                     lambda: modet_attention_plain(q, k, rpb, 1.0, k_halo=True),
+                                     "K1"),
+                         "K3 halo": (lambda: modet_attention_bwd_dq(q, k, rpb, 1.0, g, k_halo=True),
+                                     lambda: modet_attention_bwd_dq_plain(q, k, rpb, 1.0, g,
+                                                                          k_halo=True), "K3"),
+                         "K4 halo": (lambda: modet_attention_bwd_dk(q, p_dl, 1.0, k_halo=True),
+                                     lambda: modet_attention_bwd_dk_plain(q, p_dl, 1.0,
+                                                                          k_halo=True), "K4")}
+                for key, (fn, plain_fn, kernel) in calls.items():
+                    t, tp, dev = event_ms(fn, 10), event_ms(plain_fn, 3), device_ms(fn)
+                    work = halo_work(kernel, shape, 4)
+                    r = res[key]
+                    r["ms"] += t
+                    r["plain_ms"] += tp
+                    r["device_ms"] += dev
+                    r["work"] += work
+                    r["by_shape"][attn_label(level, shape)] = {
+                        "ms": t, "device_ms": dev, "bound_ms": bound(*work)[0]}
+                    line += (f"; {key} {t:.4f} ms, device {dev:.4f} (plain {tp:.4f}, bound "
+                             f"{bound(*work)[0]:.4f})")
+            print(line, flush=True)
+        del q_all, k_all, g_all
+        torch.cuda.empty_cache()
+    return res
+
+
+def reach_slices(flow, d0: int, src_depth: int) -> int:
+    """The source slices a D-origin warp by ``flow`` (B, FD, H, W, 3) at
+    origin ``d0`` can touch: from the lower corner of the smallest sample
+    depth d + d0 + flow_d to the upper corner of the largest, within the
+    source's ``src_depth`` slices. The bound counts these, read by K2 and
+    K5 and scattered into by K5; a rank reads only them of the gathered
+    source."""
+    import torch
+
+    depth = (torch.arange(flow.shape[1], dtype=torch.float32, device=flow.device)
+             .reshape(1, -1, 1, 1) + d0 + flow[..., 0])
+    lo = max(int(np.floor(float(depth.min()))), 0)
+    hi = min(int(np.floor(float(depth.max()))) + 1, src_depth - 1)
+    return max(hi - lo + 1, 0)
+
+
+def check_origin_warps(device, size=SIZE):
+    """Phase 30, warps: K2 and K5 in D-origin mode vs their plain versions
+    at the nine warps of a spatial=2 step (local flow slab, source gathered
+    to the full depth, d0 = rank * slab depth), each shard, smooth +-5 and
+    wild +-20 voxel flows: K2 within WARP_TOL of max|src|, K5 d_flow and
+    d_src (over the gathered depth) within BWD_TOL of the plain version's
+    largest; the bf16 instances at the four feature warps within 2 bf16
+    ulps (d_flow BWD_TOL). Times on rank 1's smooth flows, beside
+    `F.grid_sample` (and its backward) on the gathered source; the bounds
+    count only the source slices the flow reaches (`reach_slices`). Returns
+    {"K2 origin" | "K5 origin": dict(err, ms, plain_ms, library_ms,
+    device_ms, work, by_shape)}, ms summed over a step's nine calls."""
+    import torch
+
+    from smilecode_tpu_torch.kernels.warp3d import (
+        warp3d_trilinear,
+        warp3d_trilinear_bwd,
+        warp3d_trilinear_bwd_plain,
+        warp3d_trilinear_plain,
+    )
+
+    rng = np.random.default_rng(31)
+    res = {key: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
+                 "work": np.zeros(2), "by_shape": {}} for key in ("K2 origin", "K5 origin")}
+    for what, c, level in warp_calls():
+        want_dsrc = what != "moved image"
+        full, local = level_shape(level, size), shard_shape(level, size)
+        src = torch.from_numpy(rng.standard_normal((1, *full, c), dtype=np.float32)).to(device)
+        for rank in range(SP_SHARDS):
+            d0 = rank * local[0]
+            g = torch.from_numpy(rng.standard_normal((1, *local, c), dtype=np.float32)).to(device)
+            flows = {"smooth +-5": smooth_flow(local, 5.0, device),
+                     "wild +-20": torch.from_numpy(
+                         rng.uniform(-20, 20, (1, *local, 3)).astype(np.float32)).to(device)}
+            for fname, flow in flows.items():
+                label = f"D-origin {what} C={c} src {full} flow {local} d0={d0} {fname}"
+                out = warp3d_trilinear(src, flow, d0)
+                err2 = float((out - warp3d_trilinear_plain(src, flow, d0)).abs().max())
+                tol2 = WARP_TOL * float(src.abs().max())
+                require(bool(torch.isfinite(out).all()) and err2 <= tol2,
+                        f"K2 {label}: max abs err {err2} > {tol2}")
+                d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, want_dsrc, d0)
+                p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc, d0)
+                pairs = [("d_flow", d_flow, p_flow)] + ([("d_src", d_src, p_src)] if want_dsrc
+                                                        else [])
+                line = f"{label}: K2 {err2:.3e} (tol {tol2:.3e})"
+                for name, a, b in pairs:
+                    err, tol = float((a - b).abs().max()), BWD_TOL * float(b.abs().max())
+                    require(bool(torch.isfinite(a).all()) and err <= tol,
+                            f"K5 {label}: {name} max abs err {err} > {tol}")
+                    res["K5 origin"]["err"] = max(res["K5 origin"]["err"], err)
+                    line += f", K5 {name} {err:.3e} (tol {tol:.3e})"
+                res["K2 origin"]["err"] = max(res["K2 origin"]["err"], err2)
+                if want_dsrc and c > 3 and fname.startswith("smooth") and rank == 1:
+                    sb, gb = src.bfloat16(), g.bfloat16()
+                    bf16_err(warp3d_trilinear(sb, flow, d0), warp3d_trilinear_plain(sb, flow, d0),
+                             f"bf16 K2 {label}")
+                    b_src, b_flow = warp3d_trilinear_bwd(sb, flow, gb, True, d0)
+                    pb_src, pb_flow = warp3d_trilinear_bwd_plain(sb, flow, gb, True, d0)
+                    bf16_err(b_src, pb_src, f"bf16 K5 d_src {label}")
+                    e, t = float((b_flow - pb_flow).abs().max()), BWD_TOL * float(pb_flow.abs().max())
+                    require(e <= t, f"bf16 K5 d_flow {label}: {e} > {t}")
+                    line += "; bf16 K2, K5 within 2 ulps"
+                if rank == SP_SHARDS - 1 and fname.startswith("smooth"):
+                    vox = int(np.prod(local))
+                    src_vox = reach_slices(flow, d0, full[0]) * int(np.prod(full[1:]))
+                    for key, fn, plain_fn, lib_g, work in (
+                            ("K2 origin", lambda: warp3d_trilinear(src, flow, d0),
+                             lambda: warp3d_trilinear_plain(src, flow, d0), None,
+                             warp_work("K2", src_vox, vox, c, 4)),
+                            ("K5 origin", lambda: warp3d_trilinear_bwd(src, flow, g, want_dsrc, d0),
+                             lambda: warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc, d0), g,
+                             warp_work("K5", src_vox, vox, c, 4, want_dsrc))):
+                        t, tp, dev = event_ms(fn, 10), event_ms(plain_fn, 3), device_ms(fn)
+                        lib = library_warp_ms(src, flow, lib_g, want_dsrc, d0=d0)
+                        r = res[key]
+                        r["ms"] += t
+                        r["plain_ms"] += tp
+                        r["device_ms"] += dev
+                        r["library_ms"] += lib or 0.0
+                        r["work"] += work
+                        r["by_shape"][shape_label(c, local, f" src {full[0]}" + (
+                            "" if want_dsrc or key == "K2 origin" else " without d_src"))] = {
+                            "ms": t, "device_ms": dev, "library_ms": lib,
+                            "bound_ms": bound(*work)[0]}
+                        line += (f"; {key} {t:.4f} ms, device {dev:.4f} (plain {tp:.4f}, "
+                                 f"F.grid_sample{' backward' * (key == 'K5 origin')} "
+                                 f"{fmt_ms(lib)}, bound {bound(*work)[0]:.4f})")
+                print(line, flush=True)
+        del src
+        torch.cuda.empty_cache()
+    return res
+
+
+def mode_counts() -> dict:
+    """The halo-k and D-origin launches since the last reset."""
+    from smilecode_tpu_torch.kernels.modet_attn import (
+        modet_attention,
+        modet_attention_bwd_dk,
+        modet_attention_bwd_dq,
+    )
+    from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_bwd
+
+    return {"K1 halo": modet_attention.launches_halo, "K3 halo": modet_attention_bwd_dq.launches_halo,
+            "K4 halo": modet_attention_bwd_dk.launches_halo,
+            "K2 origin": warp3d_trilinear.launches_origin,
+            "K5 origin": warp3d_trilinear_bwd.launches_origin,
+            "K5 origin d_src": warp3d_trilinear_bwd.scatters_origin}
+
+
+def rank_counts(record) -> dict:
+    """A rank record's (`train.main(rank_record=)`) counters under the names
+    of `launch_counts` and `mode_counts`."""
+    lc = record["launches"]
+    names = {"K1": "K1", "K2": "K2", "K3": "K3", "K4": "K4", "K5": "K5"}
+    out = {k: lc[f"{v} launches"] for k, v in names.items()}
+    out["K5 d_src"] = lc["K5 scatters"]
+    out.update({f"{k} halo": lc[f"{k} launches_halo"] for k in ("K1", "K3", "K4")})
+    out.update({"K2 origin": lc["K2 launches_origin"], "K5 origin": lc["K5 launches_origin"],
+                "K5 origin d_src": lc["K5 scatters_origin"]})
+    return out
+
+
+def compare_grads(what, grads, ref):
+    """Phase 9's gates between two gradient dicts {name: array}: each within
+    STEP_GRAD_TOL of the reference's largest magnitude plus STEP_GRAD_FLOOR
+    of the model's largest. Returns the worst err/tol."""
+    gmax = max(float(np.abs(v).max()) for v in ref.values())
+    worst, where = 0.0, ""
+    for name, r in ref.items():
+        g = np.asarray(grads[name])
+        require(bool(np.isfinite(g).all()), f"{what}: gradient {name} not finite")
+        ratio = float(np.abs(g - r).max()) / (STEP_GRAD_TOL * float(np.abs(r).max())
+                                               + STEP_GRAD_FLOOR * gmax)
+        if ratio > worst:
+            worst, where = ratio, name
+    print(f"{what}: worst gradient err/tol {worst:.4f} ({where})", flush=True)
+    require(worst <= 1.0, f"{what}: gradient {where} err/tol {worst:.3f} > 1")
+    return worst
+
+
+def reference_step(cfg, device, batch_size):
+    """The single-process loss and gradients of `train.main`'s model for
+    ``cfg`` (same seed) on its first training batch of ``batch_size`` pairs
+    (same Loader order)."""
+    import torch
+
+    from smilecode_tpu_torch import train
+    from smilecode_tpu_torch.data import Loader
+    from smilecode_tpu_torch.models.registry import build_model, loss_plan
+
+    model = build_model(cfg.model, cfg, device=device,
+                        generator=torch.Generator().manual_seed(cfg.seed))
+    train_set, _ = train._datasets(cfg)
+    x, y = next(iter(Loader(train_set, batch_size=batch_size, shuffle=True, seed=cfg.seed,
+                            num_workers=0, device=device)))
+    loss, _ = train.make_loss_and_grads(model, loss_plan(cfg.model, cfg), list(cfg.weights))(x, y)
+    return float(loss), {n: p.grad.cpu().numpy() for n, p in model.named_parameters()}
+
+
+def run_multi_rank_train(card, device, data_dir, root, **kw):
+    """`train.main` with ``kw`` (dp, spatial, batch_size, max_epoch) on the
+    2 subjects of ``data_dir`` (validated on the same 2 pairs); returns the
+    config, the rank records and the seconds."""
+    import torch
+
+    from smilecode_tpu_torch import train
+    from smilecode_tpu_torch.config import TrainConfig
+
+    cfg = TrainConfig(train_dir=data_dir, val_dir=data_dir, save_root=os.path.join(root, "exp"),
+                      log_root=os.path.join(root, "logs"), num_workers=0, **kw)
+    records = []
+    t0 = time.perf_counter()
+    best = train.main(cfg, rank_record=records)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    require(len(records) == cfg.dp * cfg.spatial and records[0]["best_dsc"] == best,
+            f"train.main returned {len(records)} rank records")
+    for r, rec in enumerate(records):
+        print(f"[{card}] rank {r}: losses {rec['losses']}, host ms per step "
+              f"{[round(t, 3) for t in rec['step_ms']]} (the first with warm-up), peak "
+              f"{rec['peak_gib']:.2f} GiB, launches {rank_counts(rec)}", flush=True)
+        require(bool(np.isfinite(rec["losses"]).all()), f"rank {r}: losses {rec['losses']}")
+    return cfg, records, seconds
+
+
+def run_dp_phase(card, device, tmp, data_dir):
+    """Phase 31: `train.main(dp=2)` at 160x192x160, batch 2, float32, two
+    ranks on the one card (gloo, CUDA tensors): 2 epochs of 1 step (2
+    subjects, 2 ordered pairs), rank 0 validating 2 pairs per epoch. Every
+    rank launches exactly K1 5, K3 5, K4 5, K2 9, K5 9 (8 scatters) per step
+    and no halo-k or D-origin kernel, rank 0 also 5 K1 and 9 K2 per
+    validation pair; the first step's loss and averaged gradients equal the
+    single-process batch-2 step's (phase 9's gates); the parameters after
+    the two steps are the same bits on both ranks."""
+    from smilecode_tpu_torch.config import TrainConfig
+
+    n_steps, n_val = 2, 2 * 2
+    cfg, records, secs = run_multi_rank_train(card, device, data_dir, os.path.join(tmp, "dp"),
+                                              dp=2, batch_size=2, max_epoch=2)
+    per_step = {"K1": 5, "K3": 5, "K4": 5, "K2": 9, "K5": 9, "K5 d_src": 8}
+    for r, rec in enumerate(records):
+        want = {k: v * n_steps for k, v in per_step.items()}
+        if r == 0:
+            want["K1"] += 5 * n_val
+            want["K2"] += 9 * n_val
+        want.update({k: 0 for k in ("K1 halo", "K3 halo", "K4 halo", "K2 origin", "K5 origin",
+                                    "K5 origin d_src")})
+        require(rank_counts(rec) == want, f"dp rank {r}: launches {rank_counts(rec)}, expected {want}")
+    for name, p in records[0]["params"].items():
+        require(np.array_equal(p, records[1]["params"][name]),
+                f"dp: parameter {name} differs between the ranks after {n_steps} steps")
+    loss, grads = reference_step(TrainConfig(**{**cfg.__dict__, "dp": 1}), device, 2)
+    print(f"[{card}] train.main(dp=2) in {secs:.2f} s: first loss {records[0]['losses'][0]:.7f}, "
+          f"single-process batch-2 step {loss:.7f}", flush=True)
+    require(abs(records[0]["losses"][0] - loss) <= STEP_LOSS_TOL * abs(loss),
+            f"dp first loss {records[0]['losses'][0]} vs single-process {loss}")
+    compare_grads("dp=2 step vs the single-process batch-2 step", records[0]["first_grads"], grads)
+    return records
+
+
+def spatial_rank(mesh, data_dir, n_timed):
+    """One rank of phase 32's sharded forward and steps: the seeded ModeT on
+    the first pair of ``data_dir``, this rank's D slab. Returns the slabs of
+    the forward's flow and moved image, the launches of one sharded
+    loss-and-gradients pass, its loss and gradients, host ms of
+    ``n_timed`` sharded training steps and the peak GiB; rank 0 prints a
+    profile of one step (the device's idle share: the collectives' host
+    staging)."""
+    import torch
+
+    from smilecode_tpu_torch.optim import AMSGrad
+    from smilecode_tpu_torch.parallel.losses_sp import (
+        make_spatial_loss_and_grads,
+        make_train_step_spatial,
+    )
+    from smilecode_tpu_torch.parallel.mesh import shard_batch
+    from smilecode_tpu_torch.parallel.modet_sp import modet_forward_spatial
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = seeded_model(mesh.device).train()
+    x, y = shard_batch(mesh, forward_pair(data_dir, mesh.device))
+    with torch.no_grad():
+        moved, flow = modet_forward_spatial(model, x, y, mesh)
+    reset_launch_counts()
+    loss, _ = make_spatial_loss_and_grads(model, mesh)(x, y)
+    torch.cuda.synchronize()
+    counts = {**launch_counts(), **mode_counts()}
+    grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters()}
+    step = make_train_step_spatial(model, AMSGrad(model.parameters(), lr=1e-4), (1.0, 1.0), mesh)
+    step(x, y)  # warm-up
+    if mesh.rank == 0:  # both ranks step: the collectives pair them
+        profile_step(step, x, y, what=f"spatial={mesh.spatial} step (rank 0)")
+    else:
+        step(x, y)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"moved": moved.cpu(), "flow": flow.cpu(), "counts": counts, "loss": float(loss),
+            "grads": grads, "ms": times, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def run_spatial_phase(card, device, tmp, data_dir):
+    """Phase 32: the spatial=2 ModeT step at 160x192x160, float32, two ranks
+    on the card. (a) `train.main(spatial=2)`, 1 epoch of 2 steps: every rank
+    launches exactly K1/K3/K4 5 each in halo-k mode and K2/K5 9 each in
+    D-origin mode (8 scatters) per step, and no other kernel but rank 0's
+    validation forwards (5 K1, 9 K2 per pair); its first loss within
+    STEP_LOSS_TOL of the unsharded step's. (b) The seeded model's sharded
+    forward and loss-and-gradients pass against the unsharded ones: flow
+    within FLOW_TOL voxel, moved image within MOVED_TOL, the loss and every
+    gradient at phase 9's gates, exactly one step's launches, all in the
+    two modes; ms per sharded step and per-rank peak GiB beside the
+    unsharded step's. Returns the rank records of (a)."""
+    import torch
+
+    from smilecode_tpu_torch.config import TrainConfig
+    from smilecode_tpu_torch.models.registry import loss_plan
+    from smilecode_tpu_torch.parallel.mesh import run_ranks
+    from smilecode_tpu_torch.train import make_loss_and_grads
+
+    n_steps, n_val = 2, 2
+    cfg, records, secs = run_multi_rank_train(card, device, data_dir, os.path.join(tmp, "sp"),
+                                              spatial=2, max_epoch=1)
+    sp_step = {"K1": 5, "K3": 5, "K4": 5, "K2": 9, "K5": 9, "K5 d_src": 8, "K1 halo": 5,
+               "K3 halo": 5, "K4 halo": 5, "K2 origin": 9, "K5 origin": 9, "K5 origin d_src": 8}
+    for r, rec in enumerate(records):
+        want = {k: v * n_steps for k, v in sp_step.items()}
+        if r == 0:
+            want["K1"] += 5 * n_val
+            want["K2"] += 9 * n_val
+        require(rank_counts(rec) == want,
+                f"spatial rank {r}: launches {rank_counts(rec)}, expected {want}")
+    loss, _ = reference_step(TrainConfig(**{**cfg.__dict__, "spatial": 1}), device, 1)
+    print(f"[{card}] train.main(spatial=2) in {secs:.2f} s: first loss "
+          f"{records[0]['losses'][0]:.7f}, unsharded {loss:.7f}", flush=True)
+    require(abs(records[0]["losses"][0] - loss) <= STEP_LOSS_TOL * abs(loss),
+            f"spatial first loss {records[0]['losses'][0]} vs unsharded {loss}")
+    torch.cuda.empty_cache()
+
+    ranks = run_ranks(spatial_rank, 1, SP_SHARDS, "cuda", args=(data_dir, N_TIMED_SP))
+    model = seeded_model(device).train()
+    x, y = forward_pair(data_dir, device)
+    with torch.no_grad():
+        moved, flow = model(x, y)
+    s_flow = torch.cat([r["flow"] for r in ranks], 1).to(device)
+    s_moved = torch.cat([r["moved"] for r in ranks], 1).to(device)
+    flow_err = float((s_flow - flow).abs().max())
+    moved_err = float((s_moved - moved).abs().max())
+    print(f"[{card}] spatial=2 forward vs unsharded: flow max |.| {float(flow.abs().max()):.4f} "
+          f"voxel, flow max abs diff {flow_err:.3e}, moved {moved_err:.3e}", flush=True)
+    require(flow_err <= FLOW_TOL and moved_err <= MOVED_TOL,
+            f"spatial forward: flow {flow_err} > {FLOW_TOL} or moved {moved_err} > {MOVED_TOL}")
+    want = {k: 0 for k in launch_counts()}
+    want.update(sp_step)
+    for r, rank in enumerate(ranks):
+        require(rank["counts"] == want, f"spatial pass rank {r}: {rank['counts']}, expected {want}")
+    del moved, flow, s_flow, s_moved
+    u_loss, _ = make_loss_and_grads(model, loss_plan("modet"), (1.0, 1.0))(x, y)
+    u_grads = {n: p.grad.cpu().numpy() for n, p in model.named_parameters()}
+    times, peak, _ = time_steps({"unsharded": model}, x, y, n=N_TIMED_SP)
+    print(f"[{card}] spatial=2 loss {ranks[0]['loss']:.7f}, unsharded {float(u_loss):.7f}",
+          flush=True)
+    require(ranks[0]["loss"] == ranks[1]["loss"], "spatial ranks disagree on the loss")
+    require(abs(ranks[0]["loss"] - float(u_loss)) <= STEP_LOSS_TOL * abs(float(u_loss)),
+            f"spatial loss {ranks[0]['loss']} vs unsharded {float(u_loss)}")
+    compare_grads("spatial=2 step vs the unsharded step", ranks[0]["grads"], u_grads)
+    print(f"[{card}] ModeT 160x192x160 training step, spatial=2 on one card (2 ranks, gloo), "
+          f"median of {N_TIMED_SP}: " + ", ".join(
+              f"rank {r} {statistics.median(rk['ms']):.3f} ms (peak {rk['peak_gib']:.2f} GiB)"
+              for r, rk in enumerate(ranks))
+          + f"; unsharded {statistics.median(times['unsharded']):.3f} ms (peak "
+            f"{peak['unsharded']:.2f} GiB)", flush=True)
+    del model, x, y
+    torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -2659,6 +3213,20 @@ def main() -> int:
         phase(29, "Analyze subjects -> make_pkl_dataset -> native vs numpy -> infer.main; a trace")
         run_data_tools_phase(card, device, tmp, model_dir)
 
+        phase(30, "halo-k K1/K3/K4 and D-origin K2/K5 vs plain at the spatial=2 slabs")
+        modes = {**check_halo_attention(device), **check_origin_warps(device)}
+        for key, r in modes.items():
+            print(f"[{card}] {key} per spatial=2 step (rank 1's slabs): {r['ms']:.4f} ms, device "
+                  f"{r['device_ms']:.4f} (plain {r['plain_ms']:.4f}"
+                  + (f", F.grid_sample{' backward' * key.startswith('K5')} {r['library_ms']:.4f}"
+                     if "library_ms" in r else "")
+                  + f"); bound {bound(*r['work'])[0]:.4f} ms; max_abs_err {r['err']:.3e}",
+                  flush=True)
+        phase(31, "train.main(dp=2): two ranks on the card vs the single-process batch-2 step")
+        run_dp_phase(card, device, tmp, val_dir)
+        phase(32, "the spatial=2 ModeT step: train.main(spatial=2), the sharded step vs unsharded")
+        sp_counts = rank_counts(run_spatial_phase(card, device, tmp, val_dir)[0])
+
     def entry(name, source, line, key, err, ms, plain_ms, work, library_ms=None, counts=None,
               by_shape=None, device=None):
         bound_ms, bound_by = bound(*work)
@@ -2667,7 +3235,7 @@ def main() -> int:
                "launches": (counts or train_counts)[key],
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library_ms}
-        if device is not None:  # K1, K3, K4: device ms over the path's calls
+        if device is not None:  # device ms over the path's calls
             rec["device_ms"] = device
         if by_shape:  # per distinct shape, ms per call; K2, K5 also the path it took
             fields = dict.fromkeys(f for v in by_shape.values() for f in v)
@@ -2691,6 +3259,13 @@ def main() -> int:
         return entry(name, source, line, key, r["err"], r["ms"], r["plain_ms"], tuple(r["work"]),
                      r["library_ms"], zoo_counts, r["by_shape"])
 
+    def mode_entry(name, source, line, key):
+        """The five kernel modes of the D-sharded step: phase 30's times,
+        rank 0's launches in phase 32's train.main(spatial=2)."""
+        r = modes[key]
+        return entry(name, source, line, key, r["err"], r["ms"], r["plain_ms"], tuple(r["work"]),
+                     r.get("library_ms"), sp_counts, r["by_shape"], r["device_ms"])
+
     def probe_entry(kernel, r):
         """P1-P4: ms per call over the scripts' runs; they replace the root
         probe scripts' kernels (``serves``), not the package's."""
@@ -2708,11 +3283,13 @@ def main() -> int:
         entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1", k1_err, k1_ms,
               k1_plain_ms, k1_work, by_shape=k1_shapes, device=k1_dev),
         entry("warp3d_trilinear_fwd", "warp3d.cu", "warp3d_v4.py:104", "K2", k2_err, k2_ms,
-              k2_plain_ms, k2_work, k2_lib_ms, by_shape=k2_shapes),
+              k2_plain_ms, k2_work, k2_lib_ms, by_shape=k2_shapes,
+              device=warp_path_device_ms(k2_shapes)),
         bwd_entry("modet_attn_bwd_dq", "modet_attn.py:183", "K3"),
         bwd_entry("modet_attn_bwd_dk", "modet_attn.py:256", "K4"),
         entry("warp3d_trilinear_bwd", "warp3d_bwd.cu", "warp3d_v4.py:339", "K5", k5_err, k5_ms,
-              k5_plain_ms, k5_work, k5_lib_ms, by_shape=k5_shapes),
+              k5_plain_ms, k5_work, k5_lib_ms, by_shape=k5_shapes,
+              device=warp_path_device_ms(k5_shapes, bwd=True)),
         entry("modet_attn_fwd (Im2grid: 1 head, no rpb)", "modet_attn.cu", "modet_attn.py:56",
               "K1", g_err, g_ms, g_plain_ms, g_work, None, base_counts, g_shapes, g_dev),
         entry("warp3d_trilinear_fwd (ops.warp impl=pallas|guarded, baselines)", "warp3d.cu",
@@ -2732,6 +3309,16 @@ def main() -> int:
         zoo_entry("warp3d_trilinear_bwd (baseline zoo: phase 20 shapes, phase 23 training)",
                   "warp3d_bwd.cu", "warp3d_v4.py:339", "K5"),
         *(probe_entry(kernel, r) for kernel, r in probe_recs.items()),
+        mode_entry("modet_attn_fwd (halo-k, spatial=2)", "modet_attn.cu", "modet_attn.py:56",
+                   "K1 halo"),
+        mode_entry("modet_attn_bwd_dq (halo-k, spatial=2)", "modet_attn_bwd.cu",
+                   "modet_attn.py:183", "K3 halo"),
+        mode_entry("modet_attn_bwd_dk (halo-k, dk of D+2 slices, spatial=2)", "modet_attn_bwd.cu",
+                   "modet_attn.py:256", "K4 halo"),
+        mode_entry("warp3d_trilinear_fwd (D origin, gathered source, spatial=2)", "warp3d.cu",
+                   "warp3d_v4.py:104", "K2 origin"),
+        mode_entry("warp3d_trilinear_bwd (D origin, gathered source, spatial=2)",
+                   "warp3d_bwd.cu", "warp3d_v4.py:339", "K5 origin"),
     ]}
     print(f"phase seconds: {phase_times(t_start)}")
     print(card_line())

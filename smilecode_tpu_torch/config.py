@@ -7,8 +7,9 @@ Left out: the JAX-only `fast_path` knob (planes-layout TPU decoder) and
 does not). Both configs carry the dataset variant (``dataset`` s2s, half or
 atlas, with ``atlas_path``) and the baselines' structural knobs (RCN's
 ``n_cascade``, RDN's ``stages``, ``levels`` and MC-dropout
-``dropout_rate``). `check_train_config` raises `NotImplementedError` for
-the training knobs whose paths are not ported yet (multi-GPU). Added:
+``dropout_rate``). `check_train_config` checks the knobs that need no
+data: the dtype, and the multi-GPU ``dp`` and ``spatial`` (ModeT alone is
+D-sharded, in float32, as in the JAX package). Added:
 ``device`` (both configs), where `train.main` and `infer.main` run: "cuda"
 (the default; they raise without a card) or "cpu".
 """
@@ -52,7 +53,8 @@ class TrainConfig:
     atlas_path: str = ""
     # "cuda" runs on the card and raises without one; "cpu" asks for the CPU
     device: str = "cuda"
-    # data-parallel devices and D-axis shards (only 1 is ported)
+    # data-parallel ranks and D-axis shards (ModeT only): dp * spatial > 1
+    # spawns that many rank processes (`train.main`)
     dp: int = 1
     spatial: int = 1
     # RCN: number of cascaded VTNs (the reference trains 10)
@@ -78,14 +80,23 @@ class TrainConfig:
 
 
 def check_train_config(cfg: TrainConfig) -> None:
-    """Raise `NotImplementedError`, naming the ROADMAP item, for a knob whose
-    path the port does not have yet."""
-    if cfg.dp != 1 or cfg.spatial != 1:
-        raise NotImplementedError(f"dp={cfg.dp}, spatial={cfg.spatial}: multi-GPU training is "
-                                  "not ported yet (ROADMAP.md queue 1, item 10)")
+    """Raise `ValueError` for knobs that cannot run together: an unknown
+    compute dtype; dp or spatial below 1; spatial > 1 with a model other
+    than ModeT (`smilecode_tpu/train.py:234-244`) or with bfloat16 (JAX's
+    spatial graph has no dtype argument and runs float32,
+    `smilecode_tpu/parallel/modet_planes_sp.py:523-531`). The checks that
+    need the data are `train.check_shards`'."""
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                          f"got {cfg.compute_dtype!r}")
+    if cfg.dp < 1 or cfg.spatial < 1:
+        raise ValueError(f"dp and spatial must be >= 1, got dp={cfg.dp}, spatial={cfg.spatial}")
+    if cfg.spatial > 1 and not cfg.model.lower().startswith("modet"):
+        raise ValueError(f"spatial={cfg.spatial} shards the ModeT graph; model={cfg.model!r} is "
+                         "not supported (use dp instead)")
+    if cfg.spatial > 1 and cfg.compute_dtype:
+        raise ValueError(f"spatial={cfg.spatial} runs float32 only, as the JAX package's "
+                         f"D-sharded graph does; got compute_dtype={cfg.compute_dtype!r}")
 
 
 @dataclasses.dataclass

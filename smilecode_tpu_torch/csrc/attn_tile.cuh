@@ -29,6 +29,14 @@
 // The brick (bh, bw, cd) and the copy width come from the Python wrapper
 // (kernels/modet_attn.py:attn_geometry), which also sizes the drpb partials
 // of K3 from the same grid.
+//
+// Halo-k mode (koff = 1; the D-sharded training step,
+// smilecode_tpu/kernels/modet_attn.py:109-134 with k_prepadded_d=True): k
+// has kD = D+2 slices, its first and last the neighbour shards' slices (zeros
+// at the global ends, from the halo exchange). Query slice d reads k slices
+// d-1..d+1 at k's own indices d..d+2, so only the D test of the copy changes:
+// those border slices are data, not zero fill; H and W keep their zero
+// border. K4 then writes dk for all kD slices (modet_attn_bwd.cu).
 
 #pragma once
 
@@ -53,6 +61,8 @@ struct Brick {
   int row;          // heads*hd values per voxel
   int pitch;        // bw + 2 voxels per halo row of a slot
   int slot_elems;   // values of T per ring slot (a multiple of 16 bytes)
+  int kD, koff;     // k's (and K4's dk's) slices and the offset of query slice 0 in them:
+                    // D and 0, or D+2 and 1 in halo-k mode
 };
 
 template <typename T>
@@ -62,13 +72,14 @@ __host__ __device__ inline int slot_elems(int bh, int bw, int row) {
 }
 
 // The brick of a launch, or false when the arguments cannot be launched:
-// non-positive sizes, a block over kMaxThreads, or a copy width that the
-// row or k's address does not allow.
+// non-positive sizes, a block over kMaxThreads, a koff other than 0 or 1,
+// or a copy width that the row or k's address does not allow.
 template <typename T>
 inline bool make_brick(Brick& g, int D, int H, int W, int heads, int hd, int bh, int bw, int cd,
-                       int unit, const void* k) {
-  g = Brick{D, H, W, heads, hd, bh, bw, cd, unit, heads * hd, bw + 2, 0};
-  if (D <= 0 || H <= 0 || W <= 0 || heads <= 0 || hd <= 0 || bh <= 0 || bw <= 0 || cd <= 0)
+                       int unit, const void* k, int koff) {
+  g = Brick{D, H, W, heads, hd, bh, bw, cd, unit, heads * hd, bw + 2, 0, D + 2 * koff, koff};
+  if (D <= 0 || H <= 0 || W <= 0 || heads <= 0 || hd <= 0 || bh <= 0 || bw <= 0 || cd <= 0 ||
+      (koff != 0 && koff != 1))
     return false;
   if (static_cast<long long>(bh) * bw * heads > kMaxThreads) return false;
   const int row_bytes = g.row * static_cast<int>(sizeof(T));
@@ -105,7 +116,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 template <typename T, int U>
-__device__ __forceinline__ void load_slice_units(T* slot, const T* k, long long bd, int d, int h0,
+__device__ __forceinline__ void load_slice_units(T* slot, const T* k, long long bk, int d, int h0,
                                                  int w0, const Brick& g) {
   // a halo row of the slot, (bw+2) voxel rows, is contiguous in k and in the
   // slot, and only its ends can lie outside the volume in w: groups of up to
@@ -117,13 +128,14 @@ __device__ __forceinline__ void load_slice_units(T* slot, const T* k, long long 
   const int lanes = min(32, static_cast<int>(blockDim.x));
   const int groups = blockDim.x / lanes, grp = threadIdx.x / lanes, lane = threadIdx.x % lanes;
   if (grp >= groups) return;
-  const bool d_in = d >= 0 && d < g.D;
+  const int dk = d + g.koff;  // k's own index of query-coordinate slice d
+  const bool d_in = dk >= 0 && dk < g.kD;
   const char* kb = reinterpret_cast<const char*>(k);
   char* sb = reinterpret_cast<char*>(slot);
   for (int hh = grp; hh < g.bh + 2; hh += groups) {
     const int h = h0 - 1 + hh;
     const bool row_in = d_in && h >= 0 && h < g.H;
-    const long long base = (((bd + d) * g.H + h) * g.W + w0 - 1) * static_cast<long long>(row_bytes);
+    const long long base = (((bk + dk) * g.H + h) * g.W + w0 - 1) * static_cast<long long>(row_bytes);
     for (int b = lane * U; b < span; b += lanes * U) {
       const bool inside = row_in && b >= lo && b < hi;
       // 0 bytes read: the slot gets zeros
@@ -132,18 +144,19 @@ __device__ __forceinline__ void load_slice_units(T* slot, const T* k, long long 
   }
 }
 
-// Issue the copy of k slice d (zeros outside the volume) of the brick at
-// (h0, w0) of batch element b (bd = b*D) into ring slot ``slot``. The copy is
-// asynchronous for units of 4-16 bytes: cp_async_commit, cp_async_wait_all
-// and __syncthreads make it visible.
+// Issue the copy of the k slice that query slice d reads as its od = 1
+// neighbour (zeros outside the volume, and outside k's kD slices) of the
+// brick at (h0, w0) of batch element b (bk = b*kD) into ring slot ``slot``.
+// The copy is asynchronous for units of 4-16 bytes: cp_async_commit,
+// cp_async_wait_all and __syncthreads make it visible.
 template <typename T>
-__device__ __forceinline__ void load_slice(T* slot, const T* k, long long bd, int d, int h0, int w0,
+__device__ __forceinline__ void load_slice(T* slot, const T* k, long long bk, int d, int h0, int w0,
                                            const Brick& g) {
   switch (g.unit) {
-    case 16: load_slice_units<T, 16>(slot, k, bd, d, h0, w0, g); break;
-    case 8: load_slice_units<T, 8>(slot, k, bd, d, h0, w0, g); break;
-    case 4: load_slice_units<T, 4>(slot, k, bd, d, h0, w0, g); break;
-    default: load_slice_units<T, 2>(slot, k, bd, d, h0, w0, g); break;
+    case 16: load_slice_units<T, 16>(slot, k, bk, d, h0, w0, g); break;
+    case 8: load_slice_units<T, 8>(slot, k, bk, d, h0, w0, g); break;
+    case 4: load_slice_units<T, 4>(slot, k, bk, d, h0, w0, g); break;
+    default: load_slice_units<T, 2>(slot, k, bk, d, h0, w0, g); break;
   }
 }
 
@@ -425,24 +438,26 @@ __device__ __forceinline__ Seat seat(int h0, int w0, const Brick& g) {
 }
 
 // Block coordinates: the brick origin (h0, w0), the batch element b and the
-// d range [d0, d1) of this block.
+// d range [d0, d1) of this block, of the ``depth`` slices its grid chunks
+// (D for K1 and K3, whose blocks walk query slices; kD for K4, whose blocks
+// walk dk slices).
 struct Origin {
   int h0, w0, b, d0, d1;
 };
 
-__device__ __forceinline__ Origin origin(const Brick& g) {
+__device__ __forceinline__ Origin origin(const Brick& g, int depth) {
   Origin o;
-  const int chunks = (g.D + g.cd - 1) / g.cd;
+  const int chunks = (depth + g.cd - 1) / g.cd;
   o.w0 = blockIdx.x * g.bw;
   o.h0 = blockIdx.y * g.bh;
   o.b = blockIdx.z / chunks;
   o.d0 = (blockIdx.z % chunks) * g.cd;
-  o.d1 = min(o.d0 + g.cd, g.D);
+  o.d1 = min(o.d0 + g.cd, depth);
   return o;
 }
 
-inline dim3 grid_of(long long B, const Brick& g) {
-  const long long chunks = (g.D + g.cd - 1) / g.cd;
+inline dim3 grid_of(long long B, const Brick& g, int depth) {
+  const long long chunks = (depth + g.cd - 1) / g.cd;
   return dim3(static_cast<unsigned>((g.W + g.bw - 1) / g.bw),
               static_cast<unsigned>((g.H + g.bh - 1) / g.bh), static_cast<unsigned>(B * chunks));
 }
@@ -451,10 +466,10 @@ inline dim3 grid_of(long long B, const Brick& g) {
 // the bias rows (rpb or zeros) into bias[heads*27], and wait for them.
 template <typename T>
 __device__ __forceinline__ void stage_prologue(T* ring, float* bias, const T* k, const float* rpb,
-                                               long long bd, const Origin& o, const Brick& g) {
+                                               long long bk, const Origin& o, const Brick& g) {
   for (int i = threadIdx.x; i < g.heads * 27; i += blockDim.x) bias[i] = rpb ? rpb[i] : 0.f;
   for (int i = 0; i < 3; ++i)
-    load_slice(ring + i * g.slot_elems, k, bd, o.d0 - 1 + i, o.h0, o.w0, g);
+    load_slice(ring + i * g.slot_elems, k, bk, o.d0 - 1 + i, o.h0, o.w0, g);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();

@@ -12,7 +12,8 @@
 //
 // Layout: q, k (B, D, H, W, heads, hd) contiguous, float32 or bf16 (T, see
 // io_types.cuh); rpb (heads, 27) float32 or null; out (B, D, H, W, heads*3)
-// in T. With bf16 q and k the logits, the softmax and the
+// in T. In halo-k mode (koff = 1, attn_tile.cuh) k is (B, D+2, H, W, heads,
+// hd), its border slices the neighbour shards' (the D-sharded step). With bf16 q and k the logits, the softmax and the
 // accumulators stay float32 and only the output is rounded to bf16, as the
 // JAX forward casts its float32 result to q's dtype (modet_attn.py:180);
 // q is scaled in its own type first, as there (`qs * dtype(scale)`, :132).
@@ -51,9 +52,10 @@ modet_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
   float* bias = reinterpret_cast<float*>(smem + kRing * g.slot_elems * sizeof(T));
-  const Origin o = origin(g);
+  const Origin o = origin(g, g.D);
   const long long bd = static_cast<long long>(o.b) * g.D;
-  stage_prologue(ring, bias, k, rpb, bd, o, g);
+  const long long bk = static_cast<long long>(o.b) * g.kD;
+  stage_prologue(ring, bias, k, rpb, bk, o, g);
   const Seat me = seat(o.h0, o.w0, g);
   const float qscale = round_to<T>(scale);
   const float* bs = bias + me.head * 27;
@@ -64,7 +66,7 @@ modet_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int d = o.d0; d < o.d1; ++d, idx += step) {
     const int j = d - o.d0;  // slots j, j+1, j+2 hold slices d-1, d, d+1
-    if (d + 2 <= o.d1) load_slice(ring + ((j + 3) % kRing) * g.slot_elems, k, bd, d + 2, o.h0, o.w0, g);
+    if (d + 2 <= o.d1) load_slice(ring + ((j + 3) % kRing) * g.slot_elems, k, bk, d + 2, o.h0, o.w0, g);
     cp_async_commit();
     if (me.active) {
       float qr[MAX_HD];
@@ -109,16 +111,16 @@ int launch(const T* q, const T* k, const float* rpb, T* out, long long B, const 
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid_of(B, g), g.bh * g.bw * g.heads, smem, stream>>>(q, k, rpb, out, g, scale);
+  kernel<<<grid_of(B, g, g.D), g.bh * g.bw * g.heads, smem, stream>>>(q, k, rpb, out, g, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int fwd(const T* q, const T* k, const float* rpb, T* out, long long B, int D, int H, int W,
-        int heads, int hd, float scale, int bh, int bw, int cd, int unit, void* stream) {
+        int heads, int hd, float scale, int bh, int bw, int cd, int unit, int koff, void* stream) {
   if (B * D * H * W * heads == 0) return static_cast<int>(cudaSuccess);
   Brick g;
-  if (B < 0 || !make_brick<T>(g, D, H, W, heads, hd, bh, bw, cd, unit, k))
+  if (B < 0 || !make_brick<T>(g, D, H, W, heads, hd, bh, bw, cd, unit, k, koff))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool pairs = hd % 2 == 0;
@@ -140,17 +142,20 @@ int fwd(const T* q, const T* k, const float* rpb, T* out, long long B, int D, in
 // Both return cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a brick (bh, bw, cd) or copy width (unit bytes)
 // the shapes or k's address do not allow (kernels/modet_attn.py:attn_geometry).
+// koff: 0, or 1 for halo-k mode (k of D+2 slices).
 extern "C" int smilecode_modet_attn_fwd(const float* q, const float* k, const float* rpb,
                                         float* out, long long B, int D, int H, int W,
                                         int heads, int hd, float scale, int bh, int bw, int cd,
-                                        int unit, void* stream) {
-  return fwd<float>(q, k, rpb, out, B, D, H, W, heads, hd, scale, bh, bw, cd, unit, stream);
+                                        int unit, int koff, void* stream) {
+  return fwd<float>(q, k, rpb, out, B, D, H, W, heads, hd, scale, bh, bw, cd, unit, koff,
+                    stream);
 }
 
 extern "C" int smilecode_modet_attn_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                              const float* rpb, __nv_bfloat16* out, long long B,
                                              int D, int H, int W, int heads, int hd, float scale,
-                                             int bh, int bw, int cd, int unit, void* stream) {
-  return fwd<__nv_bfloat16>(q, k, rpb, out, B, D, H, W, heads, hd, scale, bh, bw, cd, unit,
+                                             int bh, int bw, int cd, int unit, int koff,
+                                             void* stream) {
+  return fwd<__nv_bfloat16>(q, k, rpb, out, B, D, H, W, heads, hd, scale, bh, bw, cd, unit, koff,
                             stream);
 }

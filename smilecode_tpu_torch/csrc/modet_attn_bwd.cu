@@ -18,6 +18,12 @@
 // Layout: q, k, dq, dk (B, D, H, W, heads, hd) contiguous; rpb (heads, 27)
 // float32 or null; g (B, D, H, W, heads, 3); dl (B, D, H, W, heads, 27)
 // (written by K3, read by K4); drpb_part (K3's blocks, heads, 27) float32.
+// In halo-k mode (koff = 1, the D-sharded step; _backward_planes with
+// k_prepadded_d=True, modet_attn.py:367-372, :464-465) k and dk have D+2
+// slices: K3 reads k's border slices as data, and K4 writes dk for all D+2,
+// its slices 0 and D+1 (query coordinates -1 and D, where no q lies) the
+// cotangents of the window's outer taps, which the halo exchange's transpose
+// carries back to the neighbour shards.
 // q, k, g, dq, dl and dk share one storage type T, float32 or bf16
 // (io_types.cuh). With bf16 the softmax is recomputed in float32 from the
 // bf16 q and k (q scaled in bf16 as the forward scales it); dl, dq and the
@@ -113,9 +119,10 @@ modet_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float part[27];  // this thread's sum of dl_t over the block's d range
 #pragma unroll
   for (int t = 0; t < 27; ++t) part[t] = 0.f;
-  const Origin o = origin(g);
+  const Origin o = origin(g, g.D);
   const long long bd = static_cast<long long>(o.b) * g.D;
-  stage_prologue(ring, bias, k, rpb, bd, o, g);
+  const long long bk = static_cast<long long>(o.b) * g.kD;
+  stage_prologue(ring, bias, k, rpb, bk, o, g);
   const Seat me = seat(o.h0, o.w0, g);
   const float qscale = round_to<T>(scale);
   const float* bs = bias + me.head * 27;
@@ -133,7 +140,7 @@ modet_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int d = o.d0; d < o.d1; ++d, idx += step) {
     const int j = d - o.d0;  // slots j, j+1, j+2 hold slices d-1, d, d+1
-    if (d + 2 <= o.d1) load_slice(ring + ((j + 3) % kRing) * g.slot_elems, k, bd, d + 2, o.h0, o.w0, g);
+    if (d + 2 <= o.d1) load_slice(ring + ((j + 3) % kRing) * g.slot_elems, k, bk, d + 2, o.h0, o.w0, g);
     cp_async_commit();
     // index of the first dl value of the slice's brick w-row 0; row hl
     // starts hl*hstep later, and its tile row holds it from position
@@ -315,17 +322,21 @@ __device__ __forceinline__ void store_dk(T* p, const float (&acc)[MAX_HD], int h
 // walks the source slices d0-1 .. d1 of its chunk that lie in the volume
 // (outside ones give nothing, as in the plain version). dk[x] sums its 27
 // terms slice by slice (x_d-1, x_d, x_d+1), (oh, ow) ascending in each: not
-// the plain version's t order, the same float32 terms.
+// the plain version's t order, the same float32 terms. The grid chunks dk's
+// kD slices; in halo-k mode a chunk's query coordinates [x0, x1) are its dk
+// slices less one, so the first and last chunks reach x = -1 and x = D,
+// whose only sources are slices 0 and D-1.
 template <typename T, int MAX_HD, bool PAIRS>
 __global__ void __launch_bounds__(kMaxThreads, MAX_HD > 8 ? 1 : sizeof(T) == 2 ? 4 : 2)
 modet_attn_bwd_dk_kernel(const T* __restrict__ q, const T* __restrict__ dl, T* __restrict__ dk,
                          DkStage st, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Brick& g = st.g;
-  const Origin o = origin(g);
+  const Origin o = origin(g, g.kD);
+  const int x0 = o.d0 - g.koff, x1 = o.d1 - g.koff;  // the chunk's dk slices, query coordinates
   const long long bd = static_cast<long long>(o.b) * g.D;
   const Seat me = seat(o.h0, o.w0, g);
-  const int s0 = max(o.d0 - 1, 0), s1 = min(o.d1, g.D - 1);  // source slices, inclusive
+  const int s0 = max(x0 - 1, 0), s1 = min(x1, g.D - 1);  // source slices, inclusive
   const int hd = MAX_HD % 8 ? MAX_HD : g.hd;  // MAX_HD 6: exactly ModeT's head_dim
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + kDkRing * st.slot);
   if (threadIdx.x == 0) {
@@ -341,7 +352,10 @@ modet_attn_bwd_dk_kernel(const T* __restrict__ q, const T* __restrict__ dl, T* _
   __syncthreads();
 
   const long long step = static_cast<long long>(g.H) * g.W * g.heads;  // rows per d-slice
-  const long long row0 = ((bd * g.H + me.h) * g.W + me.w) * g.heads + me.head;  // dk row at d = 0
+  // dk row at query coordinate 0 (dk slice koff)
+  const long long row0 =
+      (((static_cast<long long>(o.b) * g.kD + g.koff) * g.H + me.h) * g.W + me.w) * g.heads +
+      me.head;
   // this thread's dl and q rows of halo voxel (hl, wl) in a slot, before the
   // slot row's shift
   const int lown = me.hl * st.lpitch + (me.wl * g.heads + me.head) * 27 * static_cast<int>(sizeof(T));
@@ -356,7 +370,7 @@ modet_attn_bwd_dk_kernel(const T* __restrict__ q, const T* __restrict__ dl, T* _
     const int f = s - s0 + 1;  // fill number of slice s+1: slot f & 1, its (f >> 1)-th use
     if (s < s1) load_dk_slice(smem + (f & 1) * st.slot, q, dl, bd, s + 1, o, st, bars + (f & 1));
     cp_async_commit();
-    const bool u0 = s > o.d0, u1 = s >= o.d0 && s < o.d1, u2 = s + 1 < o.d1;
+    const bool u0 = s > x0, u1 = s >= x0 && s < x1, u2 = s + 1 < x1;
     if (me.active) {
 #pragma unroll
       for (int oh = 0; oh < 3; ++oh) {
@@ -414,8 +428,12 @@ modet_attn_bwd_dk_kernel(const T* __restrict__ q, const T* __restrict__ dl, T* _
     if (st.mixed) fence_proxy_async();  // unit writes before a later bulk copy's
     __syncthreads();
   }
-  // with d1 = D the last slice is d1-1: its dk waits in a0
-  if (me.active && s1 < o.d1) store_dk<T, MAX_HD, PAIRS>(dk + (row0 + s1 * step) * hd, a0, hd, scale);
+  // dk at s1 waits in a0 (with x1 = D: the last slice, D-1), and in halo-k
+  // mode dk at s1 + 1 = D in a1
+  if (me.active) {
+    if (s1 >= x0 && s1 < x1) store_dk<T, MAX_HD, PAIRS>(dk + (row0 + s1 * step) * hd, a0, hd, scale);
+    if (s1 + 1 < x1) store_dk<T, MAX_HD, PAIRS>(dk + (row0 + (s1 + 1) * step) * hd, a1, hd, scale);
+  }
 }
 
 template <typename T, int MAX_HD, bool PAIRS>
@@ -427,7 +445,7 @@ int launch_dq(const T* q, const T* k, const float* rpb, const T* g, T* dq, T* dl
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<grid_of(B, geo), geo.bh * geo.bw * geo.heads, smem, stream>>>(q, k, rpb, g, dq, dl,
+  kernel<<<grid_of(B, geo, geo.D), geo.bh * geo.bw * geo.heads, smem, stream>>>(q, k, rpb, g, dq, dl,
                                                                          part, geo, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -435,10 +453,10 @@ int launch_dq(const T* q, const T* k, const float* rpb, const T* g, T* dq, T* dl
 template <typename T>
 int bwd_dq(const T* q, const T* k, const float* rpb, const T* g, T* dq, T* dl, float* drpb_part,
            long long B, int D, int H, int W, int heads, int hd, float scale, int bh, int bw,
-           int cd, int unit, void* stream) {
+           int cd, int unit, int koff, void* stream) {
   if (B * D * H * W * heads == 0) return static_cast<int>(cudaSuccess);
   Brick geo;
-  if (B < 0 || !make_brick<T>(geo, D, H, W, heads, hd, bh, bw, cd, unit, k) ||
+  if (B < 0 || !make_brick<T>(geo, D, H, W, heads, hd, bh, bw, cd, unit, k, koff) ||
       reinterpret_cast<unsigned long long>(dl) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -466,13 +484,13 @@ int launch_dk(const T* q, const T* dl, T* dk, long long B, const DkStage& st, fl
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Brick& g = st.g;
-  kernel<<<grid_of(B, g), g.bh * g.bw * g.heads, smem, stream>>>(q, dl, dk, st, scale);
+  kernel<<<grid_of(B, g, g.kD), g.bh * g.bw * g.heads, smem, stream>>>(q, dl, dk, st, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int bwd_dk(const T* q, const T* dl, T* dk, long long B, int D, int H, int W, int heads, int hd,
-           float scale, int bh, int bw, int cd, void* stream) {
+           float scale, int bh, int bw, int cd, int koff, void* stream) {
   if (B * D * H * W * heads == 0) return static_cast<int>(cudaSuccess);
   const auto addr = [](const void* p) { return reinterpret_cast<unsigned long long>(p); };
   const int isz = static_cast<int>(sizeof(T));
@@ -480,10 +498,10 @@ int bwd_dk(const T* q, const T* dl, T* dk, long long B, int D, int H, int W, int
   while (addr(q) % qunit) qunit /= 2;
   if (B < 0 || D <= 0 || H <= 0 || W <= 0 || heads <= 0 || hd <= 0 || bh <= 0 || bw <= 0 ||
       cd <= 0 || static_cast<long long>(bh) * bw * heads > kMaxThreads || addr(dl) % 16 ||
-      qunit < isz || addr(dk) % isz)
+      qunit < isz || addr(dk) % isz || (koff != 0 && koff != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   DkStage st;
-  st.g = Brick{D, H, W, heads, hd, bh, bw, cd, qunit, heads * hd, bw + 2, 0};
+  st.g = Brick{D, H, W, heads, hd, bh, bw, cd, qunit, heads * hd, bw + 2, 0, D + 2 * koff, koff};
   st.lrow = heads * 27 * isz;
   st.qrow = heads * hd * isz;
   st.lpitch = span_pitch(bw, st.lrow);
@@ -519,14 +537,15 @@ int bwd_dk(const T* q, const T* dl, T* dk, long long B, int D, int H, int W, int
 // K3 returns cudaErrorInvalidValue for a brick (bh, bw, cd) or copy width
 // (unit bytes) the shapes or k's address do not allow, or a dl that is not
 // 16-byte aligned (kernels/modet_attn.py:attn_geometry); its drpb_part is
-// (blocks of that brick's grid, heads, 27).
+// (blocks of that brick's grid, heads, 27). koff: 0, or 1 for halo-k mode (k
+// and K4's dk of D+2 slices).
 extern "C" int smilecode_modet_attn_bwd_dq(const float* q, const float* k, const float* rpb,
                                            const float* g, float* dq, float* dl,
                                            float* drpb_part, long long B, int D, int H, int W,
                                            int heads, int hd, float scale, int bh, int bw, int cd,
-                                           int unit, void* stream) {
+                                           int unit, int koff, void* stream) {
   return bwd_dq<float>(q, k, rpb, g, dq, dl, drpb_part, B, D, H, W, heads, hd, scale, bh, bw, cd,
-                       unit, stream);
+                       unit, koff, stream);
 }
 
 extern "C" int smilecode_modet_attn_bwd_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
@@ -534,21 +553,21 @@ extern "C" int smilecode_modet_attn_bwd_dq_bf16(const __nv_bfloat16* q, const __
                                                 __nv_bfloat16* dq, __nv_bfloat16* dl,
                                                 float* drpb_part, long long B, int D, int H,
                                                 int W, int heads, int hd, float scale, int bh,
-                                                int bw, int cd, int unit, void* stream) {
+                                                int bw, int cd, int unit, int koff, void* stream) {
   return bwd_dq<__nv_bfloat16>(q, k, rpb, g, dq, dl, drpb_part, B, D, H, W, heads, hd, scale, bh,
-                               bw, cd, unit, stream);
+                               bw, cd, unit, koff, stream);
 }
 
 extern "C" int smilecode_modet_attn_bwd_dk(const float* q, const float* dl, float* dk,
                                            long long B, int D, int H, int W, int heads,
-                                           int hd, float scale, int bh, int bw, int cd,
+                                           int hd, float scale, int bh, int bw, int cd, int koff,
                                            void* stream) {
-  return bwd_dk<float>(q, dl, dk, B, D, H, W, heads, hd, scale, bh, bw, cd, stream);
+  return bwd_dk<float>(q, dl, dk, B, D, H, W, heads, hd, scale, bh, bw, cd, koff, stream);
 }
 
 extern "C" int smilecode_modet_attn_bwd_dk_bf16(const __nv_bfloat16* q, const __nv_bfloat16* dl,
                                                 __nv_bfloat16* dk, long long B, int D, int H,
                                                 int W, int heads, int hd, float scale, int bh,
-                                                int bw, int cd, void* stream) {
-  return bwd_dk<__nv_bfloat16>(q, dl, dk, B, D, H, W, heads, hd, scale, bh, bw, cd, stream);
+                                                int bw, int cd, int koff, void* stream) {
+  return bwd_dk<__nv_bfloat16>(q, dl, dk, B, D, H, W, heads, hd, scale, bh, bw, cd, koff, stream);
 }

@@ -9,6 +9,13 @@
 // normalised coordinates imply. Exact for every flow: there is no window
 // budget, so nothing like the TPU guard ladder is needed.
 //
+// D-origin mode (the D-sharded step; smilecode_tpu/parallel/
+// modet_planes_sp.py:202-253 runs D and E on an all-gathered source at
+// global d): an integer d0 is added to the depth coordinate, coord =
+// (fd + flow_d + d0, fh + flow_h, fw + flow_w), into a source whose depth
+// SD is the gathered one; the scale is then 1 on every axis (the wrapper
+// never takes the coarser-source rescale for a depth that only differs).
+//
 // Layout: src (B, SD, SH, SW, C) contiguous, float32 or bf16 (T, see
 // io_types.cuh); flow (B, FD, FH, FW, 3) float32 (dd, dh, dw); out
 // (B, FD, FH, FW, C) in T. With a bf16 source (ModeT's feature warps on the
@@ -69,6 +76,7 @@ constexpr long long kNarrow = (1LL << 31) - (1LL << 16);
 
 struct Geom {
   int SD, SH, SW, C, FD, FH, FW;
+  int d0;  // D origin: output slice fd samples at source depth coordinate fd + d0 + flow
   float scale_d, scale_h, scale_w;
 };
 
@@ -85,7 +93,7 @@ __device__ __forceinline__ void corners(const Geom& g, I vox, float f0, float f1
   v /= g.FH;
   const int fd = static_cast<int>(v % g.FD);
   const I b = v / g.FD;
-  const float cd = (static_cast<float>(fd) + f0) * g.scale_d;
+  const float cd = (static_cast<float>(fd) + f0 + static_cast<float>(g.d0)) * g.scale_d;
   const float ch = (static_cast<float>(fh) + f1) * g.scale_h;
   const float cw = (static_cast<float>(fw) + f2) * g.scale_w;
   const float d0 = floorf(cd), h0 = floorf(ch), w0 = floorf(cw);
@@ -191,7 +199,7 @@ void launch(const T* src, const float* flow, T* out, const Geom& g, int lanes, l
 // power of two up to 32 that divides the row's 16-byte vector count.
 template <typename T>
 int fwd(const T* src, const float* flow, T* out, long long B, int SD, int SH, int SW, int C,
-        int lanes, int FD, int FH, int FW, float scale_d, float scale_h, float scale_w,
+        int lanes, int FD, int FH, int FW, int d0, float scale_d, float scale_h, float scale_w,
         void* stream) {
   const long long n_vox = B * FD * FH * FW;
   if (n_vox <= 0) return static_cast<int>(cudaSuccess);
@@ -202,7 +210,7 @@ int fwd(const T* src, const float* flow, T* out, long long B, int SD, int SH, in
         (C / kVec16<T>) % lanes || !aligned)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Geom g{SD, SH, SW, C, FD, FH, FW, scale_d, scale_h, scale_w};
+  const Geom g{SD, SH, SW, C, FD, FH, FW, d0, scale_d, scale_h, scale_w};
   const long long src_elems = B * SD * SH * SW * static_cast<long long>(C);
   const long long out_elems = n_vox * (C > 3 ? C : 3);  // out, or the flow's 3 per voxel
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -217,19 +225,21 @@ int fwd(const T* src, const float* flow, T* out, long long B, int SD, int SH, in
 
 // Both return cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a lane count the pointers or C do not allow.
+// d0: the D origin (0 but in D-origin mode).
 extern "C" int smilecode_warp3d_trilinear_fwd(const float* src, const float* flow, float* out,
                                               long long B, int SD, int SH, int SW, int C,
-                                              int lanes, int FD, int FH, int FW, float scale_d,
-                                              float scale_h, float scale_w, void* stream) {
-  return fwd<float>(src, flow, out, B, SD, SH, SW, C, lanes, FD, FH, FW, scale_d, scale_h,
+                                              int lanes, int FD, int FH, int FW, int d0,
+                                              float scale_d, float scale_h, float scale_w,
+                                              void* stream) {
+  return fwd<float>(src, flow, out, B, SD, SH, SW, C, lanes, FD, FH, FW, d0, scale_d, scale_h,
                     scale_w, stream);
 }
 
 extern "C" int smilecode_warp3d_trilinear_fwd_bf16(const __nv_bfloat16* src, const float* flow,
                                                    __nv_bfloat16* out, long long B, int SD,
                                                    int SH, int SW, int C, int lanes, int FD,
-                                                   int FH, int FW, float scale_d, float scale_h,
-                                                   float scale_w, void* stream) {
-  return fwd<__nv_bfloat16>(src, flow, out, B, SD, SH, SW, C, lanes, FD, FH, FW, scale_d,
+                                                   int FH, int FW, int d0, float scale_d,
+                                                   float scale_h, float scale_w, void* stream) {
+  return fwd<__nv_bfloat16>(src, flow, out, B, SD, SH, SW, C, lanes, FD, FH, FW, d0, scale_d,
                             scale_h, scale_w, stream);
 }

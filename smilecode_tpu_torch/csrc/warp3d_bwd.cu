@@ -15,6 +15,11 @@
 // which is the derivative that autodiff of the gather oracle gives
 // (smilecode_tpu/ops/warp.py:warp_coords), with floor's derivative 0.
 //
+// D-origin mode (K2's, warp3d.cu): coord_d = fd + flow_d + d0 on a source of
+// SD slices, scale 1; d_flow stays the output's (local), and d_src covers
+// all SD slices (SD/FD times K2's output: the caller reduce-scatters it over
+// the shards, smilecode_tpu/parallel/modet_planes_sp.py:259-270).
+//
 // Layout: src, d_src (B, SD, SH, SW, C) contiguous; flow, d_flow
 // (B, FD, FH, FW, 3) float32; g (B, FD, FH, FW, C). src and g share one
 // storage type T, float32 or bf16 (io_types.cuh); d_flow and d_src are
@@ -83,6 +88,7 @@ constexpr long long kNarrow = (1LL << 31) - (1LL << 16);
 
 struct Geom {
   int SD, SH, SW, C, FD, FH, FW;
+  int d0;  // D origin: output slice fd samples at source depth coordinate fd + d0 + flow
   float scale_d, scale_h, scale_w;
 };
 
@@ -100,7 +106,7 @@ __device__ __forceinline__ void corners(const Geom& g, I vox, float f0, float f1
   v /= g.FH;
   const int fd = static_cast<int>(v % g.FD);
   const I b = v / g.FD;
-  const float cd = (static_cast<float>(fd) + f0) * g.scale_d;
+  const float cd = (static_cast<float>(fd) + f0 + static_cast<float>(g.d0)) * g.scale_d;
   const float ch = (static_cast<float>(fh) + f1) * g.scale_h;
   const float cw = (static_cast<float>(fw) + f2) * g.scale_w;
   const float d0 = floorf(cd), h0 = floorf(ch), w0 = floorf(cw);
@@ -274,7 +280,7 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 // power of two up to 32 that divides the row's 16-byte vector count.
 template <typename T>
 int bwd(const T* src, const float* flow, const T* g, float* d_src, float* d_flow, long long B,
-        int SD, int SH, int SW, int C, int lanes, int FD, int FH, int FW, float scale_d,
+        int SD, int SH, int SW, int C, int lanes, int FD, int FH, int FW, int d0, float scale_d,
         float scale_h, float scale_w, void* stream) {
   const long long n_vox = B * FD * FH * FW;
   if (n_vox <= 0) return static_cast<int>(cudaSuccess);
@@ -284,7 +290,7 @@ int bwd(const T* src, const float* flow, const T* g, float* d_src, float* d_flow
         (C / kVec16<T>) % lanes || !aligned)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Geom geo{SD, SH, SW, C, FD, FH, FW, scale_d, scale_h, scale_w};
+  const Geom geo{SD, SH, SW, C, FD, FH, FW, d0, scale_d, scale_h, scale_w};
   const long long src_elems = B * SD * SH * SW * static_cast<long long>(C);
   const long long out_elems = n_vox * (C > 3 ? C : 3);  // g, or the flow's 3 per voxel
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -299,21 +305,23 @@ int bwd(const T* src, const float* flow, const T* g, float* d_src, float* d_flow
 
 // Both return cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a lane count the pointers or C do not allow.
+// d0: the D origin (0 but in D-origin mode).
 extern "C" int smilecode_warp3d_trilinear_bwd(const float* src, const float* flow,
                                               const float* g, float* d_src, float* d_flow,
                                               long long B, int SD, int SH, int SW, int C,
-                                              int lanes, int FD, int FH, int FW, float scale_d,
-                                              float scale_h, float scale_w, void* stream) {
-  return bwd<float>(src, flow, g, d_src, d_flow, B, SD, SH, SW, C, lanes, FD, FH, FW, scale_d,
-                    scale_h, scale_w, stream);
+                                              int lanes, int FD, int FH, int FW, int d0,
+                                              float scale_d, float scale_h, float scale_w,
+                                              void* stream) {
+  return bwd<float>(src, flow, g, d_src, d_flow, B, SD, SH, SW, C, lanes, FD, FH, FW, d0,
+                    scale_d, scale_h, scale_w, stream);
 }
 
 extern "C" int smilecode_warp3d_trilinear_bwd_bf16(const __nv_bfloat16* src, const float* flow,
                                                    const __nv_bfloat16* g, float* d_src,
                                                    float* d_flow, long long B, int SD, int SH,
                                                    int SW, int C, int lanes, int FD, int FH,
-                                                   int FW, float scale_d, float scale_h,
+                                                   int FW, int d0, float scale_d, float scale_h,
                                                    float scale_w, void* stream) {
-  return bwd<__nv_bfloat16>(src, flow, g, d_src, d_flow, B, SD, SH, SW, C, lanes, FD, FH, FW,
+  return bwd<__nv_bfloat16>(src, flow, g, d_src, d_flow, B, SD, SH, SW, C, lanes, FD, FH, FW, d0,
                             scale_d, scale_h, scale_w, stream);
 }

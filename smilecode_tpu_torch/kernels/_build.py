@@ -124,9 +124,13 @@ def entry(name: str, t) -> str:
     return f"{name}_bf16" if t.dtype == torch.bfloat16 else name
 
 
-def count(fn, t, what: str = "launches") -> None:
-    """Add one to ``fn.<what>``, and to ``fn.<what>_bf16`` when ``t`` is
-    bfloat16 (the wrappers' launch counters)."""
+def count(fn, t, what: str = "launches", mode: str | None = None) -> None:
+    """Add one to ``fn.<what>``, to ``fn.<what>_bf16`` when ``t`` is
+    bfloat16, and to ``fn.<what>_<mode>`` for a launch in ``mode`` (the
+    D-sharded step's "halo" attention and "origin" warps): the wrappers'
+    launch counters."""
     setattr(fn, what, getattr(fn, what) + 1)
     if t.dtype == torch.bfloat16:
         setattr(fn, f"{what}_bf16", getattr(fn, f"{what}_bf16") + 1)
+    if mode:
+        setattr(fn, f"{what}_{mode}", getattr(fn, f"{what}_{mode}") + 1)

@@ -27,6 +27,16 @@ K3's dq and its stored dl, K4's dk; drpb stays float32. Each wrapper's
 ``launches`` counts its launches of both instances, ``launches_bf16`` those
 of the bf16 one.
 
+Halo-k mode (``k_halo=True``; the D-sharded training step,
+`parallel/modet_sp.py`): k has D+2 slices, its first and last the
+neighbour shards' (zeros at the global ends), as JAX's
+`modet_attention_planes(k_prepadded_d=True)` (`:109-134`) and
+`_backward_planes(k_prepadded_d=True)` (`:367-372`, `:464-465`) take it. K1
+and K3 read those slices as k's D border (H and W keep their zero border),
+and K4 returns dk for all D+2 slices, so the border slices' cotangents can
+travel back to their shards. Each wrapper's ``launches_halo`` counts its
+halo-k launches; the plain versions take the same flag.
+
 `modet_attention` runs the plain version (`modet_attention_plain`, the
 oracle in `ops/attention.py`, differentiated by torch autograd) for CPU
 tensors. For CUDA tensors it goes through `ModetAttentionFunction`, whose
@@ -70,12 +80,13 @@ K4_TARGET_BLOCKS = 1024
 K4_MIN_CHUNK = 2
 _K4_SLOTS = 2  # kDkRing
 
+# (bh, bw, cd, unit, koff) after the scale; K4 (bh, bw, cd, koff)
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _DK_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-    ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -163,16 +174,23 @@ def _launch_args(q, k):
     return bh, bw, cd, _copy_unit(q.shape[4] * q.shape[5] * q.element_size(), k.data_ptr())
 
 
-def modet_attention_plain(q, k, rpb, scale: float) -> torch.Tensor:
+def modet_attention_plain(q, k, rpb, scale: float, k_halo: bool = False) -> torch.Tensor:
     """The kernel's plain PyTorch version (same contract as `modet_attention`)."""
-    return _neighborhood_attention_plain(q, k, rpb, scale, 3)
+    return _neighborhood_attention_plain(q, k, rpb, scale, 3, k_halo)
 
 
-def _check(q, k, rpb, what: str):
+def _k_shape(q, k_halo: bool):
+    b, d, h, w, heads, hd = q.shape
+    return (b, d + 2 * bool(k_halo), h, w, heads, hd)
+
+
+def _check(q, k, rpb, what: str, k_halo: bool = False):
     """Shape and type checks; returns True for all-CPU tensors (the plain
     version)."""
-    if q.ndim != 6 or q.shape != k.shape:
-        raise ValueError(f"q, k must be equal (B,D,H,W,heads,hd), got {tuple(q.shape)}, {tuple(k.shape)}")
+    if q.ndim != 6 or tuple(k.shape) != _k_shape(q, k_halo):
+        want = "k of D+2 slices (halo-k)" if k_halo else "k must be equal"
+        raise ValueError(f"q (B,D,H,W,heads,hd) and {want}, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
     heads = q.shape[4]
     if rpb is not None and tuple(rpb.shape) != (heads, 3, 3, 3):
         raise ValueError(f"rpb must be ({heads}, 3, 3, 3), got {tuple(rpb.shape)}")
@@ -201,7 +219,7 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _launch_fwd(q, k, rpb, scale: float) -> torch.Tensor:
+def _launch_fwd(q, k, rpb, scale: float, k_halo: bool = False) -> torch.Tensor:
     """K1: (B, D, H, W, heads*3) in q's dtype."""
     b, d, h, w, heads, hd = q.shape
     out = torch.empty((b, d, h, w, heads * 3), dtype=q.dtype, device=q.device)
@@ -212,20 +230,21 @@ def _launch_fwd(q, k, rpb, scale: float) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), out.data_ptr(),
-                  b, d, h, w, heads, hd, float(scale), *_launch_args(q, k), stream)
+                  b, d, h, w, heads, hd, float(scale), *_launch_args(q, k), int(k_halo), stream)
     _build.check(code, "modet_attn_fwd launch")
-    _build.count(modet_attention, q)
+    _build.count(modet_attention, q, mode="halo" if k_halo else None)
     return out
 
 
-def modet_attention_bwd_dq(q, k, rpb, scale: float, g):
+def modet_attention_bwd_dq(q, k, rpb, scale: float, g, k_halo: bool = False):
     """K3 on CUDA tensors: (dq, dl, drpb_partials or None).
 
     dq and dl are in q's dtype (g has it too); dl is (B, D, H, W, heads, 27),
     K4's input; the partials are (blocks, heads, 27) float32, one per block
-    of `attn_geometry`'s grid, summed by the caller. Adds one to
-    ``modet_attention_bwd_dq.launches`` (and ``.launches_bf16`` for bf16)
-    per launch."""
+    of `attn_geometry`'s grid, summed by the caller. ``k_halo``: k has D+2
+    slices (halo-k mode). Adds one to ``modet_attention_bwd_dq.launches``
+    (and ``.launches_bf16`` for bf16, ``.launches_halo`` for halo-k) per
+    launch."""
     b, d, h, w, heads, hd = q.shape
     dq = torch.empty_like(q)
     dl = torch.empty((b, d, h, w, heads, 27), dtype=q.dtype, device=q.device)
@@ -240,9 +259,9 @@ def modet_attention_bwd_dq(q, k, rpb, scale: float, g):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), g.data_ptr(), dq.data_ptr(),
                   dl.data_ptr(), _ptr(part), b, d, h, w, heads, hd, float(scale),
-                  *_launch_args(q, k), stream)
+                  *_launch_args(q, k), int(k_halo), stream)
     _build.check(code, "modet_attn_bwd_dq launch")
-    _build.count(modet_attention_bwd_dq, q)
+    _build.count(modet_attention_bwd_dq, q, mode="halo" if k_halo else None)
     return dq, dl, part
 
 
@@ -265,31 +284,33 @@ def _check_dk(q, dl):
         raise ValueError(f"{what}: dl must be 16-byte aligned")
 
 
-def modet_attention_bwd_dk(q, dl, scale: float):
+def modet_attention_bwd_dk(q, dl, scale: float, k_halo: bool = False):
     """K4 on CUDA tensors: dk (B, D, H, W, heads, hd) in q's dtype from K3's
-    dl and the unscaled q. Raises on tensors it does not take (`_check_dk`),
-    CPU ones included. Adds one to ``modet_attention_bwd_dk.launches`` (and
-    ``.launches_bf16`` for bf16) per launch."""
+    dl and the unscaled q; with ``k_halo`` (B, D+2, ...), its first and last
+    slices the cotangents of the neighbour shards' k slices. Raises on
+    tensors it does not take (`_check_dk`), CPU ones included. Adds one to
+    ``modet_attention_bwd_dk.launches`` (and ``.launches_bf16`` for bf16,
+    ``.launches_halo`` for halo-k) per launch."""
     _check_dk(q, dl)
     b, d, h, w, heads, hd = q.shape
-    dk = torch.empty_like(q)
+    dk = torch.empty(_k_shape(q, k_halo), dtype=q.dtype, device=q.device)
     if dk.numel() == 0:
         return dk
-    bh, bw, cd, _ = dk_geometry(q.shape, q.element_size())
+    bh, bw, cd, _ = dk_geometry(dk.shape, q.element_size())
     fn = _build.function(_build.entry("smilecode_modet_attn_bwd_dk", q), _DK_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), dl.data_ptr(), dk.data_ptr(), b, d, h, w, heads, hd,
-                  float(scale), bh, bw, cd, stream)
+                  float(scale), bh, bw, cd, int(k_halo), stream)
     _build.check(code, "modet_attn_bwd_dk launch")
-    _build.count(modet_attention_bwd_dk, q)
+    _build.count(modet_attention_bwd_dk, q, mode="halo" if k_halo else None)
     return dk
 
 
 _WINDOWS = [(od, oh, ow) for od in range(3) for oh in range(3) for ow in range(3)]
 
 
-def modet_attention_bwd_dq_plain(q, k, rpb, scale: float, g):
+def modet_attention_bwd_dq_plain(q, k, rpb, scale: float, g, k_halo: bool = False):
     """K3's plain version: (dq, dl, drpb or None) for the output cotangent
     ``g`` (B, D, H, W, heads*3), written out (no autograd):
 
@@ -297,13 +318,15 @@ def modet_attention_bwd_dq_plain(q, k, rpb, scale: float, g):
     dq[x] = scale sum_t dl_t[x] k[x + o_t],  drpb[head, t] = sum_x dl_t[x].
 
     An out-of-volume neighbour keeps its dl_t in drpb but gives nothing to
-    dq (the zero-padded key border).
+    dq (the zero-padded key border). ``k_halo``: k has D+2 slices, its D
+    border (halo-k mode).
 
     bf16 q and k (and g) are computed on in float32, q scaled in bf16 first;
     dq and dl come back rounded to bf16, drpb float32, as K3 gives them."""
     b, d, h, w, heads, hd = q.shape
     cdt = torch.promote_types(q.dtype, torch.float32)
-    kp = F.pad(k.to(cdt), (0, 0, 0, 0, 1, 1, 1, 1, 1, 1))
+    dpad = 0 if k_halo else 1
+    kp = F.pad(k.to(cdt), (0, 0, 0, 0, 1, 1, 1, 1, dpad, dpad))
     qs = (q * torch.as_tensor(scale, dtype=q.dtype)).to(cdt)
     logits = torch.stack([(qs * kp[:, od:od + d, oh:oh + h, ow:ow + w]).sum(-1)
                           for od, oh, ow in _WINDOWS], dim=-1)  # (B, D, H, W, heads, 27)
@@ -321,39 +344,40 @@ def modet_attention_bwd_dq_plain(q, k, rpb, scale: float, g):
     return (dq * scale).to(q.dtype), dl.to(q.dtype), drpb
 
 
-def modet_attention_bwd_dk_plain(q, dl, scale: float):
+def modet_attention_bwd_dk_plain(q, dl, scale: float, k_halo: bool = False):
     """K4's plain version: dk[x] = scale sum_t dl_t[x - o_t] q[x - o_t], over
     in-volume sources x - o_t only; summed in float32, returned in q's
-    dtype."""
+    dtype. ``k_halo``: dk for the D+2 slices x_d = -1 .. D."""
     b, d, h, w, heads, hd = q.shape
     cdt = torch.promote_types(q.dtype, torch.float32)
     dl, qc = dl.to(cdt), q.to(cdt)
     dkp = torch.zeros((b, d + 2, h + 2, w + 2, heads, hd), dtype=cdt, device=q.device)
     for t, (od, oh, ow) in enumerate(_WINDOWS):
         dkp[:, od:od + d, oh:oh + h, ow:ow + w] += dl[..., t:t + 1] * qc
-    return (dkp[:, 1:-1, 1:-1, 1:-1] * scale).to(q.dtype)
+    dkp = dkp if k_halo else dkp[:, 1:-1]
+    return (dkp[:, :, 1:-1, 1:-1] * scale).to(q.dtype)
 
 
-def modet_attention_bwd_plain(q, k, rpb, scale: float, g):
+def modet_attention_bwd_plain(q, k, rpb, scale: float, g, k_halo: bool = False):
     """Backward of the attention for the output cotangent ``g``, written out
     as K3 and K4 compute it. Returns (dq, dk, drpb or None)."""
-    dq, dl, drpb = modet_attention_bwd_dq_plain(q, k, rpb, scale, g)
-    return dq, modet_attention_bwd_dk_plain(q, dl, scale), drpb
+    dq, dl, drpb = modet_attention_bwd_dq_plain(q, k, rpb, scale, g, k_halo=k_halo)
+    return dq, modet_attention_bwd_dk_plain(q, dl, scale, k_halo=k_halo), drpb
 
 
-def modet_attention_bwd(q, k, rpb, scale: float, g):
+def modet_attention_bwd(q, k, rpb, scale: float, g, k_halo: bool = False):
     """(dq, dk, drpb or None) for the output cotangent ``g``: K3 then K4 for
     CUDA tensors, `modet_attention_bwd_plain` for CPU tensors."""
-    if _check(q, k, rpb, "modet_attention_bwd"):
-        return modet_attention_bwd_plain(q, k, rpb, scale, g)
+    if _check(q, k, rpb, "modet_attention_bwd", k_halo):
+        return modet_attention_bwd_plain(q, k, rpb, scale, g, k_halo)
     b, d, h, w, heads, _ = q.shape
     if tuple(g.shape) != (b, d, h, w, heads * 3) or g.device != q.device:
         raise ValueError(f"modet_attention_bwd: g must be {(b, d, h, w, heads * 3)} on "
                          f"{q.device}, got {tuple(g.shape)} on {g.device}")
     if g.dtype != q.dtype:
         raise TypeError(f"modet_attention_bwd: g must have q's dtype {q.dtype}, got {g.dtype}")
-    dq, dl, part = modet_attention_bwd_dq(q, k, rpb, scale, g.contiguous())
-    dk = modet_attention_bwd_dk(q, dl, scale)
+    dq, dl, part = modet_attention_bwd_dq(q, k, rpb, scale, g.contiguous(), k_halo)
+    dk = modet_attention_bwd_dk(q, dl, scale, k_halo)
     # the partials are summed outside the kernel, as the JAX package does
     drpb = part.sum(dim=0).reshape(heads, 3, 3, 3) if part is not None else None
     return dq, dk, drpb
@@ -363,33 +387,35 @@ class ModetAttentionFunction(torch.autograd.Function):
     """K1 forward, K3 + K4 backward (CUDA tensors)."""
 
     @staticmethod
-    def forward(ctx, q, k, rpb, scale):
+    def forward(ctx, q, k, rpb, scale, k_halo):
         ctx.save_for_backward(q, k, rpb)
-        ctx.scale = scale
-        return _launch_fwd(q, k, rpb, scale)
+        ctx.scale, ctx.k_halo = scale, k_halo
+        return _launch_fwd(q, k, rpb, scale, k_halo)
 
     @staticmethod
     def backward(ctx, g):
         q, k, rpb = ctx.saved_tensors
-        dq, dk, drpb = modet_attention_bwd(q, k, rpb, ctx.scale, g)
-        return dq, dk, drpb, None
+        dq, dk, drpb = modet_attention_bwd(q, k, rpb, ctx.scale, g, ctx.k_halo)
+        return dq, dk, drpb, None, None
 
 
 def modet_attention(q: torch.Tensor, k: torch.Tensor, rpb: torch.Tensor | None,
-                    scale: float = 1.0) -> torch.Tensor:
-    """q, k: (B, D, H, W, heads, head_dim); rpb: (heads, 3, 3, 3) or None.
+                    scale: float = 1.0, k_halo: bool = False) -> torch.Tensor:
+    """q: (B, D, H, W, heads, head_dim); k the same, or (B, D+2, ...) with
+    ``k_halo`` (halo-k mode); rpb: (heads, 3, 3, 3) or None.
 
     Returns (B, D, H, W, heads*3) in q's dtype (float32 or bf16), computed
     in float32; differentiable in q, k and rpb. Adds one to
     ``modet_attention.launches`` per K1 launch, and to
-    ``modet_attention.launches_bf16`` when it was the bf16 instance.
+    ``modet_attention.launches_bf16`` when it was the bf16 instance,
+    ``modet_attention.launches_halo`` when it was halo-k.
     """
-    if _check(q, k, rpb, "modet_attention"):
-        return modet_attention_plain(q, k, rpb, scale)
+    if _check(q, k, rpb, "modet_attention", k_halo):
+        return modet_attention_plain(q, k, rpb, scale, k_halo)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, rpb)):
-        return ModetAttentionFunction.apply(q, k, rpb, scale)
-    return _launch_fwd(q, k, rpb, scale)
+        return ModetAttentionFunction.apply(q, k, rpb, scale, k_halo)
+    return _launch_fwd(q, k, rpb, scale, k_halo)
 
 
 for _fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk):
-    _fn.launches = _fn.launches_bf16 = 0
+    _fn.launches = _fn.launches_bf16 = _fn.launches_halo = 0

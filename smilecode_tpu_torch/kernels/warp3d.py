@@ -29,6 +29,15 @@ the element size and the pointers' alignment, and ``launches_vector``
 counts the calls that took the vector path. Either is the hand-written
 kernel, with one launch per call.
 
+D-origin mode (``d0=``; the D-sharded step, `parallel/modet_sp.py`, whose
+warps sample an all-gathered source at global depth, as JAX's `_warp_sp_hw`,
+`smilecode_tpu/parallel/modet_planes_sp.py:202-253`, runs D/E and G/H): the
+output slice fd samples the source at depth fd + d0 + flow_d, the source's
+depth may differ from the flow's while H and W agree, and no axis is
+rescaled. K5's d_src then covers the whole source; the caller
+reduce-scatters it home. ``launches_origin`` (and K5's ``scatters_origin``)
+count these launches.
+
 `warp3d_trilinear` runs the plain version (`warp3d_trilinear_plain`,
 `ops/warp.py:_warp_simple`, differentiated by torch autograd) for CPU
 tensors. For CUDA tensors it goes through `Warp3dTrilinearFunction`, whose
@@ -52,22 +61,47 @@ from smilecode_tpu_torch.ops.warp import (
     check_warp_args,
     guard_non_finite,
     rescale_factors,
+    warp_coords,
 )
 
-_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
+# (SD, SH, SW, C, lanes, FD, FH, FW, d0), then the three scales
+_FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [
     ctypes.c_float] * 3 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [
     ctypes.c_float] * 3 + [ctypes.c_void_p]
 
 
-def warp3d_trilinear_plain(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def _origin_coords(flow: torch.Tensor, d0: int) -> torch.Tensor:
+    """(B, FD*FH*FW, 3) absolute coordinates (grid + flow) + (d0, 0, 0), in
+    float32 (float64 for a float64 flow), added in that order as JAX's
+    `parallel/modet_sp.py:_warp_sp` adds them."""
+    b, fd, fh, fw, _ = flow.shape
+    dt = torch.promote_types(flow.dtype, torch.float32)
+    coords = base_grid(fd, fh, fw, dt, flow.device) + flow.to(dt)
+    coords = coords + torch.tensor([float(d0), 0.0, 0.0], dtype=dt, device=flow.device)
+    return coords.reshape(b, fd * fh * fw, 3)
+
+
+def warp3d_trilinear_plain(src: torch.Tensor, flow: torch.Tensor,
+                           d0: int | None = None) -> torch.Tensor:
     """The kernel's plain PyTorch version (same contract as `warp3d_trilinear`)."""
-    return _warp_simple(src, flow, "bilinear")
+    if d0 is None:
+        return _warp_simple(src, flow, "bilinear")
+    _check_origin(src, flow)
+    return warp_coords(src, _origin_coords(flow, d0), flow.shape[1:4])
 
 
-def _check(src, flow, what: str) -> bool:
+def _check_origin(src, flow) -> None:
+    if src.shape[2:4] != flow.shape[2:4]:
+        raise ValueError(f"a D-origin warp takes a source of the flow's H and W, got "
+                         f"{tuple(src.shape)} and {tuple(flow.shape)}")
+
+
+def _check(src, flow, what: str, d0: int | None = None) -> bool:
     """Argument checks; returns True for CPU tensors (the plain version)."""
     check_warp_args(src, flow)
+    if d0 is not None:
+        _check_origin(src, flow)
     if src.device.type == "cpu" and flow.device.type == "cpu":
         return True
     if src.device != flow.device or src.device.type != "cuda":
@@ -81,7 +115,9 @@ def _check(src, flow, what: str) -> bool:
     return False
 
 
-def _scale(src, flow):
+def _scale(src, flow, d0=None):
+    if d0 is not None:  # the gathered source's depth differs; nothing rescales
+        return (1.0, 1.0, 1.0)
     return rescale_factors(src.shape[1:4], flow.shape[1:4]) or (1.0, 1.0, 1.0)
 
 
@@ -102,7 +138,7 @@ def _lanes_per_voxel(c: int, itemsize: int, *ptrs: int) -> int:
     return min(vectors & -vectors, 32)
 
 
-def _launch_fwd(src, flow) -> torch.Tensor:
+def _launch_fwd(src, flow, d0=None) -> torch.Tensor:
     """K2: (B, FD, FH, FW, C) in src's dtype."""
     b, sd, sh, sw, c = src.shape
     fd, fh, fw = flow.shape[1:4]
@@ -114,14 +150,14 @@ def _launch_fwd(src, flow) -> torch.Tensor:
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         code = fn(src.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                  b, sd, sh, sw, c, lanes, fd, fh, fw, *_scale(src, flow), stream)
+                  b, sd, sh, sw, c, lanes, fd, fh, fw, d0 or 0, *_scale(src, flow, d0), stream)
     _build.check(code, "warp3d_trilinear_fwd launch")
-    _build.count(warp3d_trilinear, src)
+    _build.count(warp3d_trilinear, src, mode=None if d0 is None else "origin")
     warp3d_trilinear.launches_vector += bool(lanes)
     return out
 
 
-def _launch_bwd(src, flow, g, want_dsrc: bool):
+def _launch_bwd(src, flow, g, want_dsrc: bool, d0=None):
     """K5: (d_src or None, d_flow); d_src in src's dtype, d_flow float32."""
     b, sd, sh, sw, c = src.shape
     fd, fh, fw = flow.shape[1:4]
@@ -137,17 +173,18 @@ def _launch_bwd(src, flow, g, want_dsrc: bool):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         code = fn(src.data_ptr(), flow.data_ptr(), g.data_ptr(),
                   d_src.data_ptr() if want_dsrc else None, d_flow.data_ptr(),
-                  b, sd, sh, sw, c, lanes, fd, fh, fw, *_scale(src, flow), stream)
+                  b, sd, sh, sw, c, lanes, fd, fh, fw, d0 or 0, *_scale(src, flow, d0), stream)
     _build.check(code, "warp3d_trilinear_bwd launch")
-    _build.count(warp3d_trilinear_bwd, src)
+    mode = None if d0 is None else "origin"
+    _build.count(warp3d_trilinear_bwd, src, mode=mode)
     warp3d_trilinear_bwd.launches_vector += bool(lanes)
     if want_dsrc:
-        _build.count(warp3d_trilinear_bwd, src, "scatters")
+        _build.count(warp3d_trilinear_bwd, src, "scatters", mode)
         d_src = d_src.to(src.dtype)
     return d_src, d_flow
 
 
-def warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc: bool = True):
+def warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc: bool = True, d0: int | None = None):
     """Adjoint of the trilinear warp for the output cotangent ``g``
     (B, FD, FH, FW, C), written out (no autograd) as K5 computes it.
 
@@ -158,15 +195,20 @@ def warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc: bool = True):
     d_src[corner] += w_corner g (only when ``want_dsrc``). A voxel with a
     NaN or infinite coordinate has every corner outside the volume
     (`guard_non_finite`): d_flow 0 and no d_src, as K5 and JAX `ops.warp`.
+    ``d0``: D-origin mode (coord_d + d0, no rescale).
     Returns (d_src or None, d_flow)."""
     check_warp_args(src, flow)
     b, sd, sh, sw, c = src.shape
     fd, fh, fw = flow.shape[1:4]
     n = fd * fh * fw
     dt = torch.float32
-    coords = base_grid(fd, fh, fw, dt, flow.device) + flow.to(dt)
-    scale = torch.tensor(_scale(src, flow), dtype=dt, device=flow.device)
-    coords = guard_non_finite((coords * scale).reshape(b, n, 3))
+    scale = torch.tensor(_scale(src, flow, d0), dtype=dt, device=flow.device)
+    if d0 is None:
+        coords = base_grid(fd, fh, fw, dt, flow.device) + flow.to(dt)
+        coords = guard_non_finite((coords * scale).reshape(b, n, 3))
+    else:
+        _check_origin(src, flow)
+        coords = guard_non_finite(_origin_coords(flow, d0).to(dt))
     c0 = torch.floor(coords)
     t = coords - c0
     sizes = torch.tensor([sd, sh, sw], dtype=dt, device=src.device)
@@ -200,55 +242,61 @@ def warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc: bool = True):
     return d_src, d_flow
 
 
-def warp3d_trilinear_bwd(src, flow, g, want_dsrc: bool = True):
+def warp3d_trilinear_bwd(src, flow, g, want_dsrc: bool = True, d0: int | None = None):
     """(d_src or None, d_flow) for the output cotangent ``g``: K5 for CUDA
-    tensors, `warp3d_trilinear_bwd_plain` for CPU tensors.
+    tensors, `warp3d_trilinear_bwd_plain` for CPU tensors; ``d0`` as
+    `warp3d_trilinear`'s.
 
     Adds one to ``warp3d_trilinear_bwd.launches`` per K5 launch, and one to
     ``warp3d_trilinear_bwd.scatters`` when that launch also scattered d_src
-    (and to ``.launches_bf16``, ``.scatters_bf16`` for a bf16 source, and to
+    (and to ``.launches_bf16``, ``.scatters_bf16`` for a bf16 source,
+    ``.launches_origin``, ``.scatters_origin`` in D-origin mode, and to
     ``.launches_vector`` when it took the vector path).
     """
-    if _check(src, flow, "warp3d_trilinear_bwd"):
-        return warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc)
+    if _check(src, flow, "warp3d_trilinear_bwd", d0):
+        return warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc, d0)
     out_shape = (src.shape[0], *flow.shape[1:4], src.shape[4])
     if tuple(g.shape) != out_shape or g.device != src.device:
         raise ValueError(f"warp3d_trilinear_bwd: g must be {out_shape} on {src.device}, "
                          f"got {tuple(g.shape)} on {g.device}")
     if g.dtype != src.dtype:
         raise TypeError(f"warp3d_trilinear_bwd: g must have src's dtype {src.dtype}, got {g.dtype}")
-    return _launch_bwd(src, flow, g.contiguous(), want_dsrc)
+    return _launch_bwd(src, flow, g.contiguous(), want_dsrc, d0)
 
 
 class Warp3dTrilinearFunction(torch.autograd.Function):
     """K2 forward, K5 backward (CUDA tensors)."""
 
     @staticmethod
-    def forward(ctx, src, flow):
+    def forward(ctx, src, flow, d0):
         ctx.save_for_backward(src, flow)
-        return _launch_fwd(src, flow)
+        ctx.d0 = d0
+        return _launch_fwd(src, flow, d0)
 
     @staticmethod
     def backward(ctx, g):
         src, flow = ctx.saved_tensors
-        d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, want_dsrc=ctx.needs_input_grad[0])
-        return d_src, d_flow if ctx.needs_input_grad[1] else None
+        d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, want_dsrc=ctx.needs_input_grad[0],
+                                             d0=ctx.d0)
+        return d_src, d_flow if ctx.needs_input_grad[1] else None, None
 
 
-def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor, d0: int | None = None) -> torch.Tensor:
     """src (B, SD, SH, SW, C), flow (B, FD, FH, FW, 3) -> (B, FD, FH, FW, C)
     in src's dtype (float32 or bf16; the flow is float32), differentiable in
-    both.
+    both. ``d0`` (D-origin mode): sample at (fd + d0, fh, fw) + flow, with
+    SH, SW = FH, FW and no rescale.
 
     Adds one to ``warp3d_trilinear.launches`` per K2 launch, to
-    ``warp3d_trilinear.launches_bf16`` when it was the bf16 instance, and to
+    ``warp3d_trilinear.launches_bf16`` when it was the bf16 instance, to
+    ``warp3d_trilinear.launches_origin`` in D-origin mode, and to
     ``warp3d_trilinear.launches_vector`` when it took the vector path.
     """
-    if _check(src, flow, "warp3d_trilinear"):
-        return warp3d_trilinear_plain(src, flow)
+    if _check(src, flow, "warp3d_trilinear", d0):
+        return warp3d_trilinear_plain(src, flow, d0)
     if torch.is_grad_enabled() and (src.requires_grad or flow.requires_grad):
-        return Warp3dTrilinearFunction.apply(src, flow)
-    return _launch_fwd(src, flow)
+        return Warp3dTrilinearFunction.apply(src, flow, d0)
+    return _launch_fwd(src, flow, d0)
 
 
 # F's entries (`smilecode_tpu/kernels/warp3d.py:238,259`): the same K2 wrapper
@@ -256,6 +304,8 @@ def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 warp3d_pallas = warp3d_guarded = warp3d_trilinear
 
 warp3d_trilinear.launches = warp3d_trilinear.launches_bf16 = warp3d_trilinear.launches_vector = 0
+warp3d_trilinear.launches_origin = 0
 warp3d_trilinear_bwd.launches = warp3d_trilinear_bwd.launches_bf16 = 0
-warp3d_trilinear_bwd.launches_vector = 0
+warp3d_trilinear_bwd.launches_vector = warp3d_trilinear_bwd.launches_origin = 0
 warp3d_trilinear_bwd.scatters = warp3d_trilinear_bwd.scatters_bf16 = 0
+warp3d_trilinear_bwd.scatters_origin = 0

@@ -192,40 +192,54 @@ class ModeT(nn.Module):
             elif isinstance(m, ModeTransformer):
                 nn.init.zeros_(m.rpb)
 
-    def _warp(self, src, flow):
+    # the graph's ops; `parallel.modet_sp.SpatialOps` has their D-sharded versions
+    def encode(self, x):
+        return self.encoder(x)
+
+    def attend(self, level, f, m):
+        proj = getattr(self, f"projblock{level}")
+        return getattr(self, f"mdt{level}")(proj(f), proj(m))
+
+    def fuse(self, level, x):
+        return getattr(self, f"cwm{level}")(x)
+
+    def warp(self, src, flow):
         return warp(src, flow, impl=self.attn_impl)
 
-    def forward(self, moving, fixed):
+    def upsample(self, x):
+        return upsample2_trilinear(x)
+
+    def forward(self, moving, fixed, ops=None):
+        """``ops``: what provides encode/attend/fuse/warp/upsample, by
+        default this module (`parallel.modet_sp.modet_forward_spatial`
+        passes the D-sharded ones)."""
+        ops = self if ops is None else ops
         cd = self.compute_dtype
-        m1, m2, m3, m4, m5 = self.encoder(moving.to(cd) if cd else moving)
-        f1, f2, f3, f4, f5 = self.encoder(fixed.to(cd) if cd else fixed)
-        f32 = torch.float32
+        m1, m2, m3, m4, m5 = ops.encode(moving.to(cd) if cd else moving)
+        f1, f2, f3, f4, f5 = ops.encode(fixed.to(cd) if cd else fixed)
+        # the bf16 path's CWM and attention outputs return to float32; any
+        # other dtype (float32, or float64 in tests) is kept
+        def f32(t):
+            return t.float() if cd else t
 
         # level 5 (1/16)
-        w = self.mdt5(self.projblock5(f5), self.projblock5(m5))
-        flow = self.cwm5(w).to(f32)  # now at 1/8
+        flow = f32(ops.fuse(5, ops.attend(5, f5, m5)))  # now at 1/8
 
         # level 4 (1/8)
-        m4 = self._warp(m4, flow)
-        w = self.mdt4(self.projblock4(f4), self.projblock4(m4))
-        w = self.cwm4(w).to(f32)
-        flow = self._warp(upsample2_trilinear(2 * flow), w) + w  # at 1/4
+        w = f32(ops.fuse(4, ops.attend(4, f4, ops.warp(m4, flow))))
+        flow = ops.warp(ops.upsample(2 * flow), w) + w  # at 1/4
 
         # level 3 (1/4)
-        m3 = self._warp(m3, flow)
-        w = self.mdt3(self.projblock3(f3), self.projblock3(m3))
-        w = self.cwm3(w).to(f32)
-        flow = self._warp(upsample2_trilinear(2 * flow), w) + w  # at 1/2
+        w = f32(ops.fuse(3, ops.attend(3, f3, ops.warp(m3, flow))))
+        flow = ops.warp(ops.upsample(2 * flow), w) + w  # at 1/2
 
         # level 2 (1/2): single head, no CWM; compose THEN upsample
-        m2 = self._warp(m2, flow)
-        w = self.mdt2(self.projblock2(f2), self.projblock2(m2)).to(f32)
-        flow = upsample2_trilinear(2 * (self._warp(flow, w) + w))  # at full res
+        w = f32(ops.attend(2, f2, ops.warp(m2, flow)))
+        flow = ops.upsample(2 * (ops.warp(flow, w) + w))  # at full res
 
         # level 1 (full res): single head, no CWM
-        m1 = self._warp(m1, flow)
-        w = self.mdt1(self.projblock1(f1), self.projblock1(m1)).to(f32)
-        flow = self._warp(flow, w) + w
+        w = f32(ops.attend(1, f1, ops.warp(m1, flow)))
+        flow = ops.warp(flow, w) + w
 
-        y_moved = self._warp(moving, flow)
+        y_moved = ops.warp(moving, flow)
         return y_moved, flow

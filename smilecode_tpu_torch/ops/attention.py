@@ -57,9 +57,14 @@ def neighborhood_attention_3d(q, k, rpb, scale: float = 1.0, impl: str = "auto",
     return _neighborhood_attention_plain(q, k, rpb, scale, kernel_size)
 
 
-def _neighborhood_attention_plain(q, k, rpb, scale, kernel_size: int = 3) -> torch.Tensor:
+def _neighborhood_attention_plain(q, k, rpb, scale, kernel_size: int = 3,
+                                  k_halo: bool = False) -> torch.Tensor:
     """Plain version, mirroring `_neighborhood_attention_xla`: k^3 shifted
     slices of the zero-padded key volume, softmax, offset contraction.
+
+    ``k_halo``: k already carries its kernel_size//2 D border (D + 2*pad
+    slices, the D-sharded path's halo: `_neighborhood_attention_xla(...,
+    k_prepadded_d=True)`), so only H and W are zero-padded.
 
     bf16 q and k are computed on as kernel A does
     (`smilecode_tpu/kernels/modet_attn.py:72-77`): q is scaled in its own
@@ -71,7 +76,8 @@ def _neighborhood_attention_plain(q, k, rpb, scale, kernel_size: int = 3) -> tor
     pad = ks // 2
     cdt = torch.promote_types(q.dtype, torch.float32)
     qs = (q * torch.as_tensor(scale, dtype=q.dtype)).to(cdt)
-    kp = F.pad(k.to(cdt), (0, 0, 0, 0, pad, pad, pad, pad, pad, pad))
+    dpad = 0 if k_halo else pad
+    kp = F.pad(k.to(cdt), (0, 0, 0, 0, pad, pad, pad, pad, dpad, dpad))
     logits = []
     for od in range(ks):
         for oh in range(ks):

@@ -163,19 +163,19 @@ def count_step_calls(monkeypatch, model, plan, x, y):
     counts = dict.fromkeys(("K1", "K3", "K4", "K2", "K5", "K5 d_src"), 0)
     warp_plain, attn_plain = port_warp3d.warp3d_trilinear_plain, port_attn.modet_attention_plain
 
-    def warp_counted(src, flow):
+    def warp_counted(src, flow, d0):
         counts["K2"] += 1
         if torch.is_grad_enabled() and (src.requires_grad or flow.requires_grad):
             counts["K5"] += 1
             counts["K5 d_src"] += src.requires_grad
-        return warp_plain(src, flow)
+        return warp_plain(src, flow, d0)
 
-    def attn_counted(q, k, rpb, scale):
+    def attn_counted(q, k, rpb, scale, k_halo):
         counts["K1"] += 1
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
             counts["K3"] += 1
             counts["K4"] += 1
-        return attn_plain(q, k, rpb, scale)
+        return attn_plain(q, k, rpb, scale, k_halo)
 
     monkeypatch.setattr(port_warp3d, "warp3d_trilinear_plain", warp_counted)
     monkeypatch.setattr(port_attn, "modet_attention_plain", attn_counted)

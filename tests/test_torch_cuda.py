@@ -654,3 +654,65 @@ def test_probe_scripts_run_exactly_on_the_card(dev):
     assert len(results) == 17 and all(err == 0 for _, _, err in results)
     assert {k: fn.launches - before[k] for k, fn in probes.KERNELS.items()} == {
         "P1": 6, "P2": 8, "P3": 2, "P4": 1}
+
+
+# the modes of the D-sharded step: K1/K3/K4 with k of D+2 slices (halo-k;
+# K4 writes dk over all D+2, one-slice chunks reach the border slices
+# alone) and K2/K5 with a D origin into a deeper (gathered) source
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("target,min_chunk", [(None, None), (1 << 20, 1)],
+                         ids=["grid", "one-slice-chunks"])
+@pytest.mark.parametrize("shape,heads,hd,with_rpb", [((1, 1, 1), 8, 32, True),
+                                                     ((3, 5, 64), 1, 6, True),
+                                                     ((7, 6, 9), 2, 5, False),
+                                                     ((5, 4, 3), 8, 6, True)])
+def test_halo_k_attention_kernels_match_plain(dev, monkeypatch, shape, heads, hd, with_rpb,
+                                              target, min_chunk, dtype):
+    from smilecode_tpu_torch.kernels import modet_attn
+
+    if target is not None:
+        monkeypatch.setattr(modet_attn, "ATTN_TARGET_BLOCKS", target)
+        monkeypatch.setattr(modet_attn, "K4_TARGET_BLOCKS", target)
+        monkeypatch.setattr(modet_attn, "K4_MIN_CHUNK", min_chunk)
+    q, _, rpb, g = attn_inputs(shape, heads, hd, with_rpb, dtype, dev, 70)
+    k = rand((2, shape[0] + 2, *shape[1:], heads, hd), 74).to(dev).to(dtype)
+    counts = [f.launches_halo for f in (modet_attention, modet_attention_bwd_dq,
+                                         modet_attention_bwd_dk)]
+    out = modet_attention(q, k, rpb, 0.5, k_halo=True)
+    dq, dl, part = modet_attention_bwd_dq(q, k, rpb, 0.5, g, k_halo=True)
+    p_dq, p_dl, p_drpb = modet_attention_bwd_dq_plain(q, k, rpb, 0.5, g, k_halo=True)
+    dk = modet_attention_bwd_dk(q, p_dl, 0.5, k_halo=True)
+    torch.cuda.synchronize()
+    assert [f.launches_halo for f in (modet_attention, modet_attention_bwd_dq,
+                                      modet_attention_bwd_dk)] == [c + 1 for c in counts]
+    assert dk.shape == k.shape
+    assert_matches_plain(out, modet_attention_plain(q, k, rpb, 0.5, k_halo=True), dtype, "out")
+    assert_matches_plain(dq, p_dq, dtype, "dq")
+    assert_matches_plain(dl, p_dl, dtype, "dl")
+    assert_matches_plain(dk, modet_attention_bwd_dk_plain(q, p_dl, 0.5, k_halo=True), dtype,
+                         "dk")
+    if with_rpb:
+        atol = 1e-6 * float(p_dl.float().abs().sum(dim=(0, 1, 2, 3)).max())
+        torch.testing.assert_close(part.sum(0).reshape(heads, 3, 3, 3).cpu(), p_drpb.cpu(),
+                                   rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("src_depth,flow_shape,d0,c,kind", [
+    (12, (6, 7, 8), 0, 1, 2.0), (12, (6, 7, 8), 6, 3, "wild"), (12, (3, 7, 8), 5, 8, 2.0),
+    (8, (4, 5, 6), 4, 16, "wild"), (9, (3, 4, 3), 3, 64, 2.0)])
+def test_d_origin_warp_kernels_match_plain(dev, src_depth, flow_shape, d0, c, kind, dtype):
+    src = rand((2, src_depth, *flow_shape[1:], c), 80).to(dtype)
+    flow = warp_flow(flow_shape, kind, 81)
+    g = rand((2, *flow_shape, c), 82).to(dtype)
+    before = (warp3d_trilinear.launches_origin, warp3d_trilinear_bwd.launches_origin)
+    out = warp3d_trilinear(src.to(dev), flow.to(dev), d0)
+    d_src, d_flow = warp3d_trilinear_bwd(src.to(dev), flow.to(dev), g.to(dev), True, d0)
+    torch.cuda.synchronize()
+    assert (warp3d_trilinear.launches_origin,
+            warp3d_trilinear_bwd.launches_origin) == (before[0] + 1, before[1] + 1)
+    assert d_src.shape == src.shape
+    p_src, p_flow = warp3d_trilinear_bwd_plain(src, flow, g, True, d0)
+    assert_matches_plain(out, warp3d_trilinear_plain(src, flow, d0), dtype, "out")
+    assert_matches_plain(d_src, p_src, dtype, "d_src")
+    assert_matches_plain(d_flow, p_flow, torch.float32, "d_flow")

@@ -216,16 +216,17 @@ def test_infer_main_matches_jax_driver(infer_setup):
 
 
 def test_infer_main_rejects_unported_modes(infer_setup):
-    """MC uncertainty without dropout exits as the JAX driver does; the
-    multi-GPU knobs are training's and still raise there."""
+    """MC uncertainty without dropout exits as the JAX driver does; of the
+    multi-GPU knobs, which are training's, spatial sharding of a baseline
+    raises there."""
     from smilecode_tpu_torch import infer as torch_infer
 
     with pytest.raises(SystemExit, match="dropout_rate"):
         torch_infer.main(InferConfig(mc_iter=2, device="cpu"))
     with pytest.raises(SystemExit, match="dropout_rate"):
         torch_infer.main(InferConfig(mc_iter=2, dropout_rate=0.0, dataset="half", device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        check_train_config(TrainConfig(dp=2))
+    with pytest.raises(ValueError, match="ModeT"):
+        check_train_config(TrainConfig(spatial=2, model="im2grid"))
 
 
 _NO_JAX = r"""

@@ -291,8 +291,14 @@ def test_loss_decreases_on_one_pair():
 
 
 def test_unported_knobs_raise():
-    for kw in ({"dp": 2}, {"spatial": 2}):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    """Multi-GPU is ported (`tests/test_torch_dp.py`, `test_torch_spatial.py`):
+    dp and spatial pass, and the combinations JAX refuses raise."""
+    for kw in ({"dp": 2}, {"spatial": 2}, {"dp": 2, "spatial": 2}):
+        check_train_config(TrainConfig(**kw))
+    for kw, match in (({"spatial": 2, "model": "pcnet"}, "ModeT"),
+                      ({"spatial": 2, "compute_dtype": "bfloat16"}, "float32 only"),
+                      ({"dp": 0}, "dp and spatial")):
+        with pytest.raises(ValueError, match=match):
             check_train_config(TrainConfig(**kw))
     for dataset in ("half", "atlas"):  # ported: the dataset variants pass
         check_train_config(TrainConfig(dataset=dataset, atlas_path="atlas.pkl"))

@@ -1,7 +1,8 @@
 """The port's training step vs the JAX package's, at full width.
 
 Full-width ModeT (channels 4, head_dim 6, heads 8/4/2/1/1, qk_scale 1, a
-seeded random RPB) at 16^3, the ncc + grad_l2 plan with weights (1, 1): the
+seeded random RPB) at 16^3, batch 1 and batch 2 (the per-rank rows of the
+data-parallel step), the ncc + grad_l2 plan with weights (1, 1): the
 port's loss and every parameter gradient (`train.make_loss_and_grads`, torch
 autograd through the plain versions) against ``jax.value_and_grad`` of JAX
 ``ModeT(attn_impl="xla")`` with the same plan, on the same numpy volumes and
@@ -33,14 +34,22 @@ SHAPE = (16, 16, 16)
 
 
 def test_loss_and_every_gradient_match_jax_value_and_grad():
+    assert_step_matches_jax(batch=1)
+
+
+def test_loss_and_every_gradient_match_jax_value_and_grad_at_batch_2():
+    assert_step_matches_jax(batch=2)
+
+
+def assert_step_matches_jax(batch):
     model = ModeT(qk_scale=1.0, generator=torch.Generator().manual_seed(31))
     rng = np.random.default_rng(32)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("rpb"):
                 p.copy_(torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32)))
-    moving = rng.random((1, *SHAPE, 1)).astype(np.float32)
-    fixed = rng.random((1, *SHAPE, 1)).astype(np.float32)
+    moving = rng.random((batch, *SHAPE, 1)).astype(np.float32)
+    fixed = rng.random((batch, *SHAPE, 1)).astype(np.float32)
 
     plan = loss_plan("modet")
     loss, (sim, reg) = make_loss_and_grads(model, plan, (1.0, 1.0))(
@@ -48,7 +57,7 @@ def test_loss_and_every_gradient_match_jax_value_and_grad():
     grads = {name: p.grad for name, p in model.named_parameters()}
 
     jm = JaxModeT(qk_scale=1.0, attn_impl="xla")
-    vol = jnp.zeros((1, *SHAPE, 1), jnp.float32)
+    vol = jnp.zeros((batch, *SHAPE, 1), jnp.float32)
     template = jax.eval_shape(jm.init, jax.random.PRNGKey(0), vol, vol)
     params = jax.tree.map(jnp.asarray, convert_state_dict(model.state_dict(), template))
 

@@ -295,7 +295,7 @@ def test_impl_names_map_to_the_kernel_wrapper_or_plain(monkeypatch, impl, mode):
     calls = []
     plain = port_warp3d.warp3d_trilinear_plain
     monkeypatch.setattr(port_warp3d, "warp3d_trilinear_plain",
-                        lambda s, f: calls.append(1) or plain(s, f))
+                        lambda s, f, d0: calls.append(1) or plain(s, f, d0))
     src = torch.from_numpy(source((5, 6, 7), 2, 34))
     fl = torch.from_numpy(wild_flow((5, 6, 7), 3.0, 35))
     out = warp(src, fl, mode=mode, impl=impl)
