@@ -58,18 +58,19 @@ KERNEL_NAMES = {"K1": "modet_attn_fwd_kernel", "K3": "modet_attn_bwd_dq_kernel",
                 "K4": "modet_attn_bwd_dk_kernel"}
 
 
-def build_checkouts(dirs):
-    """{name: (ctypes library, ptxas log)} of the attention kernels of each
-    checkout in ``dirs`` ({name: directory}), built as `kernels/_build.py`
-    builds this checkout's."""
+def build_checkouts(dirs, units=("modet_attn.cu", "modet_attn_bwd.cu", "common.cu")):
+    """{name: (ctypes library, ptxas log)} of the kernels in ``units`` (the
+    attention kernels by default) of each checkout in ``dirs`` ({name:
+    directory}), built as `kernels/_build.py` builds this checkout's."""
     from smilecode_tpu_torch.kernels import _build
 
     nvcc, jobs = _build._nvcc(), {}
+    stem = os.path.splitext(units[0])[0]  # the library's name
     for name, top in dirs.items():
         csrc = os.path.join(top, "smilecode_tpu_torch", "csrc")
         out = os.path.join(top, "_ab_build")
         os.makedirs(out, exist_ok=True)
-        cus = [os.path.join(csrc, f) for f in ("modet_attn.cu", "modet_attn_bwd.cu", "common.cu")]
+        cus = [os.path.join(csrc, f) for f in units]
         jobs[name] = (out, [(c, os.path.join(out, os.path.basename(c) + ".o")) for c in cus])
     # every object of every checkout compiles at once, then each links
     procs = [(name, subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, c], text=True,
@@ -81,9 +82,9 @@ def build_checkouts(dirs):
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
     libs = {}
-    for name, (out, units) in jobs.items():
-        lib = os.path.join(out, "libattn.so")
-        _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", lib, *(o for _, o in units)]])
+    for name, (out, objs) in jobs.items():
+        lib = os.path.join(out, f"lib{stem}.so")
+        _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", lib, *(o for _, o in objs)]])
         libs[name] = (ctypes.CDLL(lib), logs[name])
     return libs
 

@@ -141,7 +141,14 @@ The last TPU kernels and driver paths:
    ``torch.cuda.set_sync_debug_mode("error")``, one launch per call); call
    ms, device ms, the plain version's, the one PyTorch call that computes
    the same function (`torch.roll`, ``x + 1``, ``x * 2``; for P4 the pair
-   `torch.div` floor and `torch.remainder`) and the bound per kernel.
+   `torch.div` floor and `torch.remainder`) and the bound per kernel; P1's
+   and P3's call and device ms in turns with their library calls' (library,
+   kernel, kernel, library); the launch floor (device ms of an empty
+   `torch.cuda._sleep(0)`, call ms of P3 on 4 values); and the host ns per
+   call of each stage of P1's launch path over LAUNCH_STAGE_CALLS calls, as
+   every wrapper ran it before `kernels/_build.py:launch` (entry looked up
+   and typed per call, `torch.cuda.device` entered, a `torch.cuda.Stream`
+   built) and as `launch` runs it.
 26. RDN's MC-dropout uncertainty protocol: `infer.main(model=rdn,
    dropout_rate=0.3, mc_iter=8)` (stages 4, levels 4,4,4,4) on 2
    160x192x160 subjects with a seeded, head-perturbed checkpoint, twice
@@ -236,7 +243,9 @@ K2 and K5 also ``library_ms_by_shape``, ``variant_by_shape``,
 modes' also carry ``device_ms``, their device time over the path's calls
 (the five level shapes, or the nine warps). Device
 ms: the calls queued behind a spin kernel, so that CUDA events time the
-kernels alone, without the wrapper's host time. The `infer.main` and
+kernels alone, without the wrapper's host time; the host's us per call
+while it queued them is each row's ``host_us`` (``host_us_by_shape``),
+printed per row before the record. The `infer.main` and
 `train.main` runs print how many K2 and K5 launches took the vector path. The last two lines are that
 record and ``{"ok": true, "device": {...}}``.
 """
@@ -402,7 +411,15 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+class DeviceMs(float):
+    """A device ms per call (`device_ms`), carrying ``host_us``: the host's
+    us per call while it queued those calls (the wrapper's Python and the
+    launch)."""
+
+    host_us: float
+
+
+def device_ms(fn, iters: int = 20) -> DeviceMs:
     """Mean device ms per call of ``fn`` with the host's time left out: a
     spin kernel (`torch.cuda._sleep`, ~20 ms) holds the stream while the
     host queues the ``iters`` calls, so the events time their kernels back
@@ -428,7 +445,9 @@ def device_ms(fn, iters: int = 20) -> float:
     end.synchronize()
     spin_ms = spin_start.elapsed_time(start)
     require(host_ms < spin_ms, f"device_ms: queueing took {host_ms:.3f} ms, the spin {spin_ms:.3f}")
-    return start.elapsed_time(end) / iters
+    res = DeviceMs(start.elapsed_time(end) / iters)
+    res.host_us = host_ms * 1e3 / iters
+    return res
 
 
 def bound(nbytes: float, ops: float):
@@ -1909,6 +1928,7 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
 
 
 PROBE_LAUNCHES = {"P1": 6, "P2": 8, "P3": 2, "P4": 1}  # per run of the probe scripts' checks
+LAUNCH_STAGE_CALLS = 10_000  # calls per stage of P1's launch path (phase 25)
 PROBE_NAMES = {"P1": "probe_roll", "P2": "probe_row_window_sum", "P3": "probe_affine",
                "P4": "probe_floor_divmod"}
 MC_ITER, MC_DROPOUT, MC_STAGES_K2 = 8, 0.3, 136  # phase 26; K2 per RDN forward (`BASELINES`)
@@ -1971,13 +1991,122 @@ def check_probe_edges(device):
     return len(EDGE_CASES)
 
 
+def launch_stage_ns(card, device, n=LAUNCH_STAGE_CALLS):
+    """Host ns per call of each stage of P1's launch path (`kernels/probes.py:
+    roll` on k1's inputs, the amount an int32 tensor on the card), each
+    stage alone over ``n`` calls (`time.perf_counter_ns`, in runs of 100
+    with the card synchronised between runs, so that the launches never
+    wait for a full queue): the path as every wrapper ran it before
+    `kernels/_build.py:launch` ("before": the checks with a device walk per
+    amount tensor, the entry point looked up and its argtypes assigned per
+    call, `torch.cuda.device` entered, a `torch.cuda.Stream` object built)
+    and as `launch` runs it ("after"); the allocation and the ctypes call
+    with its launch are the same in both. Also the whole `roll` call and
+    `torch.roll`'s. Returns {stage: {"before": ns, "after": ns}}."""
+    import ctypes
+
+    import torch
+
+    from smilecode_tpu_torch import probes
+    from smilecode_tpu_torch.kernels import _build
+    from smilecode_tpu_torch.kernels import probes as kp
+
+    x = torch.from_numpy(probes.X32).to(device)
+    amt = torch.tensor([3], dtype=torch.int32, device=device)
+    out = torch.empty_like(x)
+    name, types, lib = "smilecode_probe_roll", kp._ROLL_ARGTYPES, _build.library()
+    fn = _build._bound.get(name) or _build._bind(name, types)
+    args = (x.data_ptr(), out.data_ptr(), 32, 128, 0, amt.data_ptr(), 0)
+    index, raw = x.get_device(), torch._C._cuda_getCurrentRawStream
+
+    def checks_before():  # each amount tensor's device compared, then its values checked
+        if x.dtype != torch.float32 or x.dim() != 2:
+            raise TypeError
+        for a in (amt,):
+            if isinstance(a, torch.Tensor) and (a.dtype != torch.int32 or a.device != x.device):
+                raise TypeError
+        if x.device.type == "cpu" or x.device.type != "cuda":
+            raise ValueError
+        if isinstance(amt, torch.Tensor):
+            if amt.numel() != 1 or not amt.is_contiguous():
+                raise ValueError
+            return amt.data_ptr(), (0,)
+
+    def checks_after():
+        return kp._kernel_ints("roll", x, torch.float32, 2, amt, 1)
+
+    def bind_before():
+        f = getattr(lib, name)
+        f.argtypes = types
+        f.restype = ctypes.c_int
+
+    def guard_before():
+        with torch.cuda.device(x.device):
+            pass
+
+    stages = {
+        "checks": (checks_before, checks_after),
+        "bind": (bind_before, lambda: _build._bound.get(name)),
+        "device guard": (guard_before, lambda: x.get_device() == torch._C._cuda_getDevice()),
+        "stream": (lambda: torch.cuda.current_stream(x.device).cuda_stream, lambda: raw(index)),
+        "allocate": ((lambda: torch.empty_like(x.contiguous())),) * 2,
+        "ctypes call and launch": ((lambda: fn(*args, raw(index))),) * 2,
+        "whole call": (None, lambda: kp.roll(x, amt, 0)),
+        "torch.roll": (None, lambda: torch.roll(x, -3, 0)),
+        "empty loop": ((lambda: None),) * 2,
+    }
+
+    def per_call_ns(f):
+        total = 0
+        for _ in range(n // 100):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(100):
+                f()
+            total += time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+        return total / (n // 100 * 100)
+
+    res = {}
+    for stage, (before, after) in stages.items():
+        res[stage] = {"before": per_call_ns(before) if before else None,
+                      "after": per_call_ns(after)}
+    print(f"[{card}] P1 launch path, host ns per call over {n} calls a stage (before / after "
+          "the bound launcher): " + "; ".join(
+              f"{k} {'-' if v['before'] is None else round(v['before'])} / {round(v['after'])}"
+              for k, v in res.items()), flush=True)
+    return res
+
+
+def launch_floor(card, device):
+    """The launch floor beside the P rows: device ms of an empty kernel
+    (`torch.cuda._sleep(0)`), its call ms, and P3's call and device ms on 4
+    values (its smallest launch)."""
+    import torch
+
+    from smilecode_tpu_torch.kernels import probes as kp
+
+    x4 = torch.arange(4, dtype=torch.float32, device=device).reshape(1, 4)
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    small = lambda: kp.affine(x4, 2.0, 0.0)  # noqa: E731
+    floor = {"empty_device_ms": device_ms(empty, 200), "empty_ms": event_ms(empty, 200, 5),
+             "p3_4_ms": event_ms(small, 200, 5), "p3_4_device_ms": device_ms(small, 200)}
+    print(f"[{card}] launch floor: empty kernel device {floor['empty_device_ms']:.4f} ms, call "
+          f"{floor['empty_ms']:.4f} ms; P3 on 4 values call {floor['p3_4_ms']:.4f} ms, device "
+          f"{floor['p3_4_device_ms']:.4f} ms", flush=True)
+    return floor
+
+
 def run_probe_phase(card, device):
     """Phase 25: `probes.main` on the card (every probe run exact, P1-P4
     launched exactly `PROBE_LAUNCHES` times), then each kernel against its
     plain version on the card, on the scripts' inputs and the edge cases,
-    with call ms, device ms, the plain version's, the library call's and
-    the bound per kernel (means per call over the scripts' runs). Returns
-    {kernel: record}."""
+    with call ms, device ms, the host us per call, the plain version's, the
+    library call's and the bound per kernel (means per call over the
+    scripts' runs; a kernel with a library call timed in turns with it,
+    library, kernel, kernel, library, on both clocks), the launch floor and
+    the host ns of each stage of P1's launch path. Returns {kernel:
+    record}."""
     import torch
 
     from smilecode_tpu_torch import probes
@@ -1996,8 +2125,9 @@ def run_probe_phase(card, device):
     recs = {}
     for kernel in PROBE_LAUNCHES:
         runs = [p for p in probes.PROBES if p.kernel == kernel]
-        r = {"err": 0.0, "ms": [], "device_ms": [], "plain_ms": [], "library_ms": [], "work": [],
-             "serves": sorted({p.where for p in runs}, key=[p.where for p in runs].index)}
+        r = {key: [] for key in ("ms", "device_ms", "host_us", "plain_ms", "library_ms",
+                                 "library_device_ms", "work")}
+        r.update(err=0.0, serves=sorted({p.where for p in runs}, key=[p.where for p in runs].index))
         for p in runs:
             args = probes.probe_args(p, device)
             out = kp.KERNELS[kernel](*args, **p.kwargs)
@@ -2005,32 +2135,47 @@ def run_probe_phase(card, device):
             r["err"] = max(r["err"], float((out.double() - ref.double()).abs().max()))
             require(torch.equal(out, ref), f"{p.name}: kernel differs from the plain version")
             call = lambda: kp.KERNELS[kernel](*args, **p.kwargs)  # noqa: E731
-            r["ms"].append(event_ms(call, 200, warmup=5))
-            r["device_ms"].append(device_ms(call, 200))
-            r["plain_ms"].append(event_ms(lambda: kp.PLAIN[kernel](*args, **p.kwargs), 20))
             lib = probe_library(p, args)
+            order = (lib, call, call, lib) if lib is not None else (call,)
+            ev = [event_ms(f, 200, warmup=5) for f in order]
+            dev = [device_ms(f, 200) for f in order]
+            mine = [i for i, f in enumerate(order) if f is call]
+            r["ms"].append(np.mean([ev[i] for i in mine]))
+            r["device_ms"].append(np.mean([dev[i] for i in mine]))
+            r["host_us"].append(np.mean([dev[i].host_us for i in mine]))
             if lib is not None:
-                r["library_ms"].append(event_ms(lib, 200, warmup=5))
+                r["library_ms"].append((ev[0] + ev[3]) / 2)
+                r["library_device_ms"].append((dev[0] + dev[3]) / 2)
+            r["plain_ms"].append(event_ms(lambda: kp.PLAIN[kernel](*args, **p.kwargs), 20))
             r["work"].append(probe_work(p, args, out))
         if kernel == "P4":  # floor division and modulo: two PyTorch calls
             t, m = probes.probe_args(runs[0], device)
             r["library_pair_ms"] = event_ms(
                 lambda: (torch.div(t, m, rounding_mode="floor") * m, torch.remainder(t, m)), 200, 5)
-        rec = {k: float(np.mean(v)) for k, v in r.items() if k in ("ms", "device_ms", "plain_ms")}
+        rec = {k: float(np.mean(r[k])) for k in ("ms", "device_ms", "host_us", "plain_ms")}
         rec.update(err=r["err"], work=tuple(np.mean(r["work"], axis=0)), serves=r["serves"],
                    library_ms=float(np.mean(r["library_ms"])) if r["library_ms"] else None,
+                   library_device_ms=(float(np.mean(r["library_device_ms"]))
+                                      if r["library_device_ms"] else None),
                    library_pair_ms=r.get("library_pair_ms"), launches=counts[kernel])
         bound_ms, by = bound(*rec["work"])
-        lib = ("none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}") + (
+        lib = ("none" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.4f}, device {rec['library_device_ms']:.4f}, in turns") + (
             "" if rec["library_pair_ms"] is None
             else f" (torch.div floor + torch.remainder {rec['library_pair_ms']:.4f})")
         print(f"[{card}] {kernel} {PROBE_NAMES[kernel]} over its {len(runs)} probe runs "
               f"({', '.join(r['serves'])}), per call: {rec['ms']:.4f} ms, device "
-              f"{rec['device_ms']:.4f} (plain {rec['plain_ms']:.4f}, library {lib}); bound "
-              f"{bound_ms:.6f} ms ({by}): launch-bound; max_abs_err {rec['err']:.1e}", flush=True)
+              f"{rec['device_ms']:.4f}, host {rec['host_us']:.2f} us (plain {rec['plain_ms']:.4f}, "
+              f"library {lib}); bound {bound_ms:.6f} ms ({by}): launch-bound; max_abs_err "
+              f"{rec['err']:.1e}", flush=True)
         recs[kernel] = rec
     print(f"P1-P4 vs plain on {n_edge} edge cases: exact, one launch each, no host sync",
           flush=True)
+    floor = launch_floor(card, device)
+    stages = launch_stage_ns(card, device)
+    for rec in recs.values():
+        rec["launch_floor"] = floor
+    recs["P1"]["launch_stages_ns"] = stages
     return recs
 
 
@@ -2716,7 +2861,8 @@ def check_origin_warps(device, size=SIZE):
 
     rng = np.random.default_rng(31)
     res = {key: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "device_ms": 0.0,
-                 "work": np.zeros(2), "by_shape": {}} for key in ("K2 origin", "K5 origin")}
+                 "library_device_ms": 0.0, "work": np.zeros(2), "by_shape": {}}
+           for key in ("K2 origin", "K5 origin")}
     for what, c, level in warp_calls():
         want_dsrc = what != "moved image"
         full, local = level_shape(level, size), shard_shape(level, size)
@@ -2768,19 +2914,23 @@ def check_origin_warps(device, size=SIZE):
                              warp_work("K5", src_vox, vox, c, 4, want_dsrc))):
                         t, tp, dev = event_ms(fn, 10), event_ms(plain_fn, 3), device_ms(fn)
                         lib = library_warp_ms(src, flow, lib_g, want_dsrc, d0=d0)
+                        lib_dev = library_warp_ms(src, flow, lib_g, want_dsrc, timer=device_ms,
+                                                  d0=d0)
                         r = res[key]
                         r["ms"] += t
                         r["plain_ms"] += tp
                         r["device_ms"] += dev
                         r["library_ms"] += lib or 0.0
+                        r["library_device_ms"] += lib_dev or 0.0
                         r["work"] += work
                         r["by_shape"][shape_label(c, local, f" src {full[0]}" + (
                             "" if want_dsrc or key == "K2 origin" else " without d_src"))] = {
                             "ms": t, "device_ms": dev, "library_ms": lib,
-                            "bound_ms": bound(*work)[0]}
+                            "library_device_ms": lib_dev, "bound_ms": bound(*work)[0]}
                         line += (f"; {key} {t:.4f} ms, device {dev:.4f} (plain {tp:.4f}, "
                                  f"F.grid_sample{' backward' * (key == 'K5 origin')} "
-                                 f"{fmt_ms(lib)}, bound {bound(*work)[0]:.4f})")
+                                 f"{fmt_ms(lib)}, device {fmt_ms(lib_dev)}, bound "
+                                 f"{bound(*work)[0]:.4f})")
                 print(line, flush=True)
         del src
         torch.cuda.empty_cache()
@@ -3219,7 +3369,7 @@ def main() -> int:
             print(f"[{card}] {key} per spatial=2 step (rank 1's slabs): {r['ms']:.4f} ms, device "
                   f"{r['device_ms']:.4f} (plain {r['plain_ms']:.4f}"
                   + (f", F.grid_sample{' backward' * key.startswith('K5')} {r['library_ms']:.4f}"
-                     if "library_ms" in r else "")
+                     f", device {r['library_device_ms']:.4f}" if "library_ms" in r else "")
                   + f"); bound {bound(*r['work'])[0]:.4f} ms; max_abs_err {r['err']:.3e}",
                   flush=True)
         phase(31, "train.main(dp=2): two ranks on the card vs the single-process batch-2 step")
@@ -3241,6 +3391,11 @@ def main() -> int:
             fields = dict.fromkeys(f for v in by_shape.values() for f in v)
             for field in fields:
                 rec[f"{field}_by_shape"] = {k: v[field] for k, v in by_shape.items()}
+            host = {k: v["device_ms"].host_us for k, v in by_shape.items()
+                    if isinstance(v.get("device_ms"), DeviceMs)}
+            if host:  # the host's us per call while device_ms queued the kernel's calls
+                rec["host_us_by_shape"] = host
+                rec["host_us"] = float(np.mean(list(host.values())))
         return rec
 
     def bf16_entry(name, source, line, key):
@@ -3263,8 +3418,11 @@ def main() -> int:
         """The five kernel modes of the D-sharded step: phase 30's times,
         rank 0's launches in phase 32's train.main(spatial=2)."""
         r = modes[key]
-        return entry(name, source, line, key, r["err"], r["ms"], r["plain_ms"], tuple(r["work"]),
-                     r.get("library_ms"), sp_counts, r["by_shape"], r["device_ms"])
+        rec = entry(name, source, line, key, r["err"], r["ms"], r["plain_ms"], tuple(r["work"]),
+                    r.get("library_ms"), sp_counts, r["by_shape"], r["device_ms"])
+        if "library_device_ms" in r:  # over the path's calls, as device_ms
+            rec["library_device_ms"] = r["library_device_ms"]
+        return rec
 
     def probe_entry(kernel, r):
         """P1-P4: ms per call over the scripts' runs; they replace the root
@@ -3274,9 +3432,11 @@ def main() -> int:
                "source": "smilecode_tpu_torch/csrc/probes.cu", "replaces": r["serves"][0],
                "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": r["library_ms"], "device_ms": r["device_ms"], "serves": r["serves"]}
-        if r["library_pair_ms"] is not None:
-            rec["library_pair_ms"] = r["library_pair_ms"]
+               "library_ms": r["library_ms"], "device_ms": r["device_ms"], "host_us": r["host_us"],
+               "serves": r["serves"], "launch_floor": r["launch_floor"]}
+        for key in ("library_device_ms", "library_pair_ms", "launch_stages_ns"):
+            if r.get(key) is not None:
+                rec[key] = r[key]
         return rec
 
     record = {"kernels": [
@@ -3320,6 +3480,9 @@ def main() -> int:
         mode_entry("warp3d_trilinear_bwd (D origin, gathered source, spatial=2)",
                    "warp3d_bwd.cu", "warp3d_v4.py:339", "K5 origin"),
     ]}
+    for rec in record["kernels"]:
+        print(f"[{card}] host us per call while its calls queued: {rec['name']} "
+              + (f"{rec['host_us']:.2f}" if "host_us" in rec else "not measured"))
     print(f"phase seconds: {phase_times(t_start)}")
     print(card_line())
     print(json.dumps(record))

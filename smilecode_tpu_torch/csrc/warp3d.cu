@@ -15,6 +15,10 @@
 // (fd + flow_d + d0, fh + flow_h, fw + flow_w), into a source whose depth
 // SD is the gathered one; the scale is then 1 on every axis (the wrapper
 // never takes the coarser-source rescale for a depth that only differs).
+// The add has an instance of its own (kOrigin), taken for d0 != 0: in the
+// main path's it cost 0.0021 ms per ModeT pair on the H100 (0.5034 against
+// 0.5013 over the nine warps, spread 0.0007; warp_ab.py). d0 = 0 takes the
+// other instance, which gives the same bits.
 //
 // Layout: src (B, SD, SH, SW, C) contiguous, float32 or bf16 (T, see
 // io_types.cuh); flow (B, FD, FH, FW, 3) float32 (dd, dh, dw); out
@@ -82,7 +86,7 @@ struct Geom {
 
 // The 8 corners of output voxel vox, whose flow row is f: element offset of
 // each corner's row in src (-1 outside the volume) and its weight.
-template <typename I>
+template <typename I, bool kOrigin>
 __device__ __forceinline__ void corners(const Geom& g, I vox, float f0, float f1, float f2,
                                         I (&off)[8], float (&wt)[8]) {
   // vox = ((b*FD + fd)*FH + fh)*FW + fw
@@ -93,7 +97,8 @@ __device__ __forceinline__ void corners(const Geom& g, I vox, float f0, float f1
   v /= g.FH;
   const int fd = static_cast<int>(v % g.FD);
   const I b = v / g.FD;
-  const float cd = (static_cast<float>(fd) + f0 + static_cast<float>(g.d0)) * g.scale_d;
+  const float cd = (kOrigin ? static_cast<float>(fd) + f0 + static_cast<float>(g.d0)
+                            : static_cast<float>(fd) + f0) * g.scale_d;
   const float ch = (static_cast<float>(fh) + f1) * g.scale_h;
   const float cw = (static_cast<float>(fw) + f2) * g.scale_w;
   const float d0 = floorf(cd), h0 = floorf(ch), w0 = floorf(cw);
@@ -114,7 +119,7 @@ __device__ __forceinline__ void corners(const Geom& g, I vox, float f0, float f1
 
 // Vector path: 2^lanes_log2 lanes per output voxel, 16-byte loads and stores.
 // No early return before the shuffles: every lane of a warp takes part.
-template <typename T, typename I>
+template <typename T, typename I, bool kOrigin>
 __global__ void __launch_bounds__(kThreads)
 warp3d_fwd_vector_kernel(const T* __restrict__ src, const float* __restrict__ flow,
                          T* __restrict__ out, Geom g, int lanes_log2, I n_vox) {
@@ -133,7 +138,7 @@ warp3d_fwd_vector_kernel(const T* __restrict__ src, const float* __restrict__ fl
   }
   if (valid && lane == 0) {
     const float* f = flow + vox * 3;
-    corners(g, vox, __ldg(f), __ldg(f + 1), __ldg(f + 2), off, wt);
+    corners<I, kOrigin>(g, vox, __ldg(f), __ldg(f + 1), __ldg(f + 2), off, wt);
   }
 #pragma unroll
   for (int corner = 0; corner < 8; ++corner) {
@@ -161,7 +166,7 @@ warp3d_fwd_vector_kernel(const T* __restrict__ src, const float* __restrict__ fl
 }
 
 // Scalar path: one thread per output voxel.
-template <typename T, typename I>
+template <typename T, typename I, bool kOrigin>
 __global__ void __launch_bounds__(kThreads)
 warp3d_fwd_scalar_kernel(const T* __restrict__ src, const float* __restrict__ flow,
                          T* __restrict__ out, Geom g, I n_vox) {
@@ -170,7 +175,7 @@ warp3d_fwd_scalar_kernel(const T* __restrict__ src, const float* __restrict__ fl
   const float* f = flow + vox * 3;
   I off[8];
   float wt[8];
-  corners(g, vox, __ldg(f), __ldg(f + 1), __ldg(f + 2), off, wt);
+  corners<I, kOrigin>(g, vox, __ldg(f), __ldg(f + 1), __ldg(f + 2), off, wt);
   T* o = out + vox * g.C;
   for (int c = 0; c < g.C; ++c) {
     float acc = 0.f;
@@ -181,18 +186,27 @@ warp3d_fwd_scalar_kernel(const T* __restrict__ src, const float* __restrict__ fl
   }
 }
 
+template <typename T, typename I, bool kOrigin>
+void launch_instance(const T* src, const float* flow, T* out, const Geom& g, int lanes,
+                     long long n_vox, cudaStream_t stream) {
+  if (lanes > 0) {
+    const unsigned blocks = static_cast<unsigned>((n_vox * lanes + kThreads - 1) / kThreads);
+    warp3d_fwd_vector_kernel<T, I, kOrigin><<<blocks, kThreads, 0, stream>>>(
+        src, flow, out, g, __builtin_ctz(static_cast<unsigned>(lanes)), static_cast<I>(n_vox));
+  } else {
+    const unsigned blocks = static_cast<unsigned>((n_vox + kThreads - 1) / kThreads);
+    warp3d_fwd_scalar_kernel<T, I, kOrigin><<<blocks, kThreads, 0, stream>>>(
+        src, flow, out, g, static_cast<I>(n_vox));
+  }
+}
+
 template <typename T, typename I>
 void launch(const T* src, const float* flow, T* out, const Geom& g, int lanes, long long n_vox,
             cudaStream_t stream) {
-  if (lanes > 0) {
-    const long long blocks = (n_vox * lanes + kThreads - 1) / kThreads;
-    warp3d_fwd_vector_kernel<T, I><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        src, flow, out, g, __builtin_ctz(static_cast<unsigned>(lanes)), static_cast<I>(n_vox));
-  } else {
-    const long long blocks = (n_vox + kThreads - 1) / kThreads;
-    warp3d_fwd_scalar_kernel<T, I><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        src, flow, out, g, static_cast<I>(n_vox));
-  }
+  if (g.d0 != 0)
+    launch_instance<T, I, true>(src, flow, out, g, lanes, n_vox, stream);
+  else
+    launch_instance<T, I, false>(src, flow, out, g, lanes, n_vox, stream);
 }
 
 // lanes: 0 for the scalar path, else the vector path's lanes per voxel, a

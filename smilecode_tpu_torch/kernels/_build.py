@@ -8,8 +8,12 @@ is named by a hash of the sources and flags, so an edit rebuilds; it lives in
 launch of any kernel, never at import, so a checkout alone is enough:
 ``python3 chip_smoke.py`` builds everything.
 
-Each C entry point returns ``cudaGetLastError()`` after its launch; the
-wrappers turn a non-zero code into an exception through `check`.
+Each C entry point returns ``cudaGetLastError()`` after its launch. Every
+wrapper launches through `launch`, which binds each entry point once per
+process (looked up, ``argtypes`` and ``restype`` set, cached by name),
+passes the current stream of the tensor's device as a raw handle, enters a
+device guard only when that device is not the current one, and raises on a
+non-zero code.
 """
 
 from __future__ import annotations
@@ -104,16 +108,33 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, argtypes) -> ctypes._CFuncPtr:
-    """C entry point ``name`` with its argument types; returns int error code."""
+_bound: dict = {}  # entry name -> its ctypes function, argtypes and restype set
+
+
+def _bind(name: str, argtypes) -> ctypes._CFuncPtr:
     fn = getattr(library(), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _bound[name] = fn
     return fn
 
 
-def check(code: int, what: str) -> None:
-    if code != 0:
+def launch(name: str, argtypes, t, *args, what: str) -> None:
+    """Call the C entry point ``name`` (``argtypes``, the stream last) with
+    ``args`` and the current stream of CUDA tensor ``t``'s device; raises
+    `RuntimeError` naming ``what`` on a non-zero code, and `ValueError` for
+    a tensor off the card (a wrapper takes its plain version for those)."""
+    index = t.get_device()
+    if index < 0:
+        raise ValueError(f"{what}: the kernel takes CUDA tensors, got {t.device}")
+    fn = _bound.get(name) or _bind(name, argtypes)
+    cuda = torch._C
+    if index == cuda._cuda_getDevice():
+        code = fn(*args, cuda._cuda_getCurrentRawStream(index))
+    else:  # another card than the current one: launch in its context
+        with torch.cuda.device(index):
+            code = fn(*args, cuda._cuda_getCurrentRawStream(index))
+    if code:
         msg = library().smilecode_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 

@@ -226,12 +226,10 @@ def _launch_fwd(q, k, rpb, scale: float, k_halo: bool = False) -> torch.Tensor:
     if out.numel() == 0:
         return out
     rpb_flat = _rpb_flat(rpb)
-    fn = _build.function(_build.entry("smilecode_modet_attn_fwd", q), _FWD_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), out.data_ptr(),
-                  b, d, h, w, heads, hd, float(scale), *_launch_args(q, k), int(k_halo), stream)
-    _build.check(code, "modet_attn_fwd launch")
+    _build.launch(_build.entry("smilecode_modet_attn_fwd", q), _FWD_ARGTYPES, q,
+                  q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), out.data_ptr(),
+                  b, d, h, w, heads, hd, float(scale), *_launch_args(q, k), int(k_halo),
+                  what="modet_attn_fwd launch")
     _build.count(modet_attention, q, mode="halo" if k_halo else None)
     return out
 
@@ -254,13 +252,10 @@ def modet_attention_bwd_dq(q, k, rpb, scale: float, g, k_halo: bool = False):
     if dq.numel() == 0:
         return dq, dl, part
     rpb_flat = _rpb_flat(rpb)
-    fn = _build.function(_build.entry("smilecode_modet_attn_bwd_dq", q), _DQ_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), g.data_ptr(), dq.data_ptr(),
+    _build.launch(_build.entry("smilecode_modet_attn_bwd_dq", q), _DQ_ARGTYPES, q,
+                  q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), g.data_ptr(), dq.data_ptr(),
                   dl.data_ptr(), _ptr(part), b, d, h, w, heads, hd, float(scale),
-                  *_launch_args(q, k), int(k_halo), stream)
-    _build.check(code, "modet_attn_bwd_dq launch")
+                  *_launch_args(q, k), int(k_halo), what="modet_attn_bwd_dq launch")
     _build.count(modet_attention_bwd_dq, q, mode="halo" if k_halo else None)
     return dq, dl, part
 
@@ -297,12 +292,9 @@ def modet_attention_bwd_dk(q, dl, scale: float, k_halo: bool = False):
     if dk.numel() == 0:
         return dk
     bh, bw, cd, _ = dk_geometry(dk.shape, q.element_size())
-    fn = _build.function(_build.entry("smilecode_modet_attn_bwd_dk", q), _DK_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), dl.data_ptr(), dk.data_ptr(), b, d, h, w, heads, hd,
-                  float(scale), bh, bw, cd, int(k_halo), stream)
-    _build.check(code, "modet_attn_bwd_dk launch")
+    _build.launch(_build.entry("smilecode_modet_attn_bwd_dk", q), _DK_ARGTYPES, q,
+                  q.data_ptr(), dl.data_ptr(), dk.data_ptr(), b, d, h, w, heads, hd,
+                  float(scale), bh, bw, cd, int(k_halo), what="modet_attn_bwd_dk launch")
     _build.count(modet_attention_bwd_dk, q, mode="halo" if k_halo else None)
     return dk
 

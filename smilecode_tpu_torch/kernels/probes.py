@@ -35,39 +35,32 @@ _AFFINE_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_float
 _DIVMOD_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
-def _on_cpu(what: str, x: torch.Tensor, dtype, ndim: int, *scalars) -> bool:
-    """Checks ``x`` (``ndim`` dims of ``dtype``) and the int32 tensors among
-    ``scalars`` (amounts or bounds); True for CPU tensors (the plain
-    version)."""
+def _kernel_ints(what: str, x: torch.Tensor, dtype, ndim: int, ints=None, n: int = 0):
+    """One pass over a wrapper's arguments: ``x`` (``ndim`` dims of
+    ``dtype``) and ``ints`` (an amount or bounds: ``n`` Python ints, or an
+    int32 tensor of ``n`` values on x's device). None for a CPU ``x`` (the
+    plain version); for a CUDA ``x`` the kernel's (pointer, by-value ints):
+    the tensor's address with the by-value slots 0, or None and the ints."""
     if x.dtype != dtype or x.dim() != ndim:
         raise TypeError(f"{what}: takes a {ndim}-D {dtype} tensor, got {x.dim()}-D {x.dtype}")
-    for s in scalars:
-        if isinstance(s, torch.Tensor) and (s.dtype != torch.int32 or s.device != x.device):
-            raise TypeError(f"{what}: an amount or bound tensor must be int32 on {x.device}, "
-                            f"got {s.dtype} on {s.device}")
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
+    on_card = x.is_cuda
+    if not on_card and x.device.type != "cpu":
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {x.device}")
-    return False
-
-
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _device_ints(v, n: int, what: str):
-    """(pointer, by-value ints) for ``v``: a contiguous int32 tensor of
-    ``n`` values read on the device (the by-value slots 0), or ``n`` Python
-    ints (the pointer None)."""
-    if isinstance(v, torch.Tensor):
-        if v.numel() != n or not v.is_contiguous():
+    if isinstance(ints, torch.Tensor):
+        if ints.dtype != torch.int32 or ints.get_device() != x.get_device():
+            raise TypeError(f"{what}: an amount or bound tensor must be int32 on {x.device}, "
+                            f"got {ints.dtype} on {ints.device}")
+        if not on_card:
+            return None
+        if ints.numel() != n or (n > 1 and not ints.is_contiguous()):
             raise ValueError(f"{what}: expected {n} contiguous int32 values, got shape "
-                             f"{tuple(v.shape)}")
-        return v.data_ptr(), (0,) * n
-    vals = (v,) if n == 1 else tuple(v)
+                             f"{tuple(ints.shape)}")
+        return ints.data_ptr(), (0,) * n
+    if not on_card:
+        return None
+    vals = (ints,) if n == 1 else tuple(ints or ())
     if len(vals) != n:
-        raise ValueError(f"{what}: expected {n} ints, got {v!r}")
+        raise ValueError(f"{what}: expected {n} ints, got {ints!r}")
     return None, tuple(int(a) for a in vals)
 
 
@@ -91,15 +84,15 @@ def roll(x: torch.Tensor, amount, axis: int) -> torch.Tensor:
     device. Any amount: it is taken modulo the axis length."""
     if axis not in (0, 1):
         raise ValueError(f"roll: axis must be 0 or 1, got {axis}")
-    if _on_cpu("roll", x, torch.float32, 2, amount):
+    dev = _kernel_ints("roll", x, torch.float32, 2, amount, 1)
+    if dev is None:
         return roll_plain(x, amount, axis)
-    ptr, (a,) = _device_ints(amount, 1, "roll")
+    ptr, (a,) = dev
     x = x.contiguous()
     out = torch.empty_like(x)
-    fn = _build.function("smilecode_probe_roll", _ROLL_ARGTYPES)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], axis, ptr, a, _stream(x))
-    _build.check(code, "probe roll launch")
+    rows, cols = x.shape
+    _build.launch("smilecode_probe_roll", _ROLL_ARGTYPES, x, x.data_ptr(), out.data_ptr(), rows,
+                  cols, axis, ptr, a, what="probe roll launch")
     roll.launches += 1
     return out
 
@@ -134,16 +127,15 @@ def row_window_sum(x: torch.Tensor, n: int, base: int, stride: int, bounds,
     on the device."""
     if stride not in (0, 1) or n < 0:
         raise ValueError(f"row_window_sum: stride must be 0 or 1 and n >= 0, got {stride}, {n}")
-    if _on_cpu("row_window_sum", x, torch.float32, 2, bounds):
+    dev = _kernel_ints("row_window_sum", x, torch.float32, 2, bounds, 2)
+    if dev is None:
         return row_window_sum_plain(x, n, base, stride, bounds, weighted, bcast)
-    ptr, (lo, hi) = _device_ints(bounds, 2, "row_window_sum")
+    ptr, (lo, hi) = dev
     x = x.contiguous()
     out = torch.empty((n, x.shape[1]), dtype=x.dtype, device=x.device)
-    fn = _build.function("smilecode_probe_row_window", _WINDOW_ARGTYPES)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], n, base, stride,
-                  int(weighted), int(bcast), ptr, lo, hi, _stream(x))
-    _build.check(code, "probe row_window_sum launch")
+    _build.launch("smilecode_probe_row_window", _WINDOW_ARGTYPES, x, x.data_ptr(), out.data_ptr(),
+                  x.shape[0], x.shape[1], n, base, stride, int(weighted), int(bcast), ptr, lo, hi,
+                  what="probe row_window_sum launch")
     row_window_sum.launches += 1
     return out
 
@@ -158,14 +150,12 @@ def affine_plain(x: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
 def affine(x: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
     """P3 on a 2-D float32 ``x``: ``alpha * x + beta``, the product and the
     sum each rounded, as `affine_plain`."""
-    if _on_cpu("affine", x, torch.float32, 2):
+    if _kernel_ints("affine", x, torch.float32, 2) is None:
         return affine_plain(x, alpha, beta)
     x = x.contiguous()
     out = torch.empty_like(x)
-    fn = _build.function("smilecode_probe_affine", _AFFINE_ARGTYPES)
-    with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), out.data_ptr(), x.numel(), alpha, beta, _stream(x))
-    _build.check(code, "probe affine launch")
+    _build.launch("smilecode_probe_affine", _AFFINE_ARGTYPES, x, x.data_ptr(), out.data_ptr(),
+                  x.numel(), alpha, beta, what="probe affine launch")
     affine.launches += 1
     return out
 
@@ -182,14 +172,12 @@ def floor_divmod(t: torch.Tensor, m: int) -> torch.Tensor:
     """P4 on a 1-D int32 ``t`` and an int ``m`` != 0, as `floor_divmod_plain`."""
     if m == 0:
         raise ZeroDivisionError("floor_divmod: m must not be 0")
-    if _on_cpu("floor_divmod", t, torch.int32, 1):
+    if _kernel_ints("floor_divmod", t, torch.int32, 1) is None:
         return floor_divmod_plain(t, m)
     t = t.contiguous()
     out = torch.empty((2, t.numel()), dtype=torch.int32, device=t.device)
-    fn = _build.function("smilecode_probe_floor_divmod", _DIVMOD_ARGTYPES)
-    with torch.cuda.device(t.device):
-        code = fn(t.data_ptr(), out.data_ptr(), t.numel(), m, _stream(t))
-    _build.check(code, "probe floor_divmod launch")
+    _build.launch("smilecode_probe_floor_divmod", _DIVMOD_ARGTYPES, t, t.data_ptr(),
+                  out.data_ptr(), t.numel(), m, what="probe floor_divmod launch")
     floor_divmod.launches += 1
     return out
 

@@ -146,12 +146,10 @@ def _launch_fwd(src, flow, d0=None) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lanes = _lanes_per_voxel(c, src.element_size(), src.data_ptr(), out.data_ptr())
-    fn = _build.function(_build.entry("smilecode_warp3d_trilinear_fwd", src), _FWD_ARGTYPES)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = fn(src.data_ptr(), flow.data_ptr(), out.data_ptr(),
-                  b, sd, sh, sw, c, lanes, fd, fh, fw, d0 or 0, *_scale(src, flow, d0), stream)
-    _build.check(code, "warp3d_trilinear_fwd launch")
+    _build.launch(_build.entry("smilecode_warp3d_trilinear_fwd", src), _FWD_ARGTYPES, src,
+                  src.data_ptr(), flow.data_ptr(), out.data_ptr(),
+                  b, sd, sh, sw, c, lanes, fd, fh, fw, d0 or 0, *_scale(src, flow, d0),
+                  what="warp3d_trilinear_fwd launch")
     _build.count(warp3d_trilinear, src, mode=None if d0 is None else "origin")
     warp3d_trilinear.launches_vector += bool(lanes)
     return out
@@ -168,13 +166,11 @@ def _launch_bwd(src, flow, g, want_dsrc: bool, d0=None):
         return None if d_src is None else d_src.to(src.dtype), d_flow.zero_()
     ptrs = (src.data_ptr(), g.data_ptr()) + ((d_src.data_ptr(),) if want_dsrc else ())
     lanes = _lanes_per_voxel(c, src.element_size(), *ptrs)
-    fn = _build.function(_build.entry("smilecode_warp3d_trilinear_bwd", src), _BWD_ARGTYPES)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = fn(src.data_ptr(), flow.data_ptr(), g.data_ptr(),
+    _build.launch(_build.entry("smilecode_warp3d_trilinear_bwd", src), _BWD_ARGTYPES, src,
+                  src.data_ptr(), flow.data_ptr(), g.data_ptr(),
                   d_src.data_ptr() if want_dsrc else None, d_flow.data_ptr(),
-                  b, sd, sh, sw, c, lanes, fd, fh, fw, d0 or 0, *_scale(src, flow, d0), stream)
-    _build.check(code, "warp3d_trilinear_bwd launch")
+                  b, sd, sh, sw, c, lanes, fd, fh, fw, d0 or 0, *_scale(src, flow, d0),
+                  what="warp3d_trilinear_bwd launch")
     mode = None if d0 is None else "origin"
     _build.count(warp3d_trilinear_bwd, src, mode=mode)
     warp3d_trilinear_bwd.launches_vector += bool(lanes)

@@ -81,6 +81,7 @@ class EdgeCase(NamedTuple):
     args: tuple  # the wrapper's arguments after x; a Smem is by value or on the device
     kwargs: dict
     want: torch.Tensor  # the plain version's output
+    offset: int = 0  # x's first value this many values into its buffer (4 bytes each)
 
 
 def _edge_rand(shape, seed) -> np.ndarray:
@@ -112,10 +113,28 @@ def _edge_cases() -> list[EdgeCase]:
         cases.append(EdgeCase(f"P2-{label}", "P2", x, (n, base, stride, Smem(bounds)), kw,
                               row_window_sum_plain(torch.from_numpy(x), n, base, stride, bounds,
                                                    **kw)))
+    # P1's 16-byte paths: axis 1 staged at amounts of 1, 2 and 3 mod 4, whole
+    # rows as float4s on axis 0, views 4 bytes off (offset 1), 4097x130
+    for shape, axis, a, offset in (((33, 128), 1, 1, 0), ((33, 128), 1, 2, 0),
+                                   ((33, 128), 1, 131, 0), ((33, 128), 0, 5, 1),
+                                   ((33, 128), 1, 6, 1), ((4097, 128), 0, 2049, 0),
+                                   ((4097, 130), 0, -7, 0), ((4097, 130), 1, 67, 0)):
+        x = _edge_rand(shape, 63)
+        off = f"-off{offset}" if offset else ""
+        cases.append(EdgeCase(f"P1-axis{axis}-{shape[0]}x{shape[1]}-a{a}{off}", "P1", x,
+                              (Smem([a]), axis), {}, roll_plain(torch.from_numpy(x), a, axis),
+                              offset))
     x = _edge_rand((64, 129), 62)
     for alpha, beta in ((1.0, 1.0), (2.0, 0.0), (-0.3, 1.7)):
         cases.append(EdgeCase(f"P3-{alpha}x+{beta}", "P3", x, (alpha, beta), {},
                               affine_plain(torch.from_numpy(x), alpha, beta)))
+    # P3's head and tail: a view 4 bytes off 16-byte alignment, 315 values
+    # (not a multiple of 4), 4097x130
+    for shape, offset in (((64, 128), 1), ((7, 45), 0), ((7, 45), 3), ((4097, 130), 0)):
+        x = _edge_rand(shape, 64)
+        off = f"-off{offset}" if offset else ""
+        cases.append(EdgeCase(f"P3-{shape[0]}x{shape[1]}{off}", "P3", x, (-0.3, 1.7), {},
+                              affine_plain(torch.from_numpy(x), -0.3, 1.7), offset))
     t = np.arange(-20, 21, dtype=np.int32)
     for m in (1, 3, 8, -3, -8):
         cases.append(EdgeCase(f"P4-m{m}", "P4", t, (m,), {},
@@ -125,10 +144,22 @@ def _edge_cases() -> list[EdgeCase]:
 
 # P1-P4's edge cases beyond the scripts' inputs, each with its plain
 # version's output: roll amounts negative or past the axis on both axes,
-# empty windows, rows outside x, both weight modes, t in -20..20 for
-# several divisors. The card tests and chip_smoke.py's phase 25 hold the
-# kernels to them.
+# P1's and P3's 16-byte paths with their heads and tails (views 4 bytes off,
+# counts not a multiple of 4, 4097x130), empty windows, rows outside x, both
+# weight modes, t in -20..20 for several divisors. The card tests and
+# chip_smoke.py's phase 25 hold the kernels to them.
 EDGE_CASES = _edge_cases()
+
+
+def edge_operand(case: EdgeCase, device) -> torch.Tensor:
+    """``case.x`` on ``device``: a contiguous view ``case.offset`` values
+    into a buffer of its own (a view 4 bytes off 16-byte alignment for an
+    offset of 1)."""
+    buf = torch.empty(case.x.size + case.offset, dtype=torch.from_numpy(case.x).dtype,
+                      device=device)
+    x = buf[case.offset:].view(case.x.shape)
+    x.copy_(torch.from_numpy(case.x))
+    return x
 
 
 def launch_edge_case(case: EdgeCase, device, on_device: bool = True) -> torch.Tensor:
@@ -142,7 +173,7 @@ def launch_edge_case(case: EdgeCase, device, on_device: bool = True) -> torch.Te
     args = [(torch.tensor(a, dtype=torch.int32, device=device) if on_device else
              (a[0] if len(a) == 1 else tuple(a))) if isinstance(a, Smem) else a
             for a in case.args]
-    x = torch.from_numpy(case.x).to(device)
+    x = edge_operand(case, device)
     before = fn.launches
     torch.cuda.synchronize(device)
     if on_device:

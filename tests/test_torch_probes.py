@@ -142,3 +142,22 @@ def test_probes_main_runs_on_the_cpu(capsys):
     results = probes.main(device="cpu")
     assert len(results) == 17 and all(err == 0 for _, _, err in results)
     assert "17 probe runs on cpu: all exact" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("case", [c for c in probes.EDGE_CASES if c.kernel in ("P1", "P3")],
+                         ids=lambda c: c.id)
+def test_p1_p3_edge_cases_match_numpy_on_the_cpu(case):
+    """P1's and P3's edge cases (the card tests' and phase 25's table) through
+    the wrappers on the CPU, the operand a view ``case.offset`` values into
+    its buffer: equal to `np.roll` and to float32 ``alpha * x + beta``
+    (product and sum each rounded), and to the case's recorded output."""
+    x = probes.edge_operand(case, "cpu")
+    if case.kernel == "P1":
+        a, axis = case.args[0][0], case.args[1]
+        got, want = kernels.roll(x, a, axis), np.roll(case.x, -a, axis)
+    else:
+        alpha, beta = case.args
+        got = kernels.affine(x, alpha, beta)
+        want = case.x * np.float32(alpha) + np.float32(beta)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, case.want)
