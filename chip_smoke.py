@@ -140,15 +140,20 @@ The last TPU kernels and driver paths:
    bounds as int32 tensors on the card under
    ``torch.cuda.set_sync_debug_mode("error")``, one launch per call); call
    ms, device ms, the plain version's, the one PyTorch call that computes
-   the same function (`torch.roll`, ``x + 1``, ``x * 2``; for P4 the pair
-   `torch.div` floor and `torch.remainder`) and the bound per kernel; P1's
-   and P3's call and device ms in turns with their library calls' (library,
-   kernel, kernel, library); the launch floor (device ms of an empty
-   `torch.cuda._sleep(0)`, call ms of P3 on 4 values); and the host ns per
-   call of each stage of P1's launch path over LAUNCH_STAGE_CALLS calls, as
-   every wrapper ran it before `kernels/_build.py:launch` (entry looked up
-   and typed per call, `torch.cuda.device` entered, a `torch.cuda.Stream`
-   built) and as `launch` runs it.
+   the same function (`torch.roll`, ``x + 1``, ``x * 2``; for P2's runs
+   with bounds by value ``x.unfold(0, hi - lo, 1)[base + lo:][:n].sum(-1)``;
+   for P4 the pair `torch.div` floor and `torch.remainder`) and the bound
+   per kernel, each library call in turns with the kernel (library,
+   kernel, kernel, library) on both clocks; the same at one 160x192x160
+   volume's size (`sized_cases`: P2's zero-padded 9-row box sum along D of a
+   (160, 30720) x against `F.avg_pool2d`, P4's row base and column of
+   every flat voxel index, centred on 0, with m = 160, against the pair),
+   each held bit for bit against its plain version first; the launch floor
+   (device ms of an empty `torch.cuda._sleep(0)`, call ms of P3 on 4
+   values); and the host ns per call of each stage of P1's and P2's launch
+   paths over LAUNCH_STAGE_CALLS calls (P1's also as every wrapper ran it
+   before `kernels/_build.py:launch`: entry looked up and typed per call,
+   `torch.cuda.device` entered, a `torch.cuda.Stream` built).
 26. RDN's MC-dropout uncertainty protocol: `infer.main(model=rdn,
    dropout_rate=0.3, mc_iter=8)` (stages 4, levels 4,4,4,4) on 2
    160x192x160 subjects with a seeded, head-perturbed checkpoint, twice
@@ -231,7 +236,9 @@ training run of phase 18, then K3 and K4 as Im2grid's training runs them
 (phase 20's times, the launches of phase 23's Im2grid run) and K2 and K5 at
 the zoo's warp shapes (phase 20's times, the launches of every phase 23
 kernel run), then P1-P4 (phase 25's times and launches; ``replaces`` the
-first script kernel each serves, ``serves`` all of them), then the five
+first script kernel each serves, ``serves`` all of them; P2's
+``library_ms`` over its by-value runs, ``library_runs``; P2 and P4 with
+``sized``, the 160x192x160 case's times, bound and share), then the five
 modes of the D-sharded step (phase 30's times, rank 0's launches in phase
 32's `train.main(spatial=2)`); each with its
 bound (bytes or float32 operations
@@ -1940,7 +1947,7 @@ def probe_work(probe, args, out):
     needs (P2: the rows its window reads on this run's bounds), its SMEM
     ints and its output, each moved once; P2's adds (and products when
     weighted), P3's product and sum per element; P1 and P4 do no float
-    arithmetic (P4's integer operations are negligible at 41 values)."""
+    arithmetic (P4's integer operations are negligible beside its bytes)."""
     from smilecode_tpu_torch.probes import Smem
 
     out_bytes = out.numel() * out.element_size()
@@ -1960,8 +1967,11 @@ def probe_work(probe, args, out):
 
 def probe_library(probe, args):
     """The one PyTorch call that computes the probe's function, or None:
-    `torch.roll` (P1), ``x + 1`` / ``x * 2`` (P3). P4's floor division and
-    modulo take two calls (`floor_divmod_pair`); P2 has none."""
+    `torch.roll` (P1), ``x + 1`` / ``x * 2`` (P3), and for P2's runs whose
+    bounds come by value (k8a, k9, k10: stride 1, unweighted, every row
+    inside x) the sum over ``x.unfold(0, hi - lo, 1)``'s windows. Bounds on
+    the device would need a copy to the host and a sync to slice; P4's
+    floor division and modulo take two calls (`floor_divmod_pair`)."""
     import torch
 
     if probe.kernel == "P1":
@@ -1970,7 +1980,61 @@ def probe_library(probe, args):
     if probe.kernel == "P3":
         alpha, beta = probe.args
         return (lambda: args[0] + beta) if alpha == 1.0 else (lambda: args[0] * alpha)
+    if probe.kernel == "P2" and not isinstance(args[4], torch.Tensor):
+        x, n, base, stride, (lo, hi) = args
+        require(stride == 1 and not probe.kwargs and 0 <= base + lo and
+                base + hi + n - 1 <= x.shape[0], f"{probe.name}: no unfold window")
+        return lambda: x.unfold(0, hi - lo, 1)[base + lo:base + lo + n].sum(-1)
     return None
+
+
+SIZED_VOLUME = (160, 192, 160)  # LPBA40's registered volume (D, H, W)
+
+
+def sized_cases(device):
+    """Phase 25's cases at one 160x192x160 volume's size: (label, kernel,
+    wrapper arguments, library call, (bytes, operations)). P2: the 9-row
+    zero-padded box sum along D of an f32 volume as x (160, 30720), bounds
+    (-4, 5) by value, against `F.avg_pool2d` with ``divisor_override=1``;
+    P4: the row base and column of each flat voxel index, t = arange(-N/2,
+    N/2) int32, m = 160, against the pair `torch.div` floor, `torch.remainder`.
+    Bytes: each input read and each output written once."""
+    import torch
+    import torch.nn.functional as F
+
+    d, h, w = SIZED_VOLUME
+    g = torch.Generator(device=device).manual_seed(25)
+    x = torch.randn((d, h * w), generator=g, device=device)
+    t = torch.arange(-(d * h * w) // 2, (d * h * w) // 2, dtype=torch.int32, device=device)
+    return [
+        (f"P2 9-row box sum along D, x {d}x{h * w}", "P2", (x, d, 0, 1, (-4, 5)),
+         lambda: F.avg_pool2d(x[None, None], (9, 1), stride=1, padding=(4, 0),
+                              divisor_override=1)[0, 0],
+         (2 * x.numel() * 4, x.numel() * 9)),
+        (f"P4 flat voxel index // {w}, {t.numel()} values", "P4", (t, w),
+         lambda: floor_divmod_pair(t, w), (3 * t.numel() * 4, 0)),
+    ]
+
+
+def floor_divmod_pair(t, m):
+    """P4's function as two PyTorch calls."""
+    import torch
+
+    return torch.div(t, m, rounding_mode="floor") * m, torch.remainder(t, m)
+
+
+def time_in_turns(call, lib, iters=200):
+    """(call ms, device ms, host us per call) of ``call`` and, where ``lib``
+    is given, (ms, device ms) of ``lib``: in turns, lib, call, call, lib,
+    on both clocks (`event_ms`, `device_ms`)."""
+    order = (lib, call, call, lib) if lib is not None else (call,)
+    ev = [event_ms(f, iters, warmup=5) for f in order]
+    dev = [device_ms(f, iters) for f in order]
+    mine = [i for i, f in enumerate(order) if f is call]
+    res = (float(np.mean([ev[i] for i in mine])), float(np.mean([dev[i] for i in mine])),
+           float(np.mean([dev[i].host_us for i in mine])))
+    lib_res = ((ev[0] + ev[3]) / 2, (dev[0] + dev[3]) / 2) if lib is not None else None
+    return res, lib_res
 
 
 def check_probe_edges(device):
@@ -1991,18 +2055,20 @@ def check_probe_edges(device):
     return len(EDGE_CASES)
 
 
-def launch_stage_ns(card, device, n=LAUNCH_STAGE_CALLS):
-    """Host ns per call of each stage of P1's launch path (`kernels/probes.py:
-    roll` on k1's inputs, the amount an int32 tensor on the card), each
+def launch_stage_ns(card, device, kernel="P1", n=LAUNCH_STAGE_CALLS):
+    """Host ns per call of each stage of a probe kernel's launch path, each
     stage alone over ``n`` calls (`time.perf_counter_ns`, in runs of 100
     with the card synchronised between runs, so that the launches never
-    wait for a full queue): the path as every wrapper ran it before
-    `kernels/_build.py:launch` ("before": the checks with a device walk per
-    amount tensor, the entry point looked up and its argtypes assigned per
-    call, `torch.cuda.device` entered, a `torch.cuda.Stream` object built)
-    and as `launch` runs it ("after"); the allocation and the ctypes call
-    with its launch are the same in both. Also the whole `roll` call and
-    `torch.roll`'s. Returns {stage: {"before": ns, "after": ns}}."""
+    wait for a full queue): P1 (`kernels/probes.py:roll`) on k1's inputs,
+    the amount an int32 tensor on the card, or P2 (`row_window_sum`) on
+    k8a's, the bounds by value; the stages as `kernels/_build.py:launch`
+    runs them ("after") and, for P1, as every wrapper ran them before it
+    ("before": the checks with a device walk per amount tensor, the entry
+    point looked up and its argtypes assigned per call, `torch.cuda.device`
+    entered, a `torch.cuda.Stream` object built); the allocation and the
+    ctypes call with its launch are the same in both. Also the whole call
+    and the library call's (`torch.roll`; P2's unfold sum). Returns
+    {stage: {"before": ns or None, "after": ns}}."""
     import ctypes
 
     import torch
@@ -2011,29 +2077,45 @@ def launch_stage_ns(card, device, n=LAUNCH_STAGE_CALLS):
     from smilecode_tpu_torch.kernels import _build
     from smilecode_tpu_torch.kernels import probes as kp
 
-    x = torch.from_numpy(probes.X32).to(device)
-    amt = torch.tensor([3], dtype=torch.int32, device=device)
-    out = torch.empty_like(x)
-    name, types, lib = "smilecode_probe_roll", kp._ROLL_ARGTYPES, _build.library()
+    lib = _build.library()
+    if kernel == "P1":
+        x = torch.from_numpy(probes.X32).to(device)
+        ints = torch.tensor([3], dtype=torch.int32, device=device)
+        out = torch.empty_like(x)
+        name, types = "smilecode_probe_roll", kp._ROLL_ARGTYPES
+        args = (x.data_ptr(), out.data_ptr(), 32, 128, 0, ints.data_ptr(), 0)
+        whole, library = (lambda: kp.roll(x, ints, 0)), (lambda: torch.roll(x, -3, 0))
+        check_after = lambda: (kp._kernel_ints("roll", x, torch.float32, 2, ints, 1),  # noqa: E731
+                               kp._c_ints("roll", "rows cols amount", 32, 128, 0))
+        alloc = lambda: torch.empty_like(x.contiguous())  # noqa: E731
+    else:
+        (probe,) = [p for p in probes.PROBES if p.name == "k8a"]
+        x, nrows, base, stride, ints = probes.probe_args(probe, device)
+        out = torch.empty((nrows, 128), device=device)
+        name, types = "smilecode_probe_row_window", kp._WINDOW_ARGTYPES
+        flags = stride  # k8a: stride 1, unweighted, no bcast
+        args = (x.data_ptr(), out.data_ptr(), 64, 128, nrows, base, flags, None, *ints)
+        whole, library = (lambda: kp.row_window_sum(x, nrows, base, stride, ints),
+                          probe_library(probe, (x, nrows, base, stride, ints)))
+        check_after = lambda: (  # noqa: E731
+            kp._kernel_ints("row_window_sum", x, torch.float32, 2, ints, 2),
+            kp._c_ints("row_window_sum", "rows cols n base lo hi", 64, 128, nrows, base, 1, 3))
+        alloc = lambda: x.new_empty((nrows, x.shape[1]))  # noqa: E731
     fn = _build._bound.get(name) or _build._bind(name, types)
-    args = (x.data_ptr(), out.data_ptr(), 32, 128, 0, amt.data_ptr(), 0)
     index, raw = x.get_device(), torch._C._cuda_getCurrentRawStream
 
     def checks_before():  # each amount tensor's device compared, then its values checked
         if x.dtype != torch.float32 or x.dim() != 2:
             raise TypeError
-        for a in (amt,):
+        for a in (ints,):
             if isinstance(a, torch.Tensor) and (a.dtype != torch.int32 or a.device != x.device):
                 raise TypeError
         if x.device.type == "cpu" or x.device.type != "cuda":
             raise ValueError
-        if isinstance(amt, torch.Tensor):
-            if amt.numel() != 1 or not amt.is_contiguous():
+        if isinstance(ints, torch.Tensor):
+            if ints.numel() != 1 or not ints.is_contiguous():
                 raise ValueError
-            return amt.data_ptr(), (0,)
-
-    def checks_after():
-        return kp._kernel_ints("roll", x, torch.float32, 2, amt, 1)
+            return ints.data_ptr(), (0,)
 
     def bind_before():
         f = getattr(lib, name)
@@ -2044,16 +2126,20 @@ def launch_stage_ns(card, device, n=LAUNCH_STAGE_CALLS):
         with torch.cuda.device(x.device):
             pass
 
+    p1 = kernel == "P1"
     stages = {
-        "checks": (checks_before, checks_after),
-        "bind": (bind_before, lambda: _build._bound.get(name)),
-        "device guard": (guard_before, lambda: x.get_device() == torch._C._cuda_getDevice()),
-        "stream": (lambda: torch.cuda.current_stream(x.device).cuda_stream, lambda: raw(index)),
-        "allocate": ((lambda: torch.empty_like(x.contiguous())),) * 2,
-        "ctypes call and launch": ((lambda: fn(*args, raw(index))),) * 2,
-        "whole call": (None, lambda: kp.roll(x, amt, 0)),
-        "torch.roll": (None, lambda: torch.roll(x, -3, 0)),
-        "empty loop": ((lambda: None),) * 2,
+        "checks": (checks_before if p1 else None, check_after),
+        "bind": (bind_before if p1 else None, lambda: _build._bound.get(name)),
+        "device guard": (guard_before if p1 else None,
+                         lambda: x.get_device() == torch._C._cuda_getDevice()),
+        "stream": ((lambda: torch.cuda.current_stream(x.device).cuda_stream) if p1 else None,
+                   lambda: raw(index)),
+        "allocate": (alloc if p1 else None, alloc),
+        "ctypes call and launch": ((lambda: fn(*args, raw(index))) if p1 else None,
+                                   lambda: fn(*args, raw(index))),
+        "whole call": (None, whole),
+        "library call": (None, library),
+        "empty loop": ((lambda: None) if p1 else None, lambda: None),
     }
 
     def per_call_ns(f):
@@ -2071,10 +2157,10 @@ def launch_stage_ns(card, device, n=LAUNCH_STAGE_CALLS):
     for stage, (before, after) in stages.items():
         res[stage] = {"before": per_call_ns(before) if before else None,
                       "after": per_call_ns(after)}
-    print(f"[{card}] P1 launch path, host ns per call over {n} calls a stage (before / after "
-          "the bound launcher): " + "; ".join(
-              f"{k} {'-' if v['before'] is None else round(v['before'])} / {round(v['after'])}"
-              for k, v in res.items()), flush=True)
+    print(f"[{card}] {kernel} launch path, host ns per call over {n} calls a stage"
+          + (" (before / after the bound launcher)" if p1 else "") + ": " + "; ".join(
+              f"{k} " + ("" if v["before"] is None else f"{round(v['before'])} / ")
+              + f"{round(v['after'])}" for k, v in res.items()), flush=True)
     return res
 
 
@@ -2126,7 +2212,7 @@ def run_probe_phase(card, device):
     for kernel in PROBE_LAUNCHES:
         runs = [p for p in probes.PROBES if p.kernel == kernel]
         r = {key: [] for key in ("ms", "device_ms", "host_us", "plain_ms", "library_ms",
-                                 "library_device_ms", "work")}
+                                 "library_device_ms", "ms_library_runs", "library_runs", "work")}
         r.update(err=0.0, serves=sorted({p.where for p in runs}, key=[p.where for p in runs].index))
         for p in runs:
             args = probes.probe_args(p, device)
@@ -2134,35 +2220,40 @@ def run_probe_phase(card, device):
             ref = kp.PLAIN[kernel](*args, **p.kwargs)
             r["err"] = max(r["err"], float((out.double() - ref.double()).abs().max()))
             require(torch.equal(out, ref), f"{p.name}: kernel differs from the plain version")
-            call = lambda: kp.KERNELS[kernel](*args, **p.kwargs)  # noqa: E731
             lib = probe_library(p, args)
-            order = (lib, call, call, lib) if lib is not None else (call,)
-            ev = [event_ms(f, 200, warmup=5) for f in order]
-            dev = [device_ms(f, 200) for f in order]
-            mine = [i for i, f in enumerate(order) if f is call]
-            r["ms"].append(np.mean([ev[i] for i in mine]))
-            r["device_ms"].append(np.mean([dev[i] for i in mine]))
-            r["host_us"].append(np.mean([dev[i].host_us for i in mine]))
-            if lib is not None:
-                r["library_ms"].append((ev[0] + ev[3]) / 2)
-                r["library_device_ms"].append((dev[0] + dev[3]) / 2)
+            (ms, dev_ms, host_us), lib_ms = time_in_turns(
+                lambda: kp.KERNELS[kernel](*args, **p.kwargs), lib)
+            r["ms"].append(ms)
+            r["device_ms"].append(dev_ms)
+            r["host_us"].append(host_us)
+            if lib_ms is not None:
+                r["library_ms"].append(lib_ms[0])
+                r["library_device_ms"].append(lib_ms[1])
+                r["ms_library_runs"].append(ms)
+                r["library_runs"].append(p.name)
             r["plain_ms"].append(event_ms(lambda: kp.PLAIN[kernel](*args, **p.kwargs), 20))
             r["work"].append(probe_work(p, args, out))
         if kernel == "P4":  # floor division and modulo: two PyTorch calls
             t, m = probes.probe_args(runs[0], device)
-            r["library_pair_ms"] = event_ms(
-                lambda: (torch.div(t, m, rounding_mode="floor") * m, torch.remainder(t, m)), 200, 5)
+            r["library_pair_ms"] = event_ms(lambda: floor_divmod_pair(t, m), 200, 5)
         rec = {k: float(np.mean(r[k])) for k in ("ms", "device_ms", "host_us", "plain_ms")}
         rec.update(err=r["err"], work=tuple(np.mean(r["work"], axis=0)), serves=r["serves"],
                    library_ms=float(np.mean(r["library_ms"])) if r["library_ms"] else None,
                    library_device_ms=(float(np.mean(r["library_device_ms"]))
                                       if r["library_device_ms"] else None),
                    library_pair_ms=r.get("library_pair_ms"), launches=counts[kernel])
+        if r["library_runs"] and len(r["library_runs"]) < len(runs):  # P2: its by-value runs
+            rec.update(library_runs=r["library_runs"],
+                       ms_library_runs=float(np.mean(r["ms_library_runs"])))
         bound_ms, by = bound(*rec["work"])
-        lib = ("none" if rec["library_ms"] is None
-               else f"{rec['library_ms']:.4f}, device {rec['library_device_ms']:.4f}, in turns") + (
-            "" if rec["library_pair_ms"] is None
-            else f" (torch.div floor + torch.remainder {rec['library_pair_ms']:.4f})")
+        lib = "none"
+        if rec["library_ms"] is not None:
+            lib = f"{rec['library_ms']:.4f}, device {rec['library_device_ms']:.4f}, in turns"
+        if "library_runs" in rec:
+            lib += (f" over {', '.join(rec['library_runs'])}, kernel there "
+                    f"{rec['ms_library_runs']:.4f}")
+        if rec["library_pair_ms"] is not None:
+            lib += f" (torch.div floor + torch.remainder {rec['library_pair_ms']:.4f})"
         print(f"[{card}] {kernel} {PROBE_NAMES[kernel]} over its {len(runs)} probe runs "
               f"({', '.join(r['serves'])}), per call: {rec['ms']:.4f} ms, device "
               f"{rec['device_ms']:.4f}, host {rec['host_us']:.2f} us (plain {rec['plain_ms']:.4f}, "
@@ -2171,12 +2262,49 @@ def run_probe_phase(card, device):
         recs[kernel] = rec
     print(f"P1-P4 vs plain on {n_edge} edge cases: exact, one launch each, no host sync",
           flush=True)
+    for label, kernel, args, lib, work in sized_cases(device):
+        recs[kernel]["sized"] = run_sized_case(card, label, kernel, args, lib, work)
     floor = launch_floor(card, device)
-    stages = launch_stage_ns(card, device)
+    stages = {k: launch_stage_ns(card, device, k) for k in ("P1", "P2")}
     for rec in recs.values():
         rec["launch_floor"] = floor
-    recs["P1"]["launch_stages_ns"] = stages
+    for k, st in stages.items():
+        recs[k]["launch_stages_ns"] = st
     return recs
+
+
+def run_sized_case(card, label, kernel, args, lib, work):
+    """One of `sized_cases`: the kernel held bit for bit against its plain
+    version (one launch), then its call ms, device ms and host us per call
+    in turns with the library call, the plain version's ms, the bound and
+    the share of it. Returns the record."""
+    import torch
+
+    from smilecode_tpu_torch.kernels import probes as kp
+
+    fn = kp.KERNELS[kernel]
+    before = fn.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    require(fn.launches == before + 1, f"{label}: {fn.launches - before} launches for one call")
+    ref = kp.PLAIN[kernel](*args)
+    require(out.shape == ref.shape and torch.equal(out, ref),
+            f"{label}: kernel differs from the plain version")
+    lib_out = lib()
+    lib_equal = bool(torch.equal(torch.stack(lib_out) if isinstance(lib_out, tuple) else lib_out,
+                                 ref))
+    (ms, dev_ms, host_us), (lib_ms, lib_dev_ms) = time_in_turns(lambda: fn(*args), lib, 100)
+    plain_ms = event_ms(lambda: kp.PLAIN[kernel](*args), 5)
+    bound_ms, by = bound(*work)
+    rec = {"case": label, "ms": ms, "device_ms": dev_ms, "host_us": host_us, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_device_ms": lib_dev_ms, "library_equal": lib_equal,
+           "library_calls": 2 if kernel == "P4" else 1, "bound_ms": bound_ms, "bound_by": by,
+           "share": bound_ms / dev_ms, "max_abs_err": 0.0}
+    print(f"[{card}] {kernel} sized, {label}: {ms:.4f} ms, device {dev_ms:.4f}, host "
+          f"{host_us:.2f} us (plain {plain_ms:.4f}; library {lib_ms:.4f}, device {lib_dev_ms:.4f}, "
+          f"in turns, {rec['library_calls']} call(s), equal to plain: {lib_equal}); bound "
+          f"{bound_ms:.4f} ms ({by}), share {rec['share']:.3f}; exact, one launch", flush=True)
+    return rec
 
 
 def run_mc_phase(card, device, tmp, data_dir):
@@ -3351,7 +3479,7 @@ def main() -> int:
         bf16, bf16_train_counts = run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer)
         zoo_warps, zoo_bwd, zoo_counts, im2grid_counts = run_zoo_phases(card, device, tmp, val_dir)
 
-        phase(25, "P1-P4: the probe scripts' checks on the card, each kernel vs plain")
+        phase(25, "P1-P4: the probe scripts' checks, edge cases and one volume's size, vs plain")
         probe_recs = run_probe_phase(card, device)
         phase(26, "RDN's MC-dropout uncertainty protocol through infer.main")
         run_mc_phase(card, device, tmp, val_dir)
@@ -3425,8 +3553,10 @@ def main() -> int:
         return rec
 
     def probe_entry(kernel, r):
-        """P1-P4: ms per call over the scripts' runs; they replace the root
-        probe scripts' kernels (``serves``), not the package's."""
+        """P1-P4: ms per call over the scripts' runs (P2's library call over
+        its by-value runs, ``library_runs``; P2 and P4 also ``sized``, the
+        160x192x160 case); they replace the root probe scripts' kernels
+        (``serves``), not the package's."""
         bound_ms, bound_by = bound(*r["work"])
         rec = {"name": f"{PROBE_NAMES[kernel]} ({kernel})", "route": "cuda",
                "source": "smilecode_tpu_torch/csrc/probes.cu", "replaces": r["serves"][0],
@@ -3434,7 +3564,8 @@ def main() -> int:
                "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": r["library_ms"], "device_ms": r["device_ms"], "host_us": r["host_us"],
                "serves": r["serves"], "launch_floor": r["launch_floor"]}
-        for key in ("library_device_ms", "library_pair_ms", "launch_stages_ns"):
+        for key in ("library_device_ms", "library_pair_ms", "library_runs", "ms_library_runs",
+                    "sized", "launch_stages_ns"):
             if r.get(key) is not None:
                 rec[key] = r[key]
         return rec

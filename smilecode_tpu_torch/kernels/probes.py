@@ -15,7 +15,10 @@ Each wrapper checks device, dtype and shape and runs its plain PyTorch
 version (``*_plain``) for CPU tensors; for CUDA tensors it launches its
 kernel once and adds one to its ``launches``, and never falls back. An
 amount or bounds given as an int32 tensor on the card is read by the kernel
-on the device: the wrapper neither copies it to the host nor syncs.
+on the device: the wrapper neither copies it to the host nor syncs. A size
+or value that goes to the kernel as a C ``int`` and does not fit one raises
+`ValueError` before anything is allocated or launched (`_c_ints`): ctypes
+would wrap it silently.
 """
 
 from __future__ import annotations
@@ -28,11 +31,12 @@ from smilecode_tpu_torch.kernels import _build
 
 _ROLL_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int,
                                                                 ctypes.c_void_p]
-_WINDOW_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] + [
+_WINDOW_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [
     ctypes.c_int] * 2 + [ctypes.c_void_p]
 _AFFINE_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_float] * 2 + [
     ctypes.c_void_p]
-_DIVMOD_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_DIVMOD_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+C_INT_MIN, C_INT_MAX = -2 ** 31, 2 ** 31 - 1
 
 
 def _kernel_ints(what: str, x: torch.Tensor, dtype, ndim: int, ints=None, n: int = 0):
@@ -64,6 +68,17 @@ def _kernel_ints(what: str, x: torch.Tensor, dtype, ndim: int, ints=None, n: int
     return None, tuple(int(a) for a in vals)
 
 
+def _c_ints(what: str, names: str, *ints: int) -> None:
+    """Raise `ValueError` for a size or value in ``ints`` (named by the
+    words of ``names``) that a C ``int`` cannot hold (a size of 2**31 or
+    more), before the wrapper allocates or launches: ctypes would pass it
+    wrapped (2**31 + 5 arrives as -2147483643, 2**32 + 3 as 3)."""
+    if min(ints) < C_INT_MIN or max(ints) > C_INT_MAX:
+        name, v = next((k, v) for k, v in zip(names.split(), ints)
+                       if not C_INT_MIN <= v <= C_INT_MAX)
+        raise ValueError(f"{what}: {name} = {v} does not fit the kernel's 32-bit int")
+
+
 def _host_ints(v) -> tuple[int, ...]:
     return tuple(int(a) for a in v.reshape(-1).tolist()) if isinstance(v, torch.Tensor) else (
         (int(v),) if isinstance(v, int) else tuple(int(a) for a in v))
@@ -88,9 +103,10 @@ def roll(x: torch.Tensor, amount, axis: int) -> torch.Tensor:
     if dev is None:
         return roll_plain(x, amount, axis)
     ptr, (a,) = dev
+    rows, cols = x.shape
+    _c_ints("roll", "rows cols amount", rows, cols, a)
     x = x.contiguous()
     out = torch.empty_like(x)
-    rows, cols = x.shape
     _build.launch("smilecode_probe_roll", _ROLL_ARGTYPES, x, x.data_ptr(), out.data_ptr(), rows,
                   cols, axis, ptr, a, what="probe roll launch")
     roll.launches += 1
@@ -131,11 +147,13 @@ def row_window_sum(x: torch.Tensor, n: int, base: int, stride: int, bounds,
     if dev is None:
         return row_window_sum_plain(x, n, base, stride, bounds, weighted, bcast)
     ptr, (lo, hi) = dev
+    rows, cols = x.shape
+    _c_ints("row_window_sum", "rows cols n base lo hi", rows, cols, n, base, lo, hi)
     x = x.contiguous()
-    out = torch.empty((n, x.shape[1]), dtype=x.dtype, device=x.device)
+    out = x.new_empty((n, cols))
+    flags = stride | 2 * bool(weighted) | 4 * bool(bcast)  # the kernel's instance
     _build.launch("smilecode_probe_row_window", _WINDOW_ARGTYPES, x, x.data_ptr(), out.data_ptr(),
-                  x.shape[0], x.shape[1], n, base, stride, int(weighted), int(bcast), ptr, lo, hi,
-                  what="probe row_window_sum launch")
+                  rows, cols, n, base, flags, ptr, lo, hi, what="probe row_window_sum launch")
     row_window_sum.launches += 1
     return out
 
@@ -174,6 +192,7 @@ def floor_divmod(t: torch.Tensor, m: int) -> torch.Tensor:
         raise ZeroDivisionError("floor_divmod: m must not be 0")
     if _kernel_ints("floor_divmod", t, torch.int32, 1) is None:
         return floor_divmod_plain(t, m)
+    _c_ints("floor_divmod", "m", m)  # the count goes as a 64-bit long long
     t = t.contiguous()
     out = torch.empty((2, t.numel()), dtype=torch.int32, device=t.device)
     _build.launch("smilecode_probe_floor_divmod", _DIVMOD_ARGTYPES, t, t.data_ptr(),

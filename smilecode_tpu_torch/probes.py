@@ -84,6 +84,9 @@ class EdgeCase(NamedTuple):
     offset: int = 0  # x's first value this many values into its buffer (4 bytes each)
 
 
+INT32_EXTREMES = np.array([-2 ** 31, -2 ** 31 + 1, -9, -8, -1, 0, 7, 2 ** 31 - 1], np.int32)
+
+
 def _edge_rand(shape, seed) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
@@ -135,19 +138,51 @@ def _edge_cases() -> list[EdgeCase]:
         off = f"-off{offset}" if offset else ""
         cases.append(EdgeCase(f"P3-{shape[0]}x{shape[1]}{off}", "P3", x, (-0.3, 1.7), {},
                               affine_plain(torch.from_numpy(x), -0.3, 1.7), offset))
+    # P2 on grids too small for the stage (the direct kernel): 4097x130
+    # (columns not a multiple of 4), a view 4 bytes off, a 300-term window
+    # with rows past x, the zero-padded 9-row box window; stride 0 through
+    # its scalar loads; bcast stored to 1000 rows; and 2100 rows, enough
+    # tiles for the staged kernel
+    big = _edge_rand((4097, 130), 65)
+    wide, wide520 = _edge_rand((2100, 512), 69), _edge_rand((2100, 520), 70)
+    for label, x, offset, (n, base, stride, bounds, weighted, bcast) in (
+            ("4097x130", big, 0, (4000, 50, 1, (-3, 4), True, False)),
+            ("33x128-off1", _edge_rand((33, 128), 66), 1, (20, 5, 1, (1, 4), False, False)),
+            ("window300-4097x130", big, 0, (600, 3800, 1, (-50, 250), False, False)),
+            ("box9-40x33", _edge_rand((40, 33), 67), 0, (40, 0, 1, (-4, 5), False, False)),
+            ("stride0-4097x130-off1", big, 1, (4000, -7, 0, (1, 4), True, False)),
+            ("bcast-n1000", big, 0, (1000, 100, 1, (5, 17), False, True)),
+            # the stage's 16-byte and 4-byte copies, a window of two stages
+            ("rows4-2100x512-window40", wide, 0, (2100, -10, 1, (-5, 35), False, False)),
+            ("rows4-2100x520-off1", wide520, 1, (2100, 1, 1, (-3, 4), True, False))):
+        kw = {"weighted": weighted, "bcast": bcast}
+        cases.append(EdgeCase(f"P2-{label}", "P2", x, (n, base, stride, Smem(bounds)), kw,
+                              row_window_sum_plain(torch.from_numpy(x), n, base, stride, bounds,
+                                                   **kw), offset))
     t = np.arange(-20, 21, dtype=np.int32)
     for m in (1, 3, 8, -3, -8):
         cases.append(EdgeCase(f"P4-m{m}", "P4", t, (m,), {},
                               floor_divmod_plain(torch.from_numpy(t), m)))
+    # P4 at the int32 extremes (quotients whose product wraps, |m| = 1), and
+    # on 4099 values (row 1 not 16-byte aligned) at and 4 bytes off alignment
+    for m in (1, -1, 3, 8, -8, 2 ** 31 - 1):
+        cases.append(EdgeCase(f"P4-extremes-m{m}", "P4", INT32_EXTREMES, (m,), {},
+                              floor_divmod_plain(torch.from_numpy(INT32_EXTREMES), m)))
+    t = np.random.default_rng(68).integers(-2 ** 31, 2 ** 31, 4099).astype(np.int32)
+    for offset in (0, 1):
+        cases.append(EdgeCase(f"P4-4099{'-off1' * offset}", "P4", t, (-1000,), {},
+                              floor_divmod_plain(torch.from_numpy(t), -1000), offset))
     return cases
 
 
 # P1-P4's edge cases beyond the scripts' inputs, each with its plain
 # version's output: roll amounts negative or past the axis on both axes,
-# P1's and P3's 16-byte paths with their heads and tails (views 4 bytes off,
-# counts not a multiple of 4, 4097x130), empty windows, rows outside x, both
-# weight modes, t in -20..20 for several divisors. The card tests and
-# chip_smoke.py's phase 25 hold the kernels to them.
+# the 16-byte paths with their heads and tails (views 4 bytes off, counts
+# not a multiple of 4, 4097x130), empty windows, rows outside x, both
+# weight modes, P2's long windows on both of its stride-1 kernels and bcast
+# to 1000 rows, t in -20..20 and at the int32 extremes for several
+# divisors. The card tests and chip_smoke.py's phase 25 hold the kernels to
+# them.
 EDGE_CASES = _edge_cases()
 
 

@@ -18,6 +18,8 @@ round once; a sum in another order can flip the last bit), float32 outputs
 exactly: they round each product and sum in the plain versions' order.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -638,10 +640,10 @@ def test_probe_kernel_matches_plain(dev, case, on_device):
     if case.kernel == "P1":
         a, axis = case.args[0][0], case.args[1]
         assert torch.equal(out, torch.from_numpy(np.roll(case.x, -a, axis)))
-    if case.kernel == "P4":
-        m = case.args[0]
-        assert out.tolist() == [[(v // m) * m for v in range(-20, 21)],
-                                [v % m for v in range(-20, 21)]]
+    if case.kernel == "P4":  # Python's // and %, the product wrapped to int32 as torch's
+        m, t = case.args[0], case.x.tolist()
+        assert out.tolist() == [[((v // m) * m + 2 ** 31) % 2 ** 32 - 2 ** 31 for v in t],
+                                [v % m for v in t]]
 
 
 def test_probe_scripts_run_exactly_on_the_card(dev):
@@ -654,6 +656,37 @@ def test_probe_scripts_run_exactly_on_the_card(dev):
     assert len(results) == 17 and all(err == 0 for _, _, err in results)
     assert {k: fn.launches - before[k] for k, fn in probes.KERNELS.items()} == {
         "P1": 6, "P2": 8, "P3": 2, "P4": 1}
+
+
+# P4 on more than 2^30 values: row 1 of out starts n values on, an offset
+# past 2^31 that a 32-bit n + i overflows; past 2^31 values the count
+# itself no longer fits the C int it went as (it wrapped to a negative
+# count). Run in a child process, so that an illegal address cannot poison
+# this process's CUDA context for the tests after it.
+P4_PAST_2_30 = """
+import sys
+import torch
+from smilecode_tpu_torch.kernels import probes
+n, k, m = int(sys.argv[1]), 2 ** 20, -1000
+g = torch.Generator(device="cuda").manual_seed(11)
+t = torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32, device="cuda", generator=g)
+out = probes.floor_divmod(t, m)
+torch.cuda.synchronize()
+for part in (slice(0, k), slice(n - k, n)):
+    assert torch.equal(out[:, part], probes.floor_divmod_plain(t[part], m)), part
+print("ok", probes.floor_divmod.launches)
+"""
+
+
+@pytest.mark.parametrize("n", [2 ** 30 + 4096, 2 ** 31 + 4096], ids=["2^30+4096", "2^31+4096"])
+def test_floor_divmod_past_2_30_values_writes_row_1_in_bounds(dev, n):
+    import subprocess
+    import sys
+
+    run = subprocess.run([sys.executable, "-c", P4_PAST_2_30, str(n)], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert run.returncode == 0 and run.stdout.split() == ["ok", "1"], run.stdout + run.stderr
 
 
 # the modes of the D-sharded step: K1/K3/K4 with k of D+2 slices (halo-k;

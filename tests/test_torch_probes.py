@@ -19,6 +19,7 @@ length, the same rotation; traced shifts are passed on unchanged.
 """
 
 import ast
+import ctypes
 import os
 import types
 
@@ -85,8 +86,11 @@ JAX_RUNS = {
 RUNS = {probe.name: probe for probe in probes.PROBES}
 
 
-def run_script_kernel(name):
-    script, kernel, extra, smem, x, shape, dtype = JAX_RUNS[name]
+def run_script_kernel(name, smem=None):
+    """The script's kernel of probe run ``name`` in interpret mode, on the
+    script's SMEM operands or on ``smem`` in their place."""
+    script, kernel, extra, run_smem, x, shape, dtype = JAX_RUNS[name]
+    smem = run_smem if smem is None else smem
     ns = load_kernels(script, (kernel, *extra))
     args = [jnp.asarray(v, jnp.int32) for v in smem]
     if x is not None:
@@ -161,3 +165,158 @@ def test_p1_p3_edge_cases_match_numpy_on_the_cpu(case):
         want = case.x * np.float32(alpha) + np.float32(beta)
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, case.want)
+
+
+def window_numpy(x, n, base, stride, bounds, weighted=False, bcast=False):
+    """P2 as a float32 numpy loop over t in order: rows outside x add 0."""
+    lo, hi = bounds
+    acc = np.zeros((n, x.shape[1]), np.float32)
+    r = np.zeros(n, np.int64) if bcast else np.arange(n)
+    for t in range(lo, hi):
+        rows = base + stride * t + r
+        inside = (rows >= 0) & (rows < x.shape[0])
+        v = np.where(inside[:, None], x[np.clip(rows, 0, x.shape[0] - 1)], np.float32(0))
+        acc = acc + (v * np.float32(t) if weighted else v)
+    return acc
+
+
+def divmod_numpy(t, m):
+    """P4 with Python's floor semantics in int64, row 0 wrapped to int32 as
+    torch's and JAX's int32 products wrap."""
+    t64 = t.astype(np.int64)
+    prod = (t64 // m) * m
+    return np.stack([(prod + 2 ** 31) % 2 ** 32 - 2 ** 31, t64 % m]).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", [c for c in probes.EDGE_CASES if c.kernel in ("P2", "P4")],
+                         ids=lambda c: c.id)
+def test_p2_p4_edge_cases_match_numpy_on_the_cpu(case):
+    """P2's and P4's edge cases through the wrappers on the CPU, the operand
+    a view ``case.offset`` values into its buffer: equal to a float32 numpy
+    loop over t in order, and to ``(t // m) * m`` and ``t % m`` wrapped to
+    int32, and to the case's recorded output."""
+    x = probes.edge_operand(case, "cpu")
+    if case.kernel == "P2":
+        n, base, stride, bounds = case.args
+        got = kernels.row_window_sum(x, n, base, stride, tuple(bounds), **case.kwargs)
+        want = window_numpy(case.x, n, base, stride, bounds, **case.kwargs)
+    else:
+        (m,) = case.args
+        got, want = kernels.floor_divmod(x, m), divmod_numpy(case.x, m)
+    assert got.dtype == torch.from_numpy(want).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, case.want)
+
+
+@pytest.mark.parametrize("v", probes.INT32_EXTREMES.tolist())
+def test_k6_at_the_int32_extremes_equals_floor_divmod_plain(v):
+    """The script's k6 (m = 8) in Pallas interpret mode on one int32 extreme:
+    equal to `floor_divmod_plain` and to Python's floor division."""
+    script = run_script_kernel("k6", smem=[[v]])
+    got = kernels.floor_divmod_plain(torch.tensor([v], dtype=torch.int32), 8).reshape(2)
+    np.testing.assert_array_equal(script, got.numpy())
+    np.testing.assert_array_equal(script, divmod_numpy(np.array([v], np.int32), 8).reshape(2))
+
+
+def test_the_c_int_helper_takes_every_int32_and_refuses_the_rest():
+    kernels._c_ints("w", "a b c", 2 ** 31 - 1, -2 ** 31, 0)
+    for v in (2 ** 31, 2 ** 32 + 3, -2 ** 31 - 1):
+        with pytest.raises(ValueError, match=rf"^w: size = {v} does not fit"):
+            kernels._c_ints("w", "a size", 0, v)
+
+
+BIG = 2 ** 31
+# (kernel, the size or value that goes past a C int, the wrapper call on a
+# meta tensor: shapes without storage)
+REFUSED = [
+    ("P1", "rows", lambda: kernels.roll(torch.empty((BIG, 1), device="meta"), 1, 0)),
+    ("P1", "cols", lambda: kernels.roll(torch.empty((1, BIG), device="meta"), 1, 1)),
+    ("P1", "amount", lambda: kernels.roll(torch.empty((2, 3), device="meta"), BIG + 5, 1)),
+    ("P2", "rows", lambda: kernels.row_window_sum(torch.empty((BIG, 1), device="meta"), 2, 0,
+                                                  1, (0, 2))),
+    ("P2", "cols", lambda: kernels.row_window_sum(torch.empty((1, BIG), device="meta"), 2, 0,
+                                                  1, (0, 2))),
+    ("P2", "n", lambda: kernels.row_window_sum(torch.empty((4, 3), device="meta"), BIG, 0, 1,
+                                               (0, 2))),
+    ("P2", "base", lambda: kernels.row_window_sum(torch.empty((4, 3), device="meta"), 2, -BIG - 1,
+                                                  1, (0, 2))),
+    ("P2", "hi", lambda: kernels.row_window_sum(torch.empty((4, 3), device="meta"), 2, 0, 1,
+                                                (0, BIG))),
+    ("P4", "m", lambda: kernels.floor_divmod(torch.empty(5, dtype=torch.int32, device="meta"),
+                                             2 ** 32 + 3)),
+]
+
+
+def _pretend_on_card(monkeypatch):
+    """The wrappers' checks as for a tensor on the card (a meta tensor
+    stands in for it); every call of `_c_ints` recorded; the launcher
+    refusing to be reached."""
+    calls = []
+
+    def kernel_ints(what, x, dtype, ndim, ints=None, n=0):
+        assert x.dtype == dtype and x.dim() == ndim
+        if isinstance(ints, torch.Tensor):
+            return ints.data_ptr(), (0,) * n
+        vals = (ints,) if n == 1 else tuple(ints or ())
+        return None, tuple(int(a) for a in vals)
+
+    def c_ints(what, names, *ints):
+        calls.append(dict(zip(names.split(), ints)))
+        return C_INTS(what, names, *ints)
+
+    def launch(name, argtypes, t, *args, what):
+        raise AssertionError(f"{what}: a size past a C int reached the launcher")
+
+    monkeypatch.setattr(kernels, "_kernel_ints", kernel_ints)
+    monkeypatch.setattr(kernels, "_c_ints", c_ints)
+    monkeypatch.setattr(kernels._build, "launch", launch)
+    return calls
+
+
+C_INTS = kernels._c_ints
+
+
+@pytest.mark.parametrize("kernel,name,call", REFUSED, ids=[f"{k}-{n}" for k, n, _ in REFUSED])
+def test_probe_wrappers_refuse_sizes_a_c_int_cannot_hold(monkeypatch, kernel, name, call):
+    """Each probe wrapper, given a size or value that would reach its
+    kernel as a wrapped C ``int``, raises `ValueError` through `_c_ints`
+    before it allocates or launches."""
+    calls = _pretend_on_card(monkeypatch)
+    with pytest.raises(ValueError, match=rf": {name} = -?\d+ does not fit"):
+        call()
+    assert len(calls) == 1 and name in calls[0]
+    assert kernels.KERNELS[kernel].launches == 0
+
+
+@pytest.mark.parametrize("stride", [0, 1])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("bcast", [False, True])
+def test_p2_wrapper_packs_its_instance_into_flags(monkeypatch, stride, weighted, bcast):
+    """P2's entry point takes 11 arguments: (stride, weighted, bcast) go as
+    one ``flags`` int, stride | 2 weighted | 4 bcast; by-value bounds with
+    a null pointer, device bounds as the pointer with 0s."""
+    _pretend_on_card(monkeypatch)
+    seen = []
+    monkeypatch.setattr(kernels._build, "launch",
+                        lambda name, argtypes, t, *args, what: seen.append((name, argtypes, args)))
+    x = torch.zeros((7, 5))
+    bounds = torch.tensor([-1, 3], dtype=torch.int32)
+    for b in ((-1, 3), bounds):
+        out = kernels.row_window_sum(x, 4, 2, stride, b, weighted=weighted, bcast=bcast)
+        assert out.shape == (4, 5)
+    flags = stride + 2 * weighted + 4 * bcast
+    for (name, argtypes, args), ptr in zip(seen, (None, bounds.data_ptr())):
+        assert name == "smilecode_probe_row_window" and len(argtypes) == 11
+        assert len(args) == len(argtypes) - 1  # the launcher adds the stream
+        assert args[2:] == (7, 5, 4, 2, flags, ptr) + ((-1, 3) if ptr is None else (0, 0))
+
+
+def test_p4_wrapper_passes_its_count_as_a_long_long(monkeypatch):
+    _pretend_on_card(monkeypatch)
+    seen = []
+    monkeypatch.setattr(kernels._build, "launch",
+                        lambda name, argtypes, t, *args, what: seen.append((argtypes, args)))
+    t = torch.arange(-5, 6, dtype=torch.int32)
+    kernels.floor_divmod(t, -3)
+    ((argtypes, args),) = seen
+    assert argtypes[2] is ctypes.c_longlong and args[2:] == (11, -3)
