@@ -1,0 +1,5 @@
+import os
+import sys
+
+# the checkout's root, so that `bench_port` and the program import
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
