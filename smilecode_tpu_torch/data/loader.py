@@ -11,16 +11,26 @@ ahead, at most ``max(prefetch, num_workers)`` of them in flight, and the
 loader yields them in order. The pinning and the copy to the device stay on
 the consuming thread: pinned when the device is a GPU, copied with
 ``non_blocking=True`` so the copy overlaps work already queued on the card.
+
+While a `torch.profiler` records, each batch handed out is a span
+``loader.next`` (`utils.profiling.span`) from the consumer's request to the
+batch, the yield left out, over ``loader.wait`` (a worker's batch) or
+``loader.build`` (building it on the consumer when ``num_workers`` is 0)
+and ``loader.copy`` (pinning and the copy to the device); no spans
+otherwise.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
 import torch
+
+from smilecode_tpu_torch.utils.profiling import span
 
 
 def _to_ndhwc(arr: np.ndarray) -> np.ndarray:
@@ -42,6 +52,9 @@ class Loader:
       prefetch: batches built ahead of the consumer.
       drop_last: drop the trailing partial batch.
       device: where batches go.
+
+    Spans (while a profiler records): ``loader.next`` per batch, over
+    ``loader.wait`` or ``loader.build`` and ``loader.copy``.
     """
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False, seed: int = 24,
@@ -89,18 +102,28 @@ class Loader:
         batches = self._batches()
         if self.num_workers == 0:
             for b in batches:
-                yield self._to_device(self._numpy_batch(b))
+                with span("loader.next"):
+                    with span("loader.build"):
+                        cols = self._numpy_batch(b)
+                    with span("loader.copy"):
+                        batch = self._to_device(cols)
+                yield batch
             return
         pool = ThreadPoolExecutor(self.num_workers, thread_name_prefix="loader")
         ahead = max(self.prefetch, self.num_workers)
         pending = collections.deque()
+        todo = iter(batches)
         try:
-            for b in batches:
-                pending.append(pool.submit(self._numpy_batch, b))
-                if len(pending) > ahead:
-                    yield self._to_device(pending.popleft().result())
-            while pending:
-                yield self._to_device(pending.popleft().result())
+            for _ in batches:
+                with span("loader.next"):
+                    # keep ahead + 1 builds in flight, then take the oldest
+                    for b in itertools.islice(todo, ahead + 1 - len(pending)):
+                        pending.append(pool.submit(self._numpy_batch, b))
+                    with span("loader.wait"):
+                        cols = pending.popleft().result()
+                    with span("loader.copy"):
+                        batch = self._to_device(cols)
+                yield batch
         finally:
             # also on an abandoned iteration: drop queued batches, join workers
             pool.shutdown(wait=True, cancel_futures=True)

@@ -49,18 +49,26 @@ from smilecode_tpu_torch.metrics_ext import get_mc_preds, uceloss, uncert_regres
 from smilecode_tpu_torch.models.registry import build_model
 from smilecode_tpu_torch.ops.warp import warp
 from smilecode_tpu_torch.utils import AverageMeter, latest_checkpoint, load_checkpoint, resolve_device
+from smilecode_tpu_torch.utils.profiling import span
 
 
 def make_infer_step(model):
-    """(x, y, x_seg, y_seg) NDHWC tensors -> (dice_trans, dice_raw, fold)."""
+    """(x, y, x_seg, y_seg) NDHWC tensors -> (dice_trans, dice_raw, fold).
+
+    Spans (while a profiler records): ``infer.step`` over ``infer.forward``
+    (the model) and ``infer.score`` (the nearest warp, both Dice and the
+    folding fraction)."""
 
     @torch.no_grad()
     def step(x, y, x_seg, y_seg):
-        flow = model(x, y)[1]  # (moved, flow, *aux)
-        def_seg = warp(x_seg.float(), flow, mode="nearest").to(torch.int32)
-        dice_trans = dice_val_voi(def_seg, y_seg)
-        dice_raw = dice_val_voi(x_seg, y_seg)
-        fold = fold_fraction(flow[0])
+        with span("infer.step"):
+            with span("infer.forward"):
+                flow = model(x, y)[1]  # (moved, flow, *aux)
+            with span("infer.score"):
+                def_seg = warp(x_seg.float(), flow, mode="nearest").to(torch.int32)
+                dice_trans = dice_val_voi(def_seg, y_seg)
+                dice_raw = dice_val_voi(x_seg, y_seg)
+                fold = fold_fraction(flow[0])
         return dice_trans, dice_raw, fold
 
     return step

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 
 from smilecode_tpu_torch.kernels import _build
 from smilecode_tpu_torch.ops.attention import _neighborhood_attention_plain, offset_grid
+from smilecode_tpu_torch.utils.profiling import span
 
 MAX_HEAD_DIM = 32  # largest template instance in csrc/modet_attn*.cu
 # K1/K3 bricks (csrc/attn_tile.cuh): at most ATTN_MAX_BH x ATTN_MAX_BW voxels
@@ -242,22 +243,24 @@ def modet_attention_bwd_dq(q, k, rpb, scale: float, g, k_halo: bool = False):
     of `attn_geometry`'s grid, summed by the caller. ``k_halo``: k has D+2
     slices (halo-k mode). Adds one to ``modet_attention_bwd_dq.launches``
     (and ``.launches_bf16`` for bf16, ``.launches_halo`` for halo-k) per
-    launch."""
-    b, d, h, w, heads, hd = q.shape
-    dq = torch.empty_like(q)
-    dl = torch.empty((b, d, h, w, heads, 27), dtype=q.dtype, device=q.device)
-    blocks = attn_geometry(q.shape, q.element_size())[3]
-    part = (torch.empty((blocks, heads, 27), dtype=torch.float32, device=q.device)
-            if rpb is not None else None)
-    if dq.numel() == 0:
+    launch. Span ``kernel.K3`` (`utils.profiling.span`) from entry to
+    return while a profiler records."""
+    with span("kernel.K3"):
+        b, d, h, w, heads, hd = q.shape
+        dq = torch.empty_like(q)
+        dl = torch.empty((b, d, h, w, heads, 27), dtype=q.dtype, device=q.device)
+        blocks = attn_geometry(q.shape, q.element_size())[3]
+        part = (torch.empty((blocks, heads, 27), dtype=torch.float32, device=q.device)
+                if rpb is not None else None)
+        if dq.numel() == 0:
+            return dq, dl, part
+        rpb_flat = _rpb_flat(rpb)
+        _build.launch(_build.entry("smilecode_modet_attn_bwd_dq", q), _DQ_ARGTYPES, q,
+                      q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), g.data_ptr(), dq.data_ptr(),
+                      dl.data_ptr(), _ptr(part), b, d, h, w, heads, hd, float(scale),
+                      *_launch_args(q, k), int(k_halo), what="modet_attn_bwd_dq launch")
+        _build.count(modet_attention_bwd_dq, q, mode="halo" if k_halo else None)
         return dq, dl, part
-    rpb_flat = _rpb_flat(rpb)
-    _build.launch(_build.entry("smilecode_modet_attn_bwd_dq", q), _DQ_ARGTYPES, q,
-                  q.data_ptr(), k.data_ptr(), _ptr(rpb_flat), g.data_ptr(), dq.data_ptr(),
-                  dl.data_ptr(), _ptr(part), b, d, h, w, heads, hd, float(scale),
-                  *_launch_args(q, k), int(k_halo), what="modet_attn_bwd_dq launch")
-    _build.count(modet_attention_bwd_dq, q, mode="halo" if k_halo else None)
-    return dq, dl, part
 
 
 def _check_dk(q, dl):
@@ -285,18 +288,21 @@ def modet_attention_bwd_dk(q, dl, scale: float, k_halo: bool = False):
     slices the cotangents of the neighbour shards' k slices. Raises on
     tensors it does not take (`_check_dk`), CPU ones included. Adds one to
     ``modet_attention_bwd_dk.launches`` (and ``.launches_bf16`` for bf16,
-    ``.launches_halo`` for halo-k) per launch."""
-    _check_dk(q, dl)
-    b, d, h, w, heads, hd = q.shape
-    dk = torch.empty(_k_shape(q, k_halo), dtype=q.dtype, device=q.device)
-    if dk.numel() == 0:
+    ``.launches_halo`` for halo-k) per launch. Span ``kernel.K4``
+    (`utils.profiling.span`) from entry to return, a refusal's too, while a
+    profiler records."""
+    with span("kernel.K4"):
+        _check_dk(q, dl)
+        b, d, h, w, heads, hd = q.shape
+        dk = torch.empty(_k_shape(q, k_halo), dtype=q.dtype, device=q.device)
+        if dk.numel() == 0:
+            return dk
+        bh, bw, cd, _ = dk_geometry(dk.shape, q.element_size())
+        _build.launch(_build.entry("smilecode_modet_attn_bwd_dk", q), _DK_ARGTYPES, q,
+                      q.data_ptr(), dl.data_ptr(), dk.data_ptr(), b, d, h, w, heads, hd,
+                      float(scale), bh, bw, cd, int(k_halo), what="modet_attn_bwd_dk launch")
+        _build.count(modet_attention_bwd_dk, q, mode="halo" if k_halo else None)
         return dk
-    bh, bw, cd, _ = dk_geometry(dk.shape, q.element_size())
-    _build.launch(_build.entry("smilecode_modet_attn_bwd_dk", q), _DK_ARGTYPES, q,
-                  q.data_ptr(), dl.data_ptr(), dk.data_ptr(), b, d, h, w, heads, hd,
-                  float(scale), bh, bw, cd, int(k_halo), what="modet_attn_bwd_dk launch")
-    _build.count(modet_attention_bwd_dk, q, mode="halo" if k_halo else None)
-    return dk
 
 
 _WINDOWS = [(od, oh, ow) for od in range(3) for oh in range(3) for ow in range(3)]
@@ -401,12 +407,16 @@ def modet_attention(q: torch.Tensor, k: torch.Tensor, rpb: torch.Tensor | None,
     ``modet_attention.launches`` per K1 launch, and to
     ``modet_attention.launches_bf16`` when it was the bf16 instance,
     ``modet_attention.launches_halo`` when it was halo-k.
+
+    Span ``kernel.K1`` (`utils.profiling.span`) from entry to return,
+    the plain version's too, while a profiler records.
     """
-    if _check(q, k, rpb, "modet_attention", k_halo):
-        return modet_attention_plain(q, k, rpb, scale, k_halo)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, rpb)):
-        return ModetAttentionFunction.apply(q, k, rpb, scale, k_halo)
-    return _launch_fwd(q, k, rpb, scale, k_halo)
+    with span("kernel.K1"):
+        if _check(q, k, rpb, "modet_attention", k_halo):
+            return modet_attention_plain(q, k, rpb, scale, k_halo)
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, rpb)):
+            return ModetAttentionFunction.apply(q, k, rpb, scale, k_halo)
+        return _launch_fwd(q, k, rpb, scale, k_halo)
 
 
 for _fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk):

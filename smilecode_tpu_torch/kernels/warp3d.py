@@ -63,6 +63,7 @@ from smilecode_tpu_torch.ops.warp import (
     rescale_factors,
     warp_coords,
 )
+from smilecode_tpu_torch.utils.profiling import span
 
 # (SD, SH, SW, C, lanes, FD, FH, FW, d0), then the three scales
 _FWD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 9 + [
@@ -248,16 +249,21 @@ def warp3d_trilinear_bwd(src, flow, g, want_dsrc: bool = True, d0: int | None = 
     (and to ``.launches_bf16``, ``.scatters_bf16`` for a bf16 source,
     ``.launches_origin``, ``.scatters_origin`` in D-origin mode, and to
     ``.launches_vector`` when it took the vector path).
+
+    Span ``kernel.K5`` (`utils.profiling.span`) from entry to return,
+    the plain version's too, while a profiler records.
     """
-    if _check(src, flow, "warp3d_trilinear_bwd", d0):
-        return warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc, d0)
-    out_shape = (src.shape[0], *flow.shape[1:4], src.shape[4])
-    if tuple(g.shape) != out_shape or g.device != src.device:
-        raise ValueError(f"warp3d_trilinear_bwd: g must be {out_shape} on {src.device}, "
-                         f"got {tuple(g.shape)} on {g.device}")
-    if g.dtype != src.dtype:
-        raise TypeError(f"warp3d_trilinear_bwd: g must have src's dtype {src.dtype}, got {g.dtype}")
-    return _launch_bwd(src, flow, g.contiguous(), want_dsrc, d0)
+    with span("kernel.K5"):
+        if _check(src, flow, "warp3d_trilinear_bwd", d0):
+            return warp3d_trilinear_bwd_plain(src, flow, g, want_dsrc, d0)
+        out_shape = (src.shape[0], *flow.shape[1:4], src.shape[4])
+        if tuple(g.shape) != out_shape or g.device != src.device:
+            raise ValueError(f"warp3d_trilinear_bwd: g must be {out_shape} on {src.device}, "
+                             f"got {tuple(g.shape)} on {g.device}")
+        if g.dtype != src.dtype:
+            raise TypeError(f"warp3d_trilinear_bwd: g must have src's dtype {src.dtype}, "
+                            f"got {g.dtype}")
+        return _launch_bwd(src, flow, g.contiguous(), want_dsrc, d0)
 
 
 class Warp3dTrilinearFunction(torch.autograd.Function):
@@ -287,12 +293,16 @@ def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor, d0: int | None = Non
     ``warp3d_trilinear.launches_bf16`` when it was the bf16 instance, to
     ``warp3d_trilinear.launches_origin`` in D-origin mode, and to
     ``warp3d_trilinear.launches_vector`` when it took the vector path.
+
+    Span ``kernel.K2`` (`utils.profiling.span`) from entry to return,
+    the plain version's too, while a profiler records.
     """
-    if _check(src, flow, "warp3d_trilinear", d0):
-        return warp3d_trilinear_plain(src, flow, d0)
-    if torch.is_grad_enabled() and (src.requires_grad or flow.requires_grad):
-        return Warp3dTrilinearFunction.apply(src, flow, d0)
-    return _launch_fwd(src, flow, d0)
+    with span("kernel.K2"):
+        if _check(src, flow, "warp3d_trilinear", d0):
+            return warp3d_trilinear_plain(src, flow, d0)
+        if torch.is_grad_enabled() and (src.requires_grad or flow.requires_grad):
+            return Warp3dTrilinearFunction.apply(src, flow, d0)
+        return _launch_fwd(src, flow, d0)
 
 
 # F's entries (`smilecode_tpu/kernels/warp3d.py:238,259`): the same K2 wrapper

@@ -94,6 +94,7 @@ from smilecode_tpu_torch.utils import (
     resolve_device,
     save_checkpoint,
 )
+from smilecode_tpu_torch.utils.profiling import span
 
 _PORT_OPT_KEYS = {"count", "mu", "nu", "nu_max"}
 
@@ -103,23 +104,30 @@ def make_loss_and_grads(model, plan, weights, mesh=None):
     each parameter's ``.grad`` (zeroed first). With a ``mesh`` of dp > 1 the
     rank's rows give the local values, and the losses and gradients
     returned are their averages over "data" (JAX `make_train_step(mesh=)`,
-    `smilecode_tpu/train.py:73-135`)."""
+    `smilecode_tpu/train.py:73-135`).
+
+    Spans (while a profiler records): ``train.forward`` (the model),
+    ``train.loss`` (the criterions), ``train.backward`` (autograd, and with
+    dp > 1 the average over the ranks)."""
     criterions = [CRITERIA[c] for c in plan.criterions]
     weights = resolve_weights(weights, len(criterions))
 
     def loss_and_grads(x, y):
         model.zero_grad(set_to_none=True)
-        outs = plan.select_train_outputs(model(x, y))
+        with span("train.forward"):
+            outs = plan.select_train_outputs(model(x, y))
         if len(outs) < len(criterions):
             raise ValueError(f"model returned {len(outs)} train outputs for "
                              f"{len(criterions)} criterions")
-        losses = [crit(outs[n], y) * w for n, (crit, w) in enumerate(zip(criterions, weights))]
-        loss = sum(losses)
-        loss.backward()
-        if mesh is None or mesh.dp == 1:
-            return loss.detach(), tuple(v.detach() for v in losses)
-        values = torch.stack([loss.detach(), *(v.detach() for v in losses)])
-        reduce_losses_and_grads(model, mesh, values, spatial_sum=False)
+        with span("train.loss"):
+            losses = [crit(outs[n], y) * w for n, (crit, w) in enumerate(zip(criterions, weights))]
+            loss = sum(losses)
+        with span("train.backward"):
+            loss.backward()
+            if mesh is None or mesh.dp == 1:
+                return loss.detach(), tuple(v.detach() for v in losses)
+            values = torch.stack([loss.detach(), *(v.detach() for v in losses)])
+            reduce_losses_and_grads(model, mesh, values, spatial_sum=False)
         return values[0], tuple(values[1:])
 
     return loss_and_grads
@@ -128,14 +136,26 @@ def make_loss_and_grads(model, plan, weights, mesh=None):
 def make_train_step(model, plan, optimizer, weights, mesh=None):
     """One step: forward, loss, backward, optimizer update. With a ``mesh``:
     the data-parallel step (dp > 1), or the D-sharded ModeT step of
-    `parallel.losses_sp` (spatial > 1, composed with dp)."""
+    `parallel.losses_sp` (spatial > 1, composed with dp).
+
+    Spans (while a profiler records): ``train.step`` over
+    `make_loss_and_grads`'s and ``train.optimizer`` (AMSGrad's update); the
+    D-sharded step has ``train.step`` alone."""
     if mesh is not None and mesh.spatial > 1:
-        return make_train_step_spatial(model, optimizer, weights, mesh)
+        spatial_step = make_train_step_spatial(model, optimizer, weights, mesh)
+
+        def step(x, y):
+            with span("train.step"):
+                return spatial_step(x, y)
+
+        return step
     loss_and_grads = make_loss_and_grads(model, plan, weights, mesh)
 
     def step(x, y):
-        loss, loss_vals = loss_and_grads(x, y)
-        optimizer.step()
+        with span("train.step"):
+            loss, loss_vals = loss_and_grads(x, y)
+            with span("train.optimizer"):
+                optimizer.step()
         return loss, loss_vals
 
     return step
