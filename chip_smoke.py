@@ -41,11 +41,12 @@ It builds the Hopper kernels from `smilecode_tpu_torch/csrc/` and then:
    steps, then validation on 2 pairs and a checkpoint), which
    `smilecode_tpu_torch.infer.main` reads back. Launches must be exactly, per
    train step, K1 5, K3 5, K4 5, K2 9 and K5 9 (8 of them with the d_src
-   scatter), plus 5 K1 and 9 K2 per validation pair; losses finite; the same
-   run with ``attn_impl="plain"`` launches nothing and gives the same first
-   loss.
+   scatter) and K6 31 with none declined, plus 5 K1 and 9 K2 per validation
+   pair; losses finite; the same run with ``attn_impl="plain"`` launches
+   nothing and gives the same first loss.
 9. One training step with the kernels vs the plain one, same weights and
-   batch: the loss and every parameter's gradient.
+   batch: the loss and every parameter's gradient (the plain model takes
+   its weight gradients from cuDNN, so this holds K6 too).
 10. Times: median ms per training step (forward, backward, AMSGrad update)
    over 5 steps each (kernels, plain), peak memory of each, each backward
    kernel beside its plain version per step, and the top device operations
@@ -119,8 +120,8 @@ at 160x192x160, RCN at 128x192x128, each at its reference width and depth):
    and give the same Dice and fold.
 22. Their forwards, kernels vs plain, as phase 14.
 23. `train.main` for every family (2 steps on 2 subjects, validated on the
-   same 2 pairs): exact K1, K3, K4, K2, K5 launches and scatters per step
-   (`ZOO`) plus the validation forwards; losses finite; for Im2grid
+   same 2 pairs): exact K1, K3, K4, K2, K5 launches and scatters, K6
+   launches and declined weight gradients per step (`ZOO`) plus the validation forwards; losses finite; for Im2grid
    (`ZOO_PLAIN_TRAIN`) the plain run launches nothing and its first loss is
    within 1e-4 (phase 24 holds every family's step against plain).
 24. One training step per family, kernels vs plain, same weights and batch
@@ -226,6 +227,16 @@ staged through pinned host buffers, the sums on the card):
    exactly one step's mode launches; ms per sharded step (median of 3) and
    each rank's peak GiB beside the unsharded step's.
 
+The Hopper kernel with no TPU counterpart (run after phase 7):
+
+33. K6, the float32 3x3x3 stride-1 conv weight and bias gradient, at
+   ModeT's 20 bare-conv shapes at 160x192x160 (`K6_SHAPES`): within
+   K6_TOL of the largest |value| of its plain version in float64 on the
+   card, and no further from it than cuDNN's float32 gradient or K6_FLOOR
+   of that value; two calls give the same bits; per shape the call ms,
+   device ms, the plain version's ms (float32), cuDNN's (the library call
+   it replaces) and the bound, each summed over one step's 31 calls.
+
 Every failed check raises, so the exit code is non-zero; without a CUDA card
 it exits non-zero before printing any result. Each phase's seconds and the
 total print before the record. The kernels' JSON record lists
@@ -240,7 +251,8 @@ first script kernel each serves, ``serves`` all of them; P2's
 ``library_ms`` over its by-value runs, ``library_runs``; P2 and P4 with
 ``sized``, the 160x192x160 case's times, bound and share), then the five
 modes of the D-sharded step (phase 30's times, rank 0's launches in phase
-32's `train.main(spatial=2)`); each with its
+32's `train.main(spatial=2)`), then K6 (phase 33's times, phase 8's
+launches and ``declined``); each with its
 bound (bytes or float32 operations
 at the card's published peaks) and, for K2 and K5, the time of
 `F.grid_sample` (forward or backward) on the same inputs, and per distinct
@@ -328,22 +340,33 @@ BASELINE_HEADS = {"im2grid": ("proj", 0.1), "rdn": ("conv.4", 0.02),
                   "prnetplusplus": (".flow.", 0.2)}
 # The baseline zoo of phases 20-24: volume size, K1 and K2 launches per
 # pair, and per training step the K1, K3, K4, K2 and K5 launches and the K5
-# launches that scatter d_src (`STEP_KEYS`; every warp whose source needs a
-# gradient: all but the moved image's, and RCN's re-warps of the moving
-# image). Derived from the JAX modules: PCNet warps in 3 DFI vecints of 7
+# launches that scatter d_src, then the K6 launches and the float32 weight
+# gradients declined to cuDNN by `kernels.conv3d_wgrad.wgrad_route` for their
+# geometry (`STEP_KEYS`; every warp whose source needs a gradient: all but
+# the moved image's, and RCN's re-warps of the moving image; every bare
+# 3x3x3 stride-1 Conv3d, applied as often as the forward applies it). Derived from the JAX modules: PCNet warps in 3 DFI vecints of 7
 # steps, vecint(pred0), 3 feature warps, T(wf0, pred0) and the moved image
 # (33); PRNet and PR++ in 4 feature warps, 4 compositions and the moved
 # image (9); the others as `BASELINES`. CPU tests count the same calls
 # (`tests/test_torch_baselines.py::test_kernel_wrapper_calls_per_pair`,
 # `tests/test_torch_baselines_train.py::test_kernel_wrapper_calls_per_training_step`).
-ZOO = {"im2grid": (SIZE, (5, 9), (5, 5, 5, 9, 9, 8)),
-       "pcnet": (SIZE, (0, 33), (0, 0, 0, 33, 33, 32)),
-       "prnet": (SIZE, (0, 9), (0, 0, 0, 9, 9, 8)),
-       "prnetplusplus": (SIZE, (0, 9), (0, 0, 0, 9, 9, 8)),
-       "rdn": (SIZE, (0, 136), (0, 0, 0, 136, 136, 135)),
-       "rdn_diff_share": (SIZE, (0, 644), (0, 0, 0, 644, 644, 643)),
-       "rcn": (RCN_SIZE, (0, 19), (0, 0, 0, 19, 19, 9))}
-STEP_KEYS = ("K1", "K3", "K4", "K2", "K5", "K5 d_src")
+ZOO = {"im2grid": (SIZE, (5, 9), (5, 5, 5, 9, 9, 8, 22, 0)),
+       "pcnet": (SIZE, (0, 33), (0, 0, 0, 33, 33, 32, 29, 11)),
+       "prnet": (SIZE, (0, 9), (0, 0, 0, 9, 9, 8, 17, 8)),
+       "prnetplusplus": (SIZE, (0, 9), (0, 0, 0, 9, 9, 8, 17, 8)),
+       "rdn": (SIZE, (0, 136), (0, 0, 0, 136, 136, 135, 0, 8)),
+       "rdn_diff_share": (SIZE, (0, 644), (0, 0, 0, 644, 644, 643, 0, 8)),
+       "rcn": (RCN_SIZE, (0, 19), (0, 0, 0, 19, 19, 9, 30, 120))}
+STEP_KEYS = ("K1", "K3", "K4", "K2", "K5", "K5 d_src", "K6", "K6 declined")
+# K6 (the float32 3x3x3 conv weight gradient) at ModeT's bare convs:
+# (level as `level_shape` counts it, Cin, Cout, calls per training step):
+# the encoder's 11, applied to the moving and to the fixed image, and
+# CWM5-3's 9; 31 calls a step
+K6_SHAPES = ((1, 1, 4, 2), (1, 4, 8, 2), (1, 8, 8, 2), (2, 8, 16, 2), (2, 16, 16, 2),
+             (3, 16, 32, 2), (3, 32, 32, 2), (4, 32, 64, 2), (4, 64, 64, 2), (5, 64, 128, 2),
+             (5, 128, 128, 2), (4, 24, 48, 1), (4, 48, 48, 1), (4, 48, 8, 1), (3, 12, 24, 1),
+             (3, 24, 24, 1), (3, 24, 4, 1), (2, 6, 12, 1), (2, 12, 12, 1), (2, 12, 2, 1))
+K6_TOL, K6_FLOOR = 1e-5, 1e-6  # times the largest |dW| of the float64 reference (card tests)
 ZOO_SERVED = ("pcnet", "prnet", "prnetplusplus")  # served by phases 21 and 22
 ZOO_STEPS, ZOO_VAL_PAIRS = 2, 2  # train.main on 2 subjects, validated on the same 2
 # phase 23's plain train.main runs (the families whose plain run is checked
@@ -1157,9 +1180,94 @@ def check_warp_bwd(device, size=SIZE):
     return (worst, *(sum(times[k][i] for k in keys) for i in range(3)), tuple(work), by_shape)
 
 
+def cudnn_wgrad(x, dy):
+    """cuDNN's float32 dW (channels_last_3d, as the port stores its weights)
+    and db of a 3x3x3, stride-1, padding-1 conv from NDHWC x and dy: the
+    weight gradient that the port ran before K6."""
+    import torch
+
+    cin, cout = x.shape[-1], dy.shape[-1]
+    w = torch.empty((cout, cin, 3, 3, 3), device=x.device).to(memory_format=torch.channels_last_3d)
+    _, dw, db = torch.ops.aten.convolution_backward(
+        dy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), w, [cout], [1] * 3, [1] * 3,
+        [1] * 3, False, [0] * 3, 1, [False, True, True])
+    return dw, db
+
+
+def k6_work(shape, cin: int, cout: int):
+    """(bytes, float32 operations) of one K6 call: x and dy read once, dW and
+    db written once; 2 Cout 27 Cin operations a voxel for dW and one
+    addition a voxel and output channel for db."""
+    vox = int(np.prod(shape))
+    return (4 * (vox * (cin + cout) + cout * 27 * cin + cout),
+            vox * cout * (2 * 27 * cin + 1))
+
+
+def check_k6(device, size=SIZE):
+    """Phase 33: K6 at ModeT's 20 bare-conv shapes (`K6_SHAPES`) at
+    ``size``: dW and db within K6_TOL of the largest |value| of its plain
+    version in float64 on the card, and no further from it than cuDNN's
+    float32 gradient or K6_FLOOR of that value (the card tests' gates); two
+    calls give the same bits; one launch a call. Per shape: call ms (CUDA
+    events), device ms, the plain version's ms in float32, cuDNN's weight
+    and bias gradient's (the library call it replaces) and the bound.
+    Returns (max abs err, per-step sums of ms, plain ms, library ms and
+    device ms, per-step work, by_shape)."""
+    import torch
+
+    from smilecode_tpu_torch.kernels.conv3d_wgrad import conv3d_wgrad, conv3d_wgrad_plain
+
+    gen = torch.Generator(device=device).manual_seed(33)
+    worst, max_err, sums, work, by_shape = 0.0, 0.0, np.zeros(4), np.zeros(2), {}
+    for level, cin, cout, calls in K6_SHAPES:
+        shape = level_shape(level, size)
+        x = torch.randn((1, *shape, cin), device=device, generator=gen)
+        dy = torch.randn((1, *shape, cout), device=device, generator=gen)
+        before = conv3d_wgrad.launches
+        dw, db = conv3d_wgrad(x, dy)
+        dw2, db2 = conv3d_wgrad(x, dy)
+        torch.cuda.synchronize()
+        require(conv3d_wgrad.launches == before + 2, f"K6 {shape} {cin}->{cout}: launches")
+        require(torch.equal(dw, dw2) and torch.equal(db, db2),
+                f"K6 {shape} {cin}->{cout}: two calls differ")
+        ref = conv3d_wgrad_plain(x.double(), dy.double())
+        lib = cudnn_wgrad(x, dy)
+        errs = []
+        for got, lib_t, ref_t in zip((dw, db), lib, ref):
+            scale = float(ref_t.abs().max())
+            err, lib_err = (float((t.double() - ref_t).abs().max()) for t in (got, lib_t))
+            errs.append((err, lib_err, scale))
+            worst = max(worst, err / (K6_TOL * scale), err / max(lib_err, K6_FLOOR * scale))
+            max_err = max(max_err, err)
+        del ref, dw2, db2
+        key = shape_label(cin, shape, f"->{cout}")
+        rec = {"err": errs[0][0], "cudnn_err": errs[0][1], "calls": calls,
+               "ms": event_ms(lambda: conv3d_wgrad(x, dy), 3, 1),
+               "device_ms": device_ms(lambda: conv3d_wgrad(x, dy), 3),
+               "plain_ms": event_ms(lambda: conv3d_wgrad_plain(x, dy), 3, 1),
+               "library_ms": event_ms(lambda: cudnn_wgrad(x, dy), 3, 1)}
+        w = k6_work(shape, cin, cout)
+        rec["bound_ms"] = bound(*w)[0]
+        by_shape[key] = rec
+        sums += calls * np.array([rec["ms"], rec["plain_ms"], rec["library_ms"], rec["device_ms"]])
+        work += calls * np.array(w)
+        print(f"K6 {key}: dW err {errs[0][0]:.3e} (cuDNN {errs[0][1]:.3e}, max |dW| "
+              f"{errs[0][2]:.3e}), db err {errs[1][0]:.3e} (cuDNN {errs[1][1]:.3e}); ms "
+              f"{rec['ms']:.4f}, device {rec['device_ms']:.4f}, plain {rec['plain_ms']:.4f}, cuDNN "
+              f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}", flush=True)
+        del x, dy, dw, db, lib
+        torch.cuda.empty_cache()
+    print(f"K6 over one ModeT step's 31 calls: ms {sums[0]:.3f}, device {sums[3]:.3f}, plain "
+          f"{sums[1]:.3f}, cuDNN {sums[2]:.3f}, bound {bound(*work)[0]:.3f}; worst err/gate "
+          f"{worst:.4f}", flush=True)
+    require(worst <= 1.0, f"K6 against its float64 plain version: err/gate {worst:.3f} > 1")
+    return (max_err, *sums, tuple(work), by_shape)
+
+
 def launch_counts():
     """Each kernel's launches since the last reset, and those of its bf16
-    instance ("K1 bf16", ...)."""
+    instance ("K1 bf16", ...); K6's, and the float32 weight gradients its
+    rule declined for their geometry ("K6 declined")."""
     from smilecode_tpu_torch.kernels.modet_attn import (
         modet_attention,
         modet_attention_bwd_dk,
@@ -1172,8 +1280,11 @@ def launch_counts():
                 "K4": (modet_attention_bwd_dk, "launches"),
                 "K5": (warp3d_trilinear_bwd, "launches"),
                 "K5 d_src": (warp3d_trilinear_bwd, "scatters")}
+    from smilecode_tpu_torch.kernels.conv3d_wgrad import conv3d_wgrad
+
     out = {k: getattr(fn, what) for k, (fn, what) in counters.items()}
     out.update({f"{k} bf16": getattr(fn, f"{what}_bf16") for k, (fn, what) in counters.items()})
+    out.update({"K6": conv3d_wgrad.launches, "K6 declined": conv3d_wgrad.declined})
     return out
 
 
@@ -1183,12 +1294,13 @@ def reset_launch_counts():
         modet_attention_bwd_dk,
         modet_attention_bwd_dq,
     )
+    from smilecode_tpu_torch.kernels.conv3d_wgrad import conv3d_wgrad
     from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_bwd
 
     for fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk,
-               warp3d_trilinear, warp3d_trilinear_bwd):
+               warp3d_trilinear, warp3d_trilinear_bwd, conv3d_wgrad):
         for name in list(vars(fn)):
-            if name.startswith(("launches", "scatters")):
+            if name.startswith(("launches", "scatters", "declined")):
                 setattr(fn, name, 0)
 
 
@@ -1907,7 +2019,7 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
     want = {"K1": 5 * fwd, "K1 bf16": 5 * fwd, "K2": 9 * fwd, "K2 bf16": 4 * fwd,
             "K3": 5 * n_steps, "K3 bf16": 5 * n_steps, "K4": 5 * n_steps, "K4 bf16": 5 * n_steps,
             "K5": 9 * n_steps, "K5 bf16": 4 * n_steps, "K5 d_src": 8 * n_steps,
-            "K5 d_src bf16": 4 * n_steps}
+            "K5 d_src bf16": 4 * n_steps, "K6": 0, "K6 declined": 0}
     require(counts == want, f"bf16 train launches {counts}, expected {want}")
     _, _, p_losses, p_counts, p_secs = run_train(test_dir, val_dir, os.path.join(tmp, "bf16p"),
                                                  attn_impl="plain", compute_dtype="bfloat16")
@@ -2395,6 +2507,7 @@ def modet_train_launches(n_steps, n_val):
     want = {"K1": 5 * (n_steps + n_val), "K2": 9 * (n_steps + n_val), "K3": 5 * n_steps,
             "K4": 5 * n_steps, "K5": 9 * n_steps, "K5 d_src": 8 * n_steps}
     want.update({f"{k} bf16": 0 for k in want})
+    want.update({"K6": 31 * n_steps, "K6 declined": 0})
     return want
 
 
@@ -3088,6 +3201,7 @@ def rank_counts(record) -> dict:
     names = {"K1": "K1", "K2": "K2", "K3": "K3", "K4": "K4", "K5": "K5"}
     out = {k: lc[f"{v} launches"] for k, v in names.items()}
     out["K5 d_src"] = lc["K5 scatters"]
+    out.update({"K6": lc["K6 launches"], "K6 declined": lc["K6 declined"]})
     out.update({f"{k} halo": lc[f"{k} launches_halo"] for k in ("K1", "K3", "K4")})
     out.update({"K2 origin": lc["K2 launches_origin"], "K5 origin": lc["K5 launches_origin"],
                 "K5 origin d_src": lc["K5 scatters_origin"]})
@@ -3171,7 +3285,8 @@ def run_dp_phase(card, device, tmp, data_dir):
     n_steps, n_val = 2, 2 * 2
     cfg, records, secs = run_multi_rank_train(card, device, data_dir, os.path.join(tmp, "dp"),
                                               dp=2, batch_size=2, max_epoch=2)
-    per_step = {"K1": 5, "K3": 5, "K4": 5, "K2": 9, "K5": 9, "K5 d_src": 8}
+    per_step = {"K1": 5, "K3": 5, "K4": 5, "K2": 9, "K5": 9, "K5 d_src": 8, "K6": 31,
+                "K6 declined": 0}
     for r, rec in enumerate(records):
         want = {k: v * n_steps for k, v in per_step.items()}
         if r == 0:
@@ -3262,7 +3377,8 @@ def run_spatial_phase(card, device, tmp, data_dir):
     cfg, records, secs = run_multi_rank_train(card, device, data_dir, os.path.join(tmp, "sp"),
                                               spatial=2, max_epoch=1)
     sp_step = {"K1": 5, "K3": 5, "K4": 5, "K2": 9, "K5": 9, "K5 d_src": 8, "K1 halo": 5,
-               "K3 halo": 5, "K4 halo": 5, "K2 origin": 9, "K5 origin": 9, "K5 origin d_src": 8}
+               "K3 halo": 5, "K4 halo": 5, "K2 origin": 9, "K5 origin": 9, "K5 origin d_src": 8,
+               "K6": 0, "K6 declined": 0}
     for r, rec in enumerate(records):
         want = {k: v * n_steps for k, v in sp_step.items()}
         if r == 0:
@@ -3397,6 +3513,8 @@ def main() -> int:
         bwd = check_attention_bwd(device)
         phase(7, "K5 warp adjoint vs plain")
         k5_err, k5_ms, k5_plain_ms, k5_lib_ms, k5_work, k5_shapes = check_warp_bwd(device)
+        phase(33, "K6 conv weight gradient vs its float64 plain version and cuDNN")
+        k6_err, k6_ms, k6_plain_ms, k6_lib_ms, k6_dev, k6_work, k6_shapes = check_k6(device)
 
         phase(8, "train.main on synthetic 160x192x160 subjects")
         val_dir = os.path.join(tmp, "Val")
@@ -3408,9 +3526,7 @@ def main() -> int:
         print(f"train (kernels): {n_steps} steps + {n_val} validation pairs in {secs:.2f} s, "
               f"losses {losses}, best dsc {best:.6f}, launches {train_counts}", flush=True)
         require(len(losses) == n_steps and bool(np.isfinite(losses).all()), f"losses {losses}")
-        want = {"K1": 5 * (n_steps + n_val), "K2": 9 * (n_steps + n_val), "K3": 5 * n_steps,
-                "K4": 5 * n_steps, "K5": 9 * n_steps, "K5 d_src": 8 * n_steps}
-        want.update({f"{k} bf16": 0 for k in want})
+        want = modet_train_launches(n_steps, n_val)
         require(train_counts == want, f"train launches {train_counts}, expected {want}")
         dsc, fold, counts, secs = run_infer(val_dir, exp_dir)
         n_k1, n_k2 = counts["K1"], counts["K2"]
@@ -3610,6 +3726,11 @@ def main() -> int:
                    "warp3d_v4.py:104", "K2 origin"),
         mode_entry("warp3d_trilinear_bwd (D origin, gathered source, spatial=2)",
                    "warp3d_bwd.cu", "warp3d_v4.py:339", "K5 origin"),
+        {**entry("conv3d_wgrad (f32 3x3x3 conv weight and bias gradient, one ModeT step)",
+                 "conv3d_wgrad.cu", "", "K6", k6_err, k6_ms, k6_plain_ms, k6_work, k6_lib_ms,
+                 by_shape=k6_shapes, device=k6_dev),
+         "replaces": "cuDNN's weight gradient (the JAX package leaves it to XLA)",
+         "declined": train_counts["K6 declined"]},
     ]}
     for rec in record["kernels"]:
         print(f"[{card}] host us per call while its calls queued: {rec['name']} "

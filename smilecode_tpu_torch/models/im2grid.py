@@ -98,7 +98,7 @@ class Im2grid(nn.Module):
                 setattr(self, f"peblock{level}", PositionalEncodingLayer(enc_ch[level - 1]))
         self.to_empty(device=device or "cpu")
         self.reset_parameters(generator)
-        channels_last_convs_(self)
+        channels_last_convs_(self, kernels=attn_impl != "plain")
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Torch-default conv init; zero projections, unit alpha."""

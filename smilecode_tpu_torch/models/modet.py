@@ -175,7 +175,7 @@ class ModeT(nn.Module):
                     setattr(self, f"cwm{level}", CWM(3 * heads, 3 * heads * 2))
         self.to_empty(device=device or "cpu")
         self.reset_parameters(generator)
-        channels_last_convs_(self)
+        channels_last_convs_(self, kernels=attn_impl != "plain")
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Torch-default conv init, N(0, 1e-5) projection weights, zero

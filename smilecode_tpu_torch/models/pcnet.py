@@ -187,7 +187,7 @@ class PCNet(nn.Module):
             self.reg_conv0 = nn.Sequential(nn.Conv3d(3 * c, c, 3, 1, 1), nn.Conv3d(c, 3, 3, 1, 1))
         self.to_empty(device=device or "cpu")
         reset_torch_default_(self, generator)
-        channels_last_convs_(self)
+        channels_last_convs_(self, kernels=attn_impl != "plain")
 
     def _warp(self, src, flow):
         return warp(src, flow, impl=self.warp_impl)

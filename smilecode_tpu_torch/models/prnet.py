@@ -213,7 +213,7 @@ class _PRBase(nn.Module):
         reset_torch_default_(self, generator)
         for i in range(1, 6):
             getattr(self, f"prblock{i}").reset_flow_head(generator)
-        channels_last_convs_(self)
+        channels_last_convs_(self, kernels=attn_impl != "plain")
 
     def _warp(self, src, flow):
         return warp(src, flow, impl=self.warp_impl)

@@ -167,7 +167,7 @@ def build_vtn(channels: int = 16, attn_impl: str = "auto", device=None,
         model = VTN(channels, warp_impl=baseline_warp_impl(attn_impl))
     model.to_empty(device=device or "cpu")
     model.reset_parameters(generator)
-    channels_last_convs_(model)
+    channels_last_convs_(model, kernels=attn_impl != "plain")
     return model
 
 
@@ -188,7 +188,7 @@ class RCN(nn.Module):
         self.to_empty(device=device or "cpu")
         for v in self.vtn:
             v.reset_parameters(generator)
-        channels_last_convs_(self)
+        channels_last_convs_(self, kernels=attn_impl != "plain")
 
     def forward(self, moving, fixed):
         check_vtn_shape(moving, fixed)

@@ -147,7 +147,7 @@ class RDN(nn.Module):
                     setattr(self, self._est_name(level, stage), Estimator(est_ch, dropout_rate))
         self.to_empty(device=device or "cpu")
         self.reset_parameters(generator)
-        channels_last_convs_(self)
+        channels_last_convs_(self, kernels=attn_impl != "plain")
 
     def _est_name(self, level: int, stage: int) -> str:
         return f"est{level}" if self.share_weights else f"est{level}_{stage}"

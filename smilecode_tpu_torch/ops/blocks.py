@@ -41,6 +41,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smilecode_tpu_torch.kernels.conv3d_wgrad import (
+    Conv3dWgradFunction,
+    conv3d_wgrad,
+    wgrad_route,
+)
+
 
 def torch_uniform_(param: torch.Tensor, fan_in: int, generator: torch.Generator | None):
     """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) in place — torch Conv/Linear default."""
@@ -78,19 +84,34 @@ def reset_torch_default_(model: nn.Module, generator: torch.Generator | None):
                 torch_uniform_(m.bias, m.in_features, generator)
 
 
-def channels_last_convs_(model: nn.Module):
+def channels_last_convs_(model: nn.Module, kernels: bool):
     """Store every conv weight as channels_last_3d: the NDHWC activations
     permuted by `conv3d_ndhwc` are channels_last_3d, so cuDNN takes both
-    without a copy."""
+    without a copy. ``kernels``, the model's kernel switch (False for
+    attn_impl "plain"), becomes each bare Conv3d's ``wgrad_kernel``: False
+    keeps its weight gradient on cuDNN (`kernels.conv3d_wgrad.wgrad_route`)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
             m.to(memory_format=torch.channels_last_3d)
+        if type(m) is nn.Conv3d:
+            m.wgrad_kernel = kernels
 
 
 def conv3d_ndhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Apply ``conv`` (a Conv3d, ConvTranspose3d or a Sequential of them)
-    to an NDHWC tensor; returns NDHWC. A Conv3d runs in ``x``'s dtype."""
+    to an NDHWC tensor; returns NDHWC. A Conv3d runs in ``x``'s dtype.
+
+    `kernels.conv3d_wgrad.wgrad_route` picks the weight gradient's path: a
+    3x3x3, stride-1, padding-1 float32 Conv3d of a kernel model on the card
+    goes through `Conv3dWgradFunction` (the same forward; dW and db from the
+    Hopper kernel K6); a "declined" one is counted in
+    ``conv3d_wgrad.declined`` and, as every other, runs as below."""
     xc = x.permute(0, 4, 1, 2, 3)
+    route = wgrad_route(conv, x.dtype, x.device.type, torch.is_grad_enabled())
+    if route == "K6":
+        return Conv3dWgradFunction.apply(xc, conv.weight, conv.bias).permute(0, 2, 3, 4, 1)
+    if route == "declined":
+        conv3d_wgrad.declined += 1
     if not isinstance(conv, nn.Conv3d) or x.dtype == conv.weight.dtype:
         return conv(xc).permute(0, 2, 3, 4, 1)
     y = conv._conv_forward(xc, conv.weight.to(x.dtype), None).permute(0, 2, 3, 4, 1)

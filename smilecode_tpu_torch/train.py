@@ -18,7 +18,8 @@
 
 Runs on the CUDA card (``device=cuda``, the default; it raises without a
 card): the forward and backward of the attention and the bilinear warps go
-through the Hopper kernels K1-K5 (`kernels/`). With ``device=cpu`` it runs
+through the Hopper kernels K1-K5 (`kernels/`), and the float32 3x3x3
+convolutions' weight gradients through K6. With ``device=cpu`` it runs
 their plain versions under torch autograd. float32, with TF32 off in cuDNN
 convolutions and matmuls, for parity with the JAX package; with
 ``compute_dtype=bfloat16`` ModeT's feature path runs in bf16 (the kernels'
@@ -277,16 +278,18 @@ def _datasets(cfg: TrainConfig):
 
 
 def launch_counters() -> dict:
-    """Every counter of the kernel wrappers K1-K5 in this process
+    """Every counter of the kernel wrappers K1-K6 in this process
     (``"K1 launches"``, ``"K1 launches_halo"``, ``"K5 scatters_origin"``,
-    ...)."""
-    from smilecode_tpu_torch.kernels import modet_attn, warp3d
+    ``"K6 launches"``, ``"K6 declined"``: float32 weight gradients on the
+    card that went to cuDNN because of their shape, ...)."""
+    from smilecode_tpu_torch.kernels import conv3d_wgrad, modet_attn, warp3d
 
     fns = {"K1": modet_attn.modet_attention, "K3": modet_attn.modet_attention_bwd_dq,
            "K4": modet_attn.modet_attention_bwd_dk, "K2": warp3d.warp3d_trilinear,
-           "K5": warp3d.warp3d_trilinear_bwd}
+           "K5": warp3d.warp3d_trilinear_bwd, "K6": conv3d_wgrad.conv3d_wgrad}
     return {f"{key} {name}": int(value) for key, fn in fns.items()
-            for name, value in sorted(vars(fn).items()) if name.startswith(("launches", "scatters"))}
+            for name, value in sorted(vars(fn).items())
+            if name.startswith(("launches", "scatters", "declined"))}
 
 
 def _train(cfg: TrainConfig, device: torch.device, exp_dir: str, metrics: MetricsWriter, f,

@@ -1,0 +1,253 @@
+"""K6's plain version and the rule that sends a convolution's weight
+gradient to K6 (`kernels/conv3d_wgrad.py`), on the CPU.
+
+The plain version is held to torch autograd's conv3d weight and bias
+gradients in float64. The rule is a pure function of what a call can
+observe and of the model's kernel switch; on the CPU it never routes to K6,
+so every CPU step runs exactly as before, and a model on the plain path
+(attn_impl "plain") keeps every weight gradient on cuDNN on the card too. K6 itself is held to a float64 reference on the card
+(`tests/test_torch_cuda.py`).
+"""
+
+import collections
+
+import pytest
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+import chip_smoke
+from smilecode_tpu_torch import train
+from smilecode_tpu_torch.config import InferConfig, TrainConfig
+from smilecode_tpu_torch.kernels import conv3d_wgrad as k6
+from smilecode_tpu_torch.models.modet import ModeT
+from smilecode_tpu_torch.models.registry import build_model, loss_plan
+from smilecode_tpu_torch.ops import blocks
+
+
+def _autograd_grads(x, dy, bias=True):
+    """torch autograd's dW and db of a 3x3x3 s1 p1 conv3d at x, dy (NDHWC)."""
+    cin, cout = x.shape[-1], dy.shape[-1]
+    w = torch.randn((cout, cin, 3, 3, 3), dtype=x.dtype, requires_grad=True)
+    b = torch.zeros(cout, dtype=x.dtype, requires_grad=True) if bias else None
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, 1, 1)
+    y.backward(dy.permute(0, 4, 1, 2, 3))
+    return w.grad, None if b is None else b.grad
+
+
+def _pair(batch, shape, cin, cout, seed=0, dtype=torch.float64):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((batch, *shape, cin), generator=gen, dtype=dtype),
+            torch.randn((batch, *shape, cout), generator=gen, dtype=dtype))
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("cout", [2, 4, 12])
+@pytest.mark.parametrize("cin", [1, 3, 8])
+@pytest.mark.parametrize("shape", [(7, 9, 5), (5, 6, 11)])
+def test_plain_matches_autograd_in_float64(shape, cin, cout, batch):
+    x, dy = _pair(batch, shape, cin, cout, seed=cin * 100 + cout)
+    dw, db = k6.conv3d_wgrad_plain(x, dy)
+    ref_w, ref_b = _autograd_grads(x, dy)
+    torch.testing.assert_close(dw, ref_w, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(db, ref_b, rtol=1e-12, atol=1e-12)
+
+
+def test_plain_without_bias_gives_none():
+    x, dy = _pair(1, (3, 4, 5), 2, 3)
+    dw, db = k6.conv3d_wgrad_plain(x, dy, want_bias=False)
+    assert db is None and dw.shape == (3, 2, 3, 3, 3)
+
+
+def test_wrapper_runs_the_plain_version_on_the_cpu():
+    x, dy = _pair(2, (4, 5, 3), 4, 6, dtype=torch.float32)
+    before = k6.conv3d_wgrad.launches
+    dw, db = k6.conv3d_wgrad(x, dy)
+    ref_w, ref_b = k6.conv3d_wgrad_plain(x, dy)
+    assert k6.conv3d_wgrad.launches == before
+    assert dw.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(dw, ref_w) and torch.equal(db, ref_b)
+
+
+def test_function_gives_a_contiguous_weight_its_gradient_in_its_strides():
+    """The Function's dW is channels_last_3d; autograd stores it in the
+    strides of a weight that is not."""
+    torch.manual_seed(5)
+    conv = nn.Conv3d(2, 3, 3, 1, 1).double()
+    x, dy = _pair(1, (3, 4, 5), 2, 3, seed=6)
+    k6.Conv3dWgradFunction.apply(x.permute(0, 4, 1, 2, 3), conv.weight, conv.bias).backward(
+        dy.permute(0, 4, 1, 2, 3))
+    ref_w, ref_b = _autograd_grads(x, dy)
+    assert conv.weight.grad.is_contiguous()
+    torch.testing.assert_close(conv.weight.grad, ref_w, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(conv.bias.grad, ref_b, rtol=1e-12, atol=1e-12)
+
+
+def test_wrapper_refuses_mismatched_shapes():
+    with pytest.raises(ValueError, match="must share"):
+        k6.conv3d_wgrad(torch.zeros((1, 3, 3, 3, 2)), torch.zeros((1, 3, 3, 4, 2)))
+
+
+@pytest.mark.parametrize("input_grad", [True, False], ids=["dx", "no-dx"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+def test_function_matches_the_module_and_its_autograd(bias, input_grad):
+    """`Conv3dWgradFunction` on CPU tensors: the module's forward, bit for
+    bit; dx from aten's convolution backward and dW, db from the plain
+    version, against autograd through the module."""
+    torch.manual_seed(3)
+    conv = nn.Conv3d(3, 5, 3, 1, 1, bias=bias).double().to(memory_format=torch.channels_last_3d)
+    x, dy = _pair(2, (4, 6, 5), 3, 5, seed=4)
+    xc = x.permute(0, 4, 1, 2, 3).requires_grad_(input_grad)
+    y = conv(xc)
+    y.backward(dy.permute(0, 4, 1, 2, 3))
+    ref = [None if p is None or p.grad is None else p.grad.clone()
+           for p in (xc, conv.weight, conv.bias)]
+    conv.zero_grad()
+    xc2 = x.permute(0, 4, 1, 2, 3).requires_grad_(input_grad)
+    y2 = k6.Conv3dWgradFunction.apply(xc2, conv.weight, conv.bias)
+    assert torch.equal(y2, y)
+    y2.backward(dy.permute(0, 4, 1, 2, 3))
+    assert (xc2.grad is None) == (not input_grad)
+    if input_grad:
+        torch.testing.assert_close(xc2.grad, ref[0], rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(conv.weight.grad, ref[1], rtol=1e-12, atol=1e-12)
+    assert conv.weight.grad.stride() == conv.weight.stride()
+    if bias:
+        torch.testing.assert_close(conv.bias.grad, ref[2], rtol=1e-12, atol=1e-12)
+
+
+def _modet():
+    return ModeT(qk_scale=1.0, generator=torch.Generator().manual_seed(0))
+
+
+def test_modet_training_applies_31_bare_convs_that_the_rule_sends_to_k6():
+    """A ModeT forward applies its 20 bare Conv3d modules 31 times (the
+    encoder's 11 on the moving and on the fixed image, CWM5-3's 9); each
+    is one the rule sends to K6 for a float32 activation on the card."""
+    model = _modet()
+    convs = [m for m in model.modules() if isinstance(m, nn.Conv3d)]
+    assert len(convs) == 20
+    calls = []
+    for m in convs:
+        m.register_forward_pre_hook(lambda mod, args: calls.append(mod))
+    vol = torch.rand((1, 16, 16, 16, 1), generator=torch.Generator().manual_seed(1))
+    model(vol, vol)
+    assert len(calls) == 31
+    assert all(k6.wgrad_route(m, torch.float32, "cuda", True) == "K6" for m in calls)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("stride 2", "declined"),
+    ("padding (0, 1, 1)", "declined"),
+    ("groups 2", "declined"),
+    ("dilation 2", "declined"),
+    ("kernel 1", "declined"),
+    ("129 input channels", "declined"),
+    ("ConvTranspose3d", None),
+    ("Sequential", None),
+    ("bf16 activation", None),
+    ("no gradient wanted", None),
+    ("weight frozen", None),
+    ("bf16 weight", None),
+    ("on the CPU", None),
+    ("a plain model's", None),
+])
+def test_rule_leaves_other_convolutions_to_cudnn(case, want):
+    conv, dtype, device, grad = nn.Conv3d(4, 8, 3, 1, 1), torch.float32, "cuda", True
+    if case == "stride 2":
+        conv = nn.Conv3d(4, 8, 3, 2, 1)
+    elif case == "padding (0, 1, 1)":
+        conv = nn.Conv3d(4, 8, 3, 1, (0, 1, 1))
+    elif case == "groups 2":
+        conv = nn.Conv3d(4, 8, 3, 1, 1, groups=2)
+    elif case == "dilation 2":
+        conv = nn.Conv3d(4, 8, 3, 1, 2, dilation=2)
+    elif case == "kernel 1":
+        conv = nn.Conv3d(4, 8, 1, 1, 0)
+    elif case == "129 input channels":
+        conv = nn.Conv3d(129, 8, 3, 1, 1)
+    elif case == "ConvTranspose3d":
+        conv = nn.ConvTranspose3d(4, 8, 4, 2)
+    elif case == "Sequential":
+        conv = nn.Sequential(nn.Conv3d(4, 8, 3, 1, 1))
+    elif case == "bf16 activation":
+        dtype = torch.bfloat16
+    elif case == "no gradient wanted":
+        grad = False
+    elif case == "weight frozen":
+        conv.weight.requires_grad_(False)
+    elif case == "bf16 weight":
+        conv = conv.to(torch.bfloat16)
+        dtype = torch.bfloat16
+    elif case == "on the CPU":
+        device = "cpu"
+    elif case == "a plain model's":
+        blocks.channels_last_convs_(conv, kernels=False)
+    assert k6.wgrad_route(conv, dtype, device, grad) == want
+
+
+def test_rule_never_routes_to_k6_on_the_cpu():
+    assert all(k6.wgrad_route(m, torch.float32, "cpu", True) is None
+               for m in _modet().modules() if isinstance(m, nn.Conv3d))
+
+
+# (family, test volume, knobs): the depth chip_smoke.py trains each at
+STEP_FAMILIES = [("modet", (16, 16, 16), {}), ("im2grid", (32, 32, 32), {}),
+                 ("pcnet", (16, 16, 16), {}), ("prnet", (32, 32, 32), {}),
+                 ("prnetplusplus", (32, 32, 32), {}), ("rcn", (64, 64, 64), {"n_cascade": 10}),
+                 ("rdn", (32, 32, 32), {"stages": 4, "levels": (4, 4, 4, 4)}),
+                 ("rdn_diff_share", (32, 32, 32), {"stages": 4, "levels": (4, 4, 4, 4)})]
+
+
+def _routes_per_training_step(monkeypatch, name, shape, attn_impl, knobs):
+    """The rule's answer for each convolution of one loss-and-gradients pass
+    of ``name``, as it would be on the card (the pass itself runs on the
+    CPU, where the rule sends nothing to K6)."""
+    rule, routes = k6.wgrad_route, collections.Counter()
+
+    def on_the_card(conv, dtype, device_type, grad_mode):
+        routes[rule(conv, dtype, "cuda", grad_mode)] += 1
+        return rule(conv, dtype, device_type, grad_mode)
+
+    monkeypatch.setattr(blocks, "wgrad_route", on_the_card)
+    model = build_model(name, InferConfig(model=name, attn_impl=attn_impl, **knobs),
+                        generator=torch.Generator().manual_seed(0)).train()
+    gen = torch.Generator().manual_seed(1)
+    x, y = (torch.rand((1, *shape, 1), generator=gen) for _ in range(2))
+    train.make_loss_and_grads(model, loss_plan(name, TrainConfig(model=name, **knobs)),
+                              (1.0, 1.0))(x, y)
+    return routes
+
+
+@pytest.mark.parametrize("name,shape,knobs", STEP_FAMILIES, ids=[f[0] for f in STEP_FAMILIES])
+def test_k6_launches_and_declines_per_training_step_are_chip_smokes(monkeypatch, name, shape,
+                                                                     knobs):
+    """K6's launches and declined weight gradients per training step of each
+    family, as chip_smoke.py requires them on the card (``ZOO``; ModeT's 31
+    and none declined), and none at all on the plain path."""
+    want = (31, 0) if name == "modet" else chip_smoke.ZOO[name][2][-2:]
+    routes = _routes_per_training_step(monkeypatch, name, shape, "auto", knobs)
+    assert (routes["K6"], routes["declined"]) == want, routes
+    plain = _routes_per_training_step(monkeypatch, name, shape, "plain", knobs)
+    assert set(plain) == {None}, plain
+
+
+def test_cpu_training_forward_takes_todays_path(monkeypatch):
+    """On the CPU, `conv3d_ndhwc` with gradients on applies the module
+    itself: the K6 Function is never entered and nothing is declined."""
+    def refuse(*args):
+        raise AssertionError("K6's Function on the CPU")
+
+    monkeypatch.setattr(k6.Conv3dWgradFunction, "apply", refuse)
+    conv = nn.Conv3d(4, 8, 3, 1, 1).to(memory_format=torch.channels_last_3d)
+    x = torch.rand((1, 5, 6, 7, 4), requires_grad=True)
+    declined = k6.conv3d_wgrad.declined
+    y = blocks.conv3d_ndhwc(conv, x)
+    y.sum().backward()
+    assert torch.equal(y, conv(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1))
+    assert conv.weight.grad is not None and k6.conv3d_wgrad.declined == declined
+
+
+def test_launch_counters_report_k6():
+    counters = train.launch_counters()
+    assert "K6 launches" in counters and "K6 declined" in counters

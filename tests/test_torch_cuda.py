@@ -16,6 +16,12 @@ ulps of the largest magnitude, 2^-7 * max|ref| (both compute in float32 and
 round once; a sum in another order can flip the last bit), float32 outputs
 (drpb, d_flow) as above. The probe kernels P1-P4 equal their plain versions
 exactly: they round each product and sum in the plain versions' order.
+K6 (the f32 3x3x3 conv weight gradient): within 1e-5 of the largest |dW|
+of a float64 reference (float32 sums of up to 4.9 M products, taken in
+short sums), and no further from it than cuDNN's float32 weight gradient
+(or 1e-6 of that largest value, where both are rounding); bitwise equal
+over repeated calls (a fixed order, no atomics). A ModeT step with K6
+against the same step on cuDNN: chip_smoke.py's phase-9 gates.
 """
 
 import os
@@ -34,6 +40,7 @@ from smilecode_tpu_torch.kernels.modet_attn import (
     modet_attention_bwd_plain,
     modet_attention_plain,
 )
+from smilecode_tpu_torch.kernels import conv3d_wgrad as k6
 from smilecode_tpu_torch.kernels import probes
 from smilecode_tpu_torch.kernels.warp3d import (
     warp3d_trilinear,
@@ -749,3 +756,161 @@ def test_d_origin_warp_kernels_match_plain(dev, src_depth, flow_shape, d0, c, ki
     assert_matches_plain(out, warp3d_trilinear_plain(src, flow, d0), dtype, "out")
     assert_matches_plain(d_src, p_src, dtype, "d_src")
     assert_matches_plain(d_flow, p_flow, torch.float32, "d_flow")
+
+
+# ---- K6: the f32 3x3x3 conv weight gradient -------------------------------
+
+LPBA = (160, 192, 160)
+
+
+def _lpba_level(k):
+    return tuple(n // 2 ** k for n in LPBA)
+
+
+# (volume, Cin, Cout): modet-lpba40's 20 k3 s1 convs (encoder levels 0-4,
+# CWM5-3) and RDN's Estimator convs within K6's channels, at 160x192x160
+K6_LPBA_CASES = [(_lpba_level(k), ci, co) for k, ci, co in (
+    (0, 1, 4), (0, 4, 8), (0, 8, 8), (1, 8, 16), (1, 16, 16), (2, 16, 32), (2, 32, 32),
+    (3, 32, 64), (3, 64, 64), (4, 64, 128), (4, 128, 128),
+    (3, 24, 48), (3, 48, 48), (3, 48, 8), (2, 12, 24), (2, 24, 24), (2, 24, 4),
+    (1, 6, 12), (1, 12, 12), (1, 12, 2),
+    (1, 32, 32), (1, 32, 3), (2, 64, 64), (2, 64, 3), (3, 128, 128), (3, 128, 3))]
+# bricks that do not divide D, H or W; batch 2; odd channel counts
+K6_EDGE_CASES = [((1, 7, 9, 33), 8, 8), ((1, 9, 7, 37), 16, 3), ((2, 3, 4, 5), 6, 2),
+                 ((2, 5, 6, 11), 1, 12), ((1, 4, 5, 6), 128, 128), ((1, 2, 2, 2), 5, 7),
+                 ((1, 7, 9, 5), 3, 4), ((2, 6, 6, 6), 12, 24)]
+
+
+def _check_k6(dev, shape, cin, cout, seed):
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((*shape, cin), device=dev, generator=gen)
+    dy = torch.randn((*shape, cout), device=dev, generator=gen)
+    before = k6.conv3d_wgrad.launches
+    dw, db = k6.conv3d_wgrad(x, dy)
+    dw2, db2 = k6.conv3d_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert k6.conv3d_wgrad.launches == before + 2
+    assert dw.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    ref_w, ref_b = k6.conv3d_wgrad_plain(x.double(), dy.double())
+    from chip_smoke import cudnn_wgrad
+
+    lib_w, lib_b = cudnn_wgrad(x, dy)
+    for got, lib, ref in ((dw, lib_w, ref_w), (db, lib_b, ref_b)):
+        scale = float(ref.abs().max())
+        err, lib_err = (float((t.double() - ref).abs().max()) for t in (got, lib))
+        assert err <= 1e-5 * scale, (err, scale)
+        assert err <= max(lib_err, 1e-6 * scale), (err, lib_err, scale)
+
+
+@pytest.mark.parametrize("shape,cin,cout", K6_LPBA_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{ci}-{co}" for s, ci, co in K6_LPBA_CASES])
+def test_k6_matches_float64_and_cudnn_at_the_cells_shapes(dev, shape, cin, cout):
+    _check_k6(dev, (1, *shape), cin, cout, seed=cin * 1000 + cout)
+
+
+@pytest.mark.parametrize("shape,cin,cout", K6_EDGE_CASES)
+def test_k6_matches_float64_on_ragged_bricks(dev, shape, cin, cout):
+    _check_k6(dev, shape, cin, cout, seed=7)
+
+
+def test_k6_writes_the_weights_memory_format_and_leaves_no_bias(dev):
+    x, dy = rand((1, 5, 6, 7, 3), 41).to(dev), rand((1, 5, 6, 7, 4), 42).to(dev)
+    dw, db = k6.conv3d_wgrad(x, dy, want_bias=False)
+    with_bias, _ = k6.conv3d_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert db is None and dw.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(dw, with_bias)
+
+
+def test_k6_function_keeps_the_modules_forward(dev):
+    """The K6 path's forward is the module's own cuDNN call, bit for bit;
+    dx is cuDNN's input gradient (whose kernel changes its last bits from
+    call to call, through the module too) and dW lands in the weight's
+    strides."""
+    torch.backends.cudnn.allow_tf32 = False
+    conv = torch.nn.Conv3d(8, 16, 3, 1, 1).to(dev).to(memory_format=torch.channels_last_3d)
+    x = rand((1, 40, 48, 40, 8), 43).to(dev).requires_grad_()
+    g = rand((1, 40, 48, 40, 16), 44).to(dev)
+    y = conv(x.permute(0, 4, 1, 2, 3))
+    y.backward(g.permute(0, 4, 1, 2, 3))
+    ref_dx = x.grad.clone()
+    conv.zero_grad()
+    x.grad = None
+    y2 = k6.Conv3dWgradFunction.apply(x.permute(0, 4, 1, 2, 3), conv.weight, conv.bias)
+    y2.backward(g.permute(0, 4, 1, 2, 3))
+    torch.cuda.synchronize()
+    assert torch.equal(y2, y)
+    assert_scaled_close(x.grad, ref_dx.cpu(), "dx")
+    assert conv.weight.grad.stride() == conv.weight.stride()
+
+
+def _modet_step(dev, shape, seed=5, attn_impl="auto"):
+    from smilecode_tpu_torch.models.modet import ModeT
+    from smilecode_tpu_torch.models.registry import loss_plan
+    from smilecode_tpu_torch.train import make_loss_and_grads
+
+    model = ModeT(qk_scale=1.0, attn_impl=attn_impl,
+                  generator=torch.Generator().manual_seed(seed)).to(dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    x, y = (torch.rand((1, *shape, 1), generator=gen).to(dev) for _ in range(2))
+    return model, make_loss_and_grads(model, loss_plan("modet"), (1.0, 1.0)), x, y
+
+
+def test_k6_launches_31_times_a_modet_step_and_never_in_registration(dev):
+    from smilecode_tpu_torch import infer, train
+
+    model, loss_and_grads, x, y = _modet_step(dev, (32, 32, 32))
+    seg = torch.randint(0, 4, (1, 32, 32, 32, 1)).to(torch.int16).to(dev)
+    before = train.launch_counters()
+    loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    mid = train.launch_counters()
+    model.eval()
+    infer.make_infer_step(model)(x, y, seg, seg)
+    torch.cuda.synchronize()
+    after = train.launch_counters()
+    assert (mid["K6 launches"] - before["K6 launches"], mid["K6 declined"] - before["K6 declined"]) \
+        == (31, 0)
+    assert (after["K6 launches"], after["K6 declined"]) == (mid["K6 launches"], mid["K6 declined"])
+
+
+def test_plain_modet_step_launches_no_k6(dev):
+    """attn_impl "plain" runs no hand-written kernel: every weight gradient
+    of its step comes from cuDNN."""
+    from smilecode_tpu_torch import train
+
+    _, loss_and_grads, x, y = _modet_step(dev, (32, 32, 32), attn_impl="plain")
+    before = train.launch_counters()
+    loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    assert train.launch_counters() == before
+
+
+def test_modet_step_with_k6_matches_the_step_on_cudnn(dev):
+    """A full-size ModeT loss-and-gradients pass with K6 against the same
+    pass with every weight gradient on cuDNN: the same loss (the forward is
+    unchanged), every leaf's gradient within chip_smoke.py's phase-9 gates
+    (STEP_GRAD_TOL of its largest |gradient| + STEP_GRAD_FLOOR of the
+    model's). The second pass turns the model's kernel switch for its convs
+    off, as attn_impl "plain" does."""
+    from chip_smoke import STEP_GRAD_FLOOR, STEP_GRAD_TOL
+    from smilecode_tpu_torch.ops import blocks
+
+    torch.backends.cudnn.allow_tf32 = False
+    model, loss_and_grads, x, y = _modet_step(dev, LPBA)
+    launches = k6.conv3d_wgrad.launches
+    loss, _ = loss_and_grads(x, y)
+    assert k6.conv3d_wgrad.launches == launches + 31
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    blocks.channels_last_convs_(model, kernels=False)
+    ref_loss, _ = loss_and_grads(x, y)
+    assert k6.conv3d_wgrad.launches == launches + 31
+    assert torch.equal(loss, ref_loss)
+    ref = {n: p.grad for n, p in model.named_parameters()}
+    floor = STEP_GRAD_FLOOR * max(float(g.abs().max()) for g in ref.values())
+    for name, g in grads.items():
+        err = float((g - ref[name]).abs().max())
+        assert err <= STEP_GRAD_TOL * float(ref[name].abs().max()) + floor, (name, err)
