@@ -116,12 +116,13 @@ at 160x192x160, RCN at 128x192x128, each at its reference width and depth):
    without rpb at Im2grid's five level shapes, as phase 6.
 21. `infer.main` for pcnet, prnet and prnetplusplus on 2 synthetic
    160x192x160 subjects with seeded, head-perturbed JAX-format checkpoints:
-   exactly 33, 9 and 9 K2 launches per pair; the plain runs launch nothing
-   and give the same Dice and fold.
+   exactly 33, 9 and 9 K2 launches per pair and PR++'s 5 K7; the plain runs
+   launch nothing and give the same Dice and fold.
 22. Their forwards, kernels vs plain, as phase 14.
 23. `train.main` for every family (2 steps on 2 subjects, validated on the
    same 2 pairs): exact K1, K3, K4, K2, K5 launches and scatters, K6
-   launches and declined weight gradients per step (`ZOO`) plus the validation forwards; losses finite; for Im2grid
+   launches and declined weight gradients, K7 launches per step (`ZOO`)
+   plus the validation forwards; losses finite; for Im2grid and PR++
    (`ZOO_PLAIN_TRAIN`) the plain run launches nothing and its first loss is
    within 1e-4 (phase 24 holds every family's step against plain).
 24. One training step per family, kernels vs plain, same weights and batch
@@ -227,7 +228,7 @@ staged through pinned host buffers, the sums on the card):
    exactly one step's mode launches; ms per sharded step (median of 3) and
    each rank's peak GiB beside the unsharded step's.
 
-The Hopper kernel with no TPU counterpart (run after phase 7):
+The Hopper kernels with no TPU counterpart (run after phase 7):
 
 33. K6, the float32 3x3x3 stride-1 conv weight and bias gradient, at
    ModeT's 20 bare-conv shapes at 160x192x160 (`K6_SHAPES`): within
@@ -236,6 +237,13 @@ The Hopper kernel with no TPU counterpart (run after phase 7):
    of that value; two calls give the same bits; per shape the call ms,
    device ms, the plain version's ms (float32), cuDNN's (the library call
    it replaces) and the bound, each summed over one step's 31 calls.
+34. K7, PR++'s windowed correlation and its adjoint, at PR++'s five
+   correlations at 160x192x160 (`K7_SHAPES`): out, d_mov and d_fix within
+   K7_TOL of the largest |value| of the plain version in float64 on the
+   card; two calls give the same bits; per shape the call ms and device ms
+   of the forward and of the adjoint, the eager correlation's forward and
+   forward + backward in float32 and the bounds, summed over one step's 10
+   calls.
 
 Every failed check raises, so the exit code is non-zero; without a CUDA card
 it exits non-zero before printing any result. Each phase's seconds and the
@@ -252,7 +260,9 @@ first script kernel each serves, ``serves`` all of them; P2's
 ``sized``, the 160x192x160 case's times, bound and share), then the five
 modes of the D-sharded step (phase 30's times, rank 0's launches in phase
 32's `train.main(spatial=2)`), then K6 (phase 33's times, phase 8's
-launches and ``declined``); each with its
+launches and ``declined``), then K7 (phase 34's times, forward and adjoint
+summed; the launches of phase 23's PR++ run: 10 a step, 5 a validation
+pair); each with its
 bound (bytes or float32 operations
 at the card's published peaks) and, for K2 and K5, the time of
 `F.grid_sample` (forward or backward) on the same inputs, and per distinct
@@ -338,11 +348,12 @@ BASELINE_HEADS = {"im2grid": ("proj", 0.1), "rdn": ("conv.4", 0.02),
                   "rdn_diff_share": ("conv.4", 0.02), "rcn": ("Pred0", 0.1),
                   "pcnet": ("reg_conv", 0.02), "prnet": (".flow.", 0.1),
                   "prnetplusplus": (".flow.", 0.2)}
-# The baseline zoo of phases 20-24: volume size, K1 and K2 launches per
+# The baseline zoo of phases 20-24: volume size, K1, K2 and K7 launches per
 # pair, and per training step the K1, K3, K4, K2 and K5 launches and the K5
-# launches that scatter d_src, then the K6 launches and the float32 weight
+# launches that scatter d_src, then the K6 launches, the float32 weight
 # gradients declined to cuDNN by `kernels.conv3d_wgrad.wgrad_route` for their
-# geometry (`STEP_KEYS`; every warp whose source needs a gradient: all but
+# geometry and the K7 launches (PR++'s five correlations, forward and
+# adjoint; none in a plain run) (`STEP_KEYS`; every warp whose source needs a gradient: all but
 # the moved image's, and RCN's re-warps of the moving image; every bare
 # 3x3x3 stride-1 Conv3d, applied as often as the forward applies it). Derived from the JAX modules: PCNet warps in 3 DFI vecints of 7
 # steps, vecint(pred0), 3 feature warps, T(wf0, pred0) and the moved image
@@ -350,14 +361,14 @@ BASELINE_HEADS = {"im2grid": ("proj", 0.1), "rdn": ("conv.4", 0.02),
 # image (9); the others as `BASELINES`. CPU tests count the same calls
 # (`tests/test_torch_baselines.py::test_kernel_wrapper_calls_per_pair`,
 # `tests/test_torch_baselines_train.py::test_kernel_wrapper_calls_per_training_step`).
-ZOO = {"im2grid": (SIZE, (5, 9), (5, 5, 5, 9, 9, 8, 22, 0)),
-       "pcnet": (SIZE, (0, 33), (0, 0, 0, 33, 33, 32, 29, 11)),
-       "prnet": (SIZE, (0, 9), (0, 0, 0, 9, 9, 8, 17, 8)),
-       "prnetplusplus": (SIZE, (0, 9), (0, 0, 0, 9, 9, 8, 17, 8)),
-       "rdn": (SIZE, (0, 136), (0, 0, 0, 136, 136, 135, 0, 8)),
-       "rdn_diff_share": (SIZE, (0, 644), (0, 0, 0, 644, 644, 643, 0, 8)),
-       "rcn": (RCN_SIZE, (0, 19), (0, 0, 0, 19, 19, 9, 30, 120))}
-STEP_KEYS = ("K1", "K3", "K4", "K2", "K5", "K5 d_src", "K6", "K6 declined")
+ZOO = {"im2grid": (SIZE, (5, 9, 0), (5, 5, 5, 9, 9, 8, 22, 0, 0)),
+       "pcnet": (SIZE, (0, 33, 0), (0, 0, 0, 33, 33, 32, 29, 11, 0)),
+       "prnet": (SIZE, (0, 9, 0), (0, 0, 0, 9, 9, 8, 17, 8, 0)),
+       "prnetplusplus": (SIZE, (0, 9, 5), (0, 0, 0, 9, 9, 8, 17, 8, 10)),
+       "rdn": (SIZE, (0, 136, 0), (0, 0, 0, 136, 136, 135, 0, 8, 0)),
+       "rdn_diff_share": (SIZE, (0, 644, 0), (0, 0, 0, 644, 644, 643, 0, 8, 0)),
+       "rcn": (RCN_SIZE, (0, 19, 0), (0, 0, 0, 19, 19, 9, 30, 120, 0))}
+STEP_KEYS = ("K1", "K3", "K4", "K2", "K5", "K5 d_src", "K6", "K6 declined", "K7")
 # K6 (the float32 3x3x3 conv weight gradient) at ModeT's bare convs:
 # (level as `level_shape` counts it, Cin, Cout, calls per training step):
 # the encoder's 11, applied to the moving and to the fixed image, and
@@ -371,7 +382,7 @@ ZOO_SERVED = ("pcnet", "prnet", "prnetplusplus")  # served by phases 21 and 22
 ZOO_STEPS, ZOO_VAL_PAIRS = 2, 2  # train.main on 2 subjects, validated on the same 2
 # phase 23's plain train.main runs (the families whose plain run is checked
 # to launch nothing); phase 24 holds every family's step against plain
-ZOO_PLAIN_TRAIN = ("im2grid",)
+ZOO_PLAIN_TRAIN = ("im2grid", "prnetplusplus")
 N_TIMED_ZOO_STEPS = 2
 # phase 24 runs these families at a cut depth, to keep the script within its
 # time budget: rdn_diff_share's plain step takes ~11 s at stages 4 on the
@@ -1264,10 +1275,110 @@ def check_k6(device, size=SIZE):
     return (max_err, *sums, tuple(work), by_shape)
 
 
+# K7 (PR++'s windowed correlation) at its five correlations at c = 8: (level
+# as `level_shape` counts it, C); one forward and one adjoint each a step
+K7_SHAPES = ((4, 32), (3, 32), (2, 16), (1, 16), (1, 8))
+K7_TOL = 1e-5  # times the largest |value| of the float64 plain version (card tests)
+
+
+def k7_case(mov, fix, g):
+    """K7's forward and adjoint on one case (``mov``, ``fix`` (B, D, H, W,
+    C) and the cotangent ``g`` (B, D, H, W, 27), float32 on the card): one
+    launch a call, two calls give the same bits, and out, d_mov and d_fix
+    each within K7_TOL of the largest |value| of the plain version in
+    float64 (the adjoint as autograd takes it through the plain version).
+    Returns (the three errors, the worst error over its gate, the first
+    call's (out, bm, bfp))."""
+    import torch
+
+    from smilecode_tpu_torch.kernels.correlation3d import (
+        correlation3d,
+        correlation3d_bwd,
+        correlation3d_fwd,
+        correlation3d_plain,
+    )
+
+    what = f"K7 {tuple(mov.shape)}"
+    before = correlation3d.launches
+    out, bm, bfp = correlation3d_fwd(mov, fix)
+    d_mov, d_fix = correlation3d_bwd(g, bm, bfp)
+    again = correlation3d_fwd(mov, fix)[0], *correlation3d_bwd(g, bm, bfp)
+    torch.cuda.synchronize()
+    require(correlation3d.launches == before + 4, f"{what}: launches")
+    require(all(torch.equal(a, b) for a, b in zip((out, d_mov, d_fix), again)),
+            f"{what}: two calls differ")
+    m64, f64 = (t.double().requires_grad_() for t in (mov, fix))
+    ref = correlation3d_plain(m64, f64)
+    refs = (ref.detach(), *torch.autograd.grad(ref, (m64, f64), g.double()))
+    errs = [float((got.double() - want).abs().max())
+            for got, want in zip((out, d_mov, d_fix), refs)]
+    worst = max(e / (K7_TOL * float(want.abs().max())) for e, want in zip(errs, refs))
+    return errs, worst, (out, bm, bfp)
+
+
+def check_k7(device, size=SIZE):
+    """Phase 34: K7 at PR++'s five correlations (`K7_SHAPES`) at ``size``,
+    each through `k7_case`. Per shape: call ms (CUDA events) and device ms
+    of the forward and of the adjoint, the plain version's forward and
+    forward + backward in float32 (the eager correlation the port ran
+    before K7) and the bounds (`bench_port/work/correlation.py`, the
+    benchmark's yardstick). Returns (max err, per-step sums of ms, plain ms
+    and device ms, per-step work, by_shape)."""
+    import torch
+
+    from bench_port.work import correlation as k7_yardstick
+    from smilecode_tpu_torch.kernels.correlation3d import (
+        correlation3d_bwd,
+        correlation3d_fwd,
+        correlation3d_plain,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(34)
+    worst, max_err, sums, work, by_shape = 0.0, 0.0, np.zeros(3), np.zeros(2), {}
+    for level, c in K7_SHAPES:
+        shape = (1, *level_shape(level, size))
+        mov, fix = (torch.randn((*shape, c), device=device, generator=gen) for _ in range(2))
+        g = torch.randn((*shape, 27), device=device, generator=gen)
+        errs, case_worst, (out, bm, bfp) = k7_case(mov, fix, g)
+        worst, max_err = max(worst, case_worst), max(max_err, *errs)
+        del out
+        torch.cuda.empty_cache()
+        mg, fg = mov.clone().requires_grad_(), fix.clone().requires_grad_()
+
+        def plain_step():
+            torch.autograd.grad(correlation3d_plain(mg, fg), (mg, fg), g)
+
+        rec = {"err": max(errs), "ms": event_ms(lambda: correlation3d_fwd(mov, fix), 5, 1),
+               "device_ms": device_ms(lambda: correlation3d_fwd(mov, fix), 5),
+               "bwd_ms": event_ms(lambda: correlation3d_bwd(g, bm, bfp), 5, 1),
+               "bwd_device_ms": device_ms(lambda: correlation3d_bwd(g, bm, bfp), 5),
+               "plain_ms": event_ms(lambda: correlation3d_plain(mov, fix), 3, 1),
+               "plain_step_ms": event_ms(plain_step, 3, 1)}
+        wf, wb = (k7_yardstick.work(k, int(np.prod(shape)), c) for k in ("fwd", "bwd"))
+        rec["bound_ms"], rec["bwd_bound_ms"] = bound(*wf)[0], bound(*wb)[0]
+        key = shape_label(c, shape[1:])
+        by_shape[key] = rec
+        sums += np.array([rec["ms"] + rec["bwd_ms"], rec["plain_step_ms"],
+                          rec["device_ms"] + rec["bwd_device_ms"]])
+        work += np.array(wf) + np.array(wb)
+        print(f"K7 {key}: err out {errs[0]:.3e}, d_mov {errs[1]:.3e}, d_fix {errs[2]:.3e}; "
+              f"forward ms {rec['ms']:.4f}, device {rec['device_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}; adjoint ms {rec['bwd_ms']:.4f}, device "
+              f"{rec['bwd_device_ms']:.4f}, bound {rec['bwd_bound_ms']:.4f}; eager forward "
+              f"{rec['plain_ms']:.4f}, forward + backward {rec['plain_step_ms']:.4f}", flush=True)
+        del mov, fix, g, bm, bfp, mg, fg
+        torch.cuda.empty_cache()
+    print(f"K7 over one PR++ step's 10 calls: ms {sums[0]:.3f}, device {sums[2]:.3f}, eager "
+          f"{sums[1]:.3f}, bound {bound(*work)[0]:.3f} (share {bound(*work)[0] / sums[2]:.3f}); "
+          f"worst err/gate {worst:.4f}", flush=True)
+    require(worst <= 1.0, f"K7 against its float64 plain version: err/gate {worst:.3f} > 1")
+    return (max_err, *sums, tuple(work), by_shape)
+
+
 def launch_counts():
     """Each kernel's launches since the last reset, and those of its bf16
     instance ("K1 bf16", ...); K6's, and the float32 weight gradients its
-    rule declined for their geometry ("K6 declined")."""
+    rule declined for their geometry ("K6 declined"); K7's."""
     from smilecode_tpu_torch.kernels.modet_attn import (
         modet_attention,
         modet_attention_bwd_dk,
@@ -1281,10 +1392,12 @@ def launch_counts():
                 "K5": (warp3d_trilinear_bwd, "launches"),
                 "K5 d_src": (warp3d_trilinear_bwd, "scatters")}
     from smilecode_tpu_torch.kernels.conv3d_wgrad import conv3d_wgrad
+    from smilecode_tpu_torch.kernels.correlation3d import correlation3d
 
     out = {k: getattr(fn, what) for k, (fn, what) in counters.items()}
     out.update({f"{k} bf16": getattr(fn, f"{what}_bf16") for k, (fn, what) in counters.items()})
-    out.update({"K6": conv3d_wgrad.launches, "K6 declined": conv3d_wgrad.declined})
+    out.update({"K6": conv3d_wgrad.launches, "K6 declined": conv3d_wgrad.declined,
+                "K7": correlation3d.launches})
     return out
 
 
@@ -1295,10 +1408,11 @@ def reset_launch_counts():
         modet_attention_bwd_dq,
     )
     from smilecode_tpu_torch.kernels.conv3d_wgrad import conv3d_wgrad
+    from smilecode_tpu_torch.kernels.correlation3d import correlation3d
     from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_bwd
 
     for fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk,
-               warp3d_trilinear, warp3d_trilinear_bwd, conv3d_wgrad):
+               warp3d_trilinear, warp3d_trilinear_bwd, conv3d_wgrad, correlation3d):
         for name in list(vars(fn)):
             if name.startswith(("launches", "scatters", "declined")):
                 setattr(fn, name, 0)
@@ -1739,7 +1853,7 @@ def check_zoo_warps(device):
 def train_baseline(name, data_dir, root, pair, step, plain=True):
     """Phase 23 for baseline ``name``: `train.main` on the 2 subjects of
     ``data_dir`` (2 steps, then 2 validation pairs) with the kernels: exact
-    launches (``step`` per step, ``pair`` K1 and K2 per validation pair),
+    launches (``step`` per step, ``pair`` K1, K2 and K7 per validation pair),
     finite losses; with ``plain``, the ``attn_impl="plain"`` run launches
     nothing and its first loss is within STEP_LOSS_TOL. Returns the kernel
     run's launch counts."""
@@ -1752,6 +1866,7 @@ def train_baseline(name, data_dir, root, pair, step, plain=True):
         want[key] = per_step * ZOO_STEPS
     want["K1"] += pair[0] * ZOO_VAL_PAIRS
     want["K2"] += pair[1] * ZOO_VAL_PAIRS
+    want["K7"] += pair[2] * ZOO_VAL_PAIRS
     print(f"train {name} (kernels): {ZOO_STEPS} steps + {ZOO_VAL_PAIRS} validation pairs in "
           f"{secs:.2f} s, losses {losses}, best dsc {best:.6f}, launches {counts}", flush=True)
     require(len(losses) == ZOO_STEPS and bool(np.isfinite(losses).all()), f"{name}: losses {losses}")
@@ -1812,7 +1927,7 @@ def run_zoo_phases(card, device, tmp, val_dir):
     160x192x160, and every family trained. ``val_dir`` holds 2 subjects at
     160x192x160 (RCN's 2 at 128x192x128 are written here). Returns (phase
     20's K2/K5 results, its K3/K4 results, the launch counts of phase 23's
-    kernel runs summed, and those of its Im2grid run)."""
+    kernel runs summed, and those of each family's run by name)."""
     import torch
 
     phase(20, "K2/K5 at the baseline zoo's warp shapes; K3/K4 at Im2grid's five levels")
@@ -1835,8 +1950,8 @@ def run_zoo_phases(card, device, tmp, val_dir):
 
     phase(21, "infer.main for PCNet, PRNet and PR++ at 160x192x160")
     for name in ZOO_SERVED:
-        size, (k1, k2), _ = ZOO[name]
-        serve_baseline(name, size, data[size], os.path.join(tmp, f"exp_{name}"), device, k1, k2,
+        size, pair, _ = ZOO[name]
+        serve_baseline(name, size, data[size], os.path.join(tmp, f"exp_{name}"), device, pair,
                        ZOO_VAL_PAIRS)
 
     phase(22, "PCNet, PRNet and PR++ forwards, kernels vs plain; ms per pair")
@@ -1844,45 +1959,42 @@ def run_zoo_phases(card, device, tmp, val_dir):
         compare_baseline_forward(card, name, ZOO[name][0], data[ZOO[name][0]], device)
 
     phase(23, "train.main for every baseline family")
-    train_counts, im2grid_counts = None, None
+    train_counts, family_counts = None, {}
     for name, (size, pair, step) in ZOO.items():
         counts = train_baseline(name, data[size], os.path.join(tmp, f"train_{name}"), pair, step,
                                 plain=name in ZOO_PLAIN_TRAIN)
         train_counts = counts if train_counts is None else {
             k: v + counts[k] for k, v in train_counts.items()}
-        if name == "im2grid":
-            im2grid_counts = counts
+        family_counts[name] = counts
 
     phase(24, "one training step per family, kernels vs plain; ms per step")
     for name, (size, _, _) in ZOO.items():
         step_baseline(card, name, data[size], device, profile=name in ("pcnet", "prnetplusplus"))
     torch.cuda.empty_cache()
-    return warps, attn_bwd, train_counts, im2grid_counts
+    return warps, attn_bwd, train_counts, family_counts
 
 
-def serve_baseline(name, size, data_dir, model_dir, device, k1_pair, k2_pair, n_pairs):
+def serve_baseline(name, size, data_dir, model_dir, device, pair, n_pairs):
     """`infer.main` of baseline ``name`` on the ``size`` subjects of
     ``data_dir`` with a seeded, head-perturbed JAX-format checkpoint written
-    to ``model_dir``: exactly ``k1_pair`` K1 and ``k2_pair`` K2 launches per
-    pair; the ``attn_impl="plain"`` run launches nothing and gives the same
-    Dice and fold. Returns the kernel run's launch counts."""
+    to ``model_dir``: exactly ``pair`` (K1, K2, K7) launches per pair; the
+    ``attn_impl="plain"`` run launches nothing and gives the same Dice and
+    fold. Returns the kernel run's launch counts."""
     import torch
 
     write_jax_checkpoint(model_dir, seeded_baseline(name, device))
     dsc, fold, counts, secs = run_infer(data_dir, model_dir, model=name)
-    n_k1, n_k2 = counts["K1"], counts["K2"]
-    print(f"{name} {size} infer (kernels): {n_pairs} pairs in {secs:.2f} s, K1 launches "
-          f"{n_k1}, K2 launches {n_k2}, dsc {dsc:.6f}, fold {fold:.6f}", flush=True)
+    got = tuple(counts[k] for k in ("K1", "K2", "K7"))
+    want = tuple(n * n_pairs for n in pair)
+    print(f"{name} {size} infer (kernels): {n_pairs} pairs in {secs:.2f} s, K1, K2, K7 launches "
+          f"{got}, dsc {dsc:.6f}, fold {fold:.6f}", flush=True)
     require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0, f"{name}: Dice {dsc} outside [0, 1]")
     require(np.isfinite(fold) and 0.0 <= fold <= 1.0, f"{name}: fold {fold} outside [0, 1]")
-    require((n_k1, n_k2) == (k1_pair * n_pairs, k2_pair * n_pairs),
-            f"{name}: K1, K2 launched {n_k1}, {n_k2} times, expected "
-            f"{k1_pair * n_pairs}, {k2_pair * n_pairs}")
+    require(got == want, f"{name}: K1, K2, K7 launched {got} times, expected {want}")
     p_dsc, p_fold, p_counts, p_secs = run_infer(data_dir, model_dir, attn_impl="plain", model=name)
-    p_k1, p_k2 = p_counts["K1"], p_counts["K2"]
-    print(f"{name} {size} infer (plain): {p_secs:.2f} s, K1 launches {p_k1}, K2 launches "
-          f"{p_k2}, dsc {p_dsc:.6f}, fold {p_fold:.6f}", flush=True)
-    require(p_k1 == 0 and p_k2 == 0, f"{name}: the plain run launched a kernel")
+    print(f"{name} {size} infer (plain): {p_secs:.2f} s, launches {p_counts}, dsc {p_dsc:.6f}, "
+          f"fold {p_fold:.6f}", flush=True)
+    require(not any(p_counts.values()), f"{name}: the plain run launched a kernel")
     require(abs(dsc - p_dsc) <= 1e-3 and abs(fold - p_fold) <= 1e-3,
             f"{name} kernels vs plain infer: dsc {dsc} vs {p_dsc}, fold {fold} vs {p_fold}")
     torch.cuda.empty_cache()
@@ -2019,7 +2131,7 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
     want = {"K1": 5 * fwd, "K1 bf16": 5 * fwd, "K2": 9 * fwd, "K2 bf16": 4 * fwd,
             "K3": 5 * n_steps, "K3 bf16": 5 * n_steps, "K4": 5 * n_steps, "K4 bf16": 5 * n_steps,
             "K5": 9 * n_steps, "K5 bf16": 4 * n_steps, "K5 d_src": 8 * n_steps,
-            "K5 d_src bf16": 4 * n_steps, "K6": 0, "K6 declined": 0}
+            "K5 d_src bf16": 4 * n_steps, "K6": 0, "K6 declined": 0, "K7": 0}
     require(counts == want, f"bf16 train launches {counts}, expected {want}")
     _, _, p_losses, p_counts, p_secs = run_train(test_dir, val_dir, os.path.join(tmp, "bf16p"),
                                                  attn_impl="plain", compute_dtype="bfloat16")
@@ -2507,7 +2619,7 @@ def modet_train_launches(n_steps, n_val):
     want = {"K1": 5 * (n_steps + n_val), "K2": 9 * (n_steps + n_val), "K3": 5 * n_steps,
             "K4": 5 * n_steps, "K5": 9 * n_steps, "K5 d_src": 8 * n_steps}
     want.update({f"{k} bf16": 0 for k in want})
-    want.update({"K6": 31 * n_steps, "K6 declined": 0})
+    want.update({"K6": 31 * n_steps, "K6 declined": 0, "K7": 0})
     return want
 
 
@@ -3201,7 +3313,8 @@ def rank_counts(record) -> dict:
     names = {"K1": "K1", "K2": "K2", "K3": "K3", "K4": "K4", "K5": "K5"}
     out = {k: lc[f"{v} launches"] for k, v in names.items()}
     out["K5 d_src"] = lc["K5 scatters"]
-    out.update({"K6": lc["K6 launches"], "K6 declined": lc["K6 declined"]})
+    out.update({"K6": lc["K6 launches"], "K6 declined": lc["K6 declined"],
+                "K7": lc["K7 launches"]})
     out.update({f"{k} halo": lc[f"{k} launches_halo"] for k in ("K1", "K3", "K4")})
     out.update({"K2 origin": lc["K2 launches_origin"], "K5 origin": lc["K5 launches_origin"],
                 "K5 origin d_src": lc["K5 scatters_origin"]})
@@ -3286,7 +3399,7 @@ def run_dp_phase(card, device, tmp, data_dir):
     cfg, records, secs = run_multi_rank_train(card, device, data_dir, os.path.join(tmp, "dp"),
                                               dp=2, batch_size=2, max_epoch=2)
     per_step = {"K1": 5, "K3": 5, "K4": 5, "K2": 9, "K5": 9, "K5 d_src": 8, "K6": 31,
-                "K6 declined": 0}
+                "K6 declined": 0, "K7": 0}
     for r, rec in enumerate(records):
         want = {k: v * n_steps for k, v in per_step.items()}
         if r == 0:
@@ -3378,7 +3491,7 @@ def run_spatial_phase(card, device, tmp, data_dir):
                                               spatial=2, max_epoch=1)
     sp_step = {"K1": 5, "K3": 5, "K4": 5, "K2": 9, "K5": 9, "K5 d_src": 8, "K1 halo": 5,
                "K3 halo": 5, "K4 halo": 5, "K2 origin": 9, "K5 origin": 9, "K5 origin d_src": 8,
-               "K6": 0, "K6 declined": 0}
+               "K6": 0, "K6 declined": 0, "K7": 0}
     for r, rec in enumerate(records):
         want = {k: v * n_steps for k, v in sp_step.items()}
         if r == 0:
@@ -3515,6 +3628,8 @@ def main() -> int:
         k5_err, k5_ms, k5_plain_ms, k5_lib_ms, k5_work, k5_shapes = check_warp_bwd(device)
         phase(33, "K6 conv weight gradient vs its float64 plain version and cuDNN")
         k6_err, k6_ms, k6_plain_ms, k6_lib_ms, k6_dev, k6_work, k6_shapes = check_k6(device)
+        phase(34, "K7 windowed correlation and its adjoint vs the float64 plain version")
+        k7_err, k7_ms, k7_lib_ms, k7_dev, k7_work, k7_shapes = check_k7(device)
 
         phase(8, "train.main on synthetic 160x192x160 subjects")
         val_dir = os.path.join(tmp, "Val")
@@ -3578,8 +3693,8 @@ def main() -> int:
         base_counts = {"K1": 0, "K2": 0}
         for name, size, k1_pair, k2_pair in BASELINES:
             counts = serve_baseline(name, size, test_dir if size == SIZE else rcn_dir,
-                                    os.path.join(tmp, f"exp_{name}"), device, k1_pair, k2_pair,
-                                    n_pairs)
+                                    os.path.join(tmp, f"exp_{name}"), device,
+                                    (k1_pair, k2_pair, 0), n_pairs)
             base_counts["K1"] += counts["K1"]
             base_counts["K2"] += counts["K2"]
 
@@ -3593,7 +3708,7 @@ def main() -> int:
               f"{f_plain_ms:.4f})")
 
         bf16, bf16_train_counts = run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer)
-        zoo_warps, zoo_bwd, zoo_counts, im2grid_counts = run_zoo_phases(card, device, tmp, val_dir)
+        zoo_warps, zoo_bwd, zoo_counts, family_counts = run_zoo_phases(card, device, tmp, val_dir)
 
         phase(25, "P1-P4: the probe scripts' checks, edge cases and one volume's size, vs plain")
         probe_recs = run_probe_phase(card, device)
@@ -3708,9 +3823,9 @@ def main() -> int:
         bf16_entry("modet_attn_bwd_dk", "modet_attn_bwd.cu", "modet_attn.py:256", "K4"),
         bf16_entry("warp3d_trilinear_bwd", "warp3d_bwd.cu", "warp3d_v4.py:339", "K5"),
         bwd_entry("modet_attn_bwd_dq (Im2grid training: 1 head, no rpb)", "modet_attn.py:183",
-                  "K3", zoo_bwd, im2grid_counts),
+                  "K3", zoo_bwd, family_counts["im2grid"]),
         bwd_entry("modet_attn_bwd_dk (Im2grid training: 1 head, no rpb)", "modet_attn.py:256",
-                  "K4", zoo_bwd, im2grid_counts),
+                  "K4", zoo_bwd, family_counts["im2grid"]),
         zoo_entry("warp3d_trilinear_fwd (baseline zoo: phase 20 shapes, phase 23 training)",
                   "warp3d.cu", "warp3d.py:52", "K2"),
         zoo_entry("warp3d_trilinear_bwd (baseline zoo: phase 20 shapes, phase 23 training)",
@@ -3731,6 +3846,10 @@ def main() -> int:
                  by_shape=k6_shapes, device=k6_dev),
          "replaces": "cuDNN's weight gradient (the JAX package leaves it to XLA)",
          "declined": train_counts["K6 declined"]},
+        {**entry("correlation3d (PR++'s windowed correlation and its adjoint, one step)",
+                 "correlation3d.cu", "", "K7", k7_err, k7_ms, None, k7_work, k7_lib_ms,
+                 counts=family_counts["prnetplusplus"], by_shape=k7_shapes, device=k7_dev),
+         "replaces": "the eager correlation (the JAX package leaves it to XLA)"},
     ]}
     for rec in record["kernels"]:
         print(f"[{card}] host us per call while its calls queued: {rec['name']} "

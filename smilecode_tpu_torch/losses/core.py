@@ -12,25 +12,8 @@ so these stay plain PyTorch.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-
-def _box_sum_axis(x: torch.Tensor, win: int, axis: int) -> torch.Tensor:
-    """Box sum of width ``win`` along ``axis`` (1..3 of NDHWC), zero padding."""
-    pad = win // 2
-    pads = [0, 0] * (x.ndim - 1 - axis) + [pad, pad]  # F.pad lists the last axis first
-    xp = F.pad(x, pads)
-    size = x.shape[axis]
-    out = xp.narrow(axis, 0, size)
-    for o in range(1, win):
-        out = out + xp.narrow(axis, o, size)
-    return out
-
-
-def _box_sum(x: torch.Tensor, win: int) -> torch.Tensor:
-    for axis in (1, 2, 3):
-        x = _box_sum_axis(x, win, axis)
-    return x
+from smilecode_tpu_torch.ops.box import box_sum as _box_sum
 
 
 def ncc_vxm(y_true: torch.Tensor, y_pred: torch.Tensor, win: int = 9) -> torch.Tensor:

@@ -17,7 +17,9 @@ package keeps, `smilecode_tpu/models/prnet.py:12-15`).
 Kernels: every bilinear warp reaches K2 through ``ops.warp(impl="guarded")``,
 the counterpart of kernel F's entry (K5 under autograd): 4 feature warps, 4
 compositions and the moved image, 9 per pair; in PR++ three compositions
-have a source coarser than the flow.
+have a source coarser than the flow. PR++'s five correlations go through
+`kernels.correlation3d.correlation3d` (K7 on the card, its adjoint under
+autograd; the plain version for CPU tensors and for attn_impl "plain").
 
 Module names follow the reference `state_dict` keys (``net.encoder.block1
 .main.weight``, ``net.decoder1.Conv.main.weight``, ``prblock2.flow.weight``,
@@ -29,7 +31,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from smilecode_tpu_torch.losses.core import _box_sum_axis
+from smilecode_tpu_torch.kernels.correlation3d import correlation3d
 from smilecode_tpu_torch.ops.blocks import (
     channels_last_convs_,
     conv3d_ndhwc,
@@ -107,33 +109,6 @@ class BackBone(nn.Module):
         return self._run(x), self._run(y)
 
 
-def correlation3d(mov, fix, kernel_size: int = 3, d: int = 3, sf: int = 2):
-    """Windowed correlation (`smilecode_tpu/models/prnet.py:correlation3d`):
-    per-channel 3^3 box sums of both maps (``fix`` zero-padded by 2 first),
-    then for each of the d^3 crops of the padded map at offsets ``i * sf``
-    the channel sum of its product with the moving map's, divided by
-    ``kernel_size**3``: channel 9i + 3j + k pairs the moving map at x with
-    the fixed map at x + (2i - 2, 2j - 2, 2k - 2). (B, D, H, W, C) x2 ->
-    (B, D, H, W, d^3). Box sums are the NCC loss's shifted-slice adds
-    (`losses/core.py:_box_sum_axis`), in the JAX package's order."""
-
-    def box(x):
-        for axis in (1, 2, 3):
-            x = _box_sum_axis(x, kernel_size, axis)
-        return x
-
-    pm = box(mov)
-    pf = box(torch.nn.functional.pad(fix, (0, 0, 2, 2, 2, 2, 2, 2)))
-    _, dd, hh, ww, _ = mov.shape
-    chans = []
-    for i in range(d):
-        for j in range(d):
-            for k in range(d):
-                crop = pf[:, i * sf:i * sf + dd, j * sf:j * sf + hh, k * sf:k * sf + ww]
-                chans.append(torch.sum(pm * crop, dim=-1, keepdim=True))
-    return torch.cat(chans, -1) / (kernel_size ** 3)
-
-
 class _FlowBlock(nn.Module):
     """What PRBlock and PRPlusPlusBlock share: the incoming flow (doubled
     and upsampled unless ``scale`` is False) warps x; ``flow`` is the
@@ -174,6 +149,7 @@ class PRPlusPlusBlock(_FlowBlock):
     def __init__(self, channels: int, in_flow: bool = True, scale: bool = True,
                  warp_impl: str = "guarded"):
         super().__init__(in_flow, scale, warp_impl)
+        self.kernels = warp_impl != "plain"
         c, c_in = channels, 2 * channels + 27
         self.conv1 = nn.Sequential(nn.Conv3d(c_in, c_in, 3, 1, 1), nn.Conv3d(c_in, c, 3, 1, 1))
         self.conv2 = nn.Sequential(nn.Conv3d(c, c, 3, 1, 1), nn.Conv3d(c, c, 3, 1, 1))
@@ -181,7 +157,8 @@ class PRPlusPlusBlock(_FlowBlock):
 
     def forward(self, x, y, flow=None):
         x = self._warp_x(x, flow)
-        h = torch.relu(conv3d_ndhwc(self.conv1, torch.cat([x, correlation3d(x, y), y], -1)))
+        corr = correlation3d(x, y, self.kernels)
+        h = torch.relu(conv3d_ndhwc(self.conv1, torch.cat([x, corr, y], -1)))
         res = torch.relu(conv3d_ndhwc(self.conv2, h))
         return conv3d_ndhwc(self.flow, h + res)
 

@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from smilecode_tpu_torch.losses.core import _box_sum_axis, abs_
+from smilecode_tpu_torch.losses.core import abs_
+from smilecode_tpu_torch.ops.box import box_sum_axis
 from smilecode_tpu_torch.optim import resolve_weights
 from smilecode_tpu_torch.parallel.mesh import Mesh
 from smilecode_tpu_torch.parallel.modet_sp import modet_forward_spatial
@@ -27,7 +28,7 @@ from smilecode_tpu_torch.parallel.spatial import halo_exchange
 
 
 def _box_sum_axis_prepadded(x: torch.Tensor, win: int, size: int, axis: int) -> torch.Tensor:
-    """`losses.core._box_sum_axis` of an input that already carries its
+    """`ops.box.box_sum_axis` of an input that already carries its
     win//2 padding along ``axis`` (a neighbour's halo)."""
     out = x.narrow(axis, 0, size)
     for o in range(1, win):
@@ -47,7 +48,7 @@ def ncc_sp(y_true: torch.Tensor, y_pred: torch.Tensor, mesh: Mesh, win: int = 9)
 
     def box(x):
         x = _box_sum_axis_prepadded(x, win, dl, 1)
-        return _box_sum_axis(_box_sum_axis(x, win, 2), win, 3)
+        return box_sum_axis(box_sum_axis(x, win, 2), win, 3)
 
     i_sum, j_sum = box(ii), box(ji)
     i2_sum, j2_sum, ij_sum = box(ii * ii), box(ji * ji), box(ii * ji)

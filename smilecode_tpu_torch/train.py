@@ -278,15 +278,17 @@ def _datasets(cfg: TrainConfig):
 
 
 def launch_counters() -> dict:
-    """Every counter of the kernel wrappers K1-K6 in this process
+    """Every counter of the kernel wrappers K1-K7 in this process
     (``"K1 launches"``, ``"K1 launches_halo"``, ``"K5 scatters_origin"``,
     ``"K6 launches"``, ``"K6 declined"``: float32 weight gradients on the
-    card that went to cuDNN because of their shape, ...)."""
-    from smilecode_tpu_torch.kernels import conv3d_wgrad, modet_attn, warp3d
+    card that went to cuDNN because of their shape, ``"K7 launches"``: PR++'s
+    correlations and their adjoints, ...)."""
+    from smilecode_tpu_torch.kernels import conv3d_wgrad, correlation3d, modet_attn, warp3d
 
     fns = {"K1": modet_attn.modet_attention, "K3": modet_attn.modet_attention_bwd_dq,
            "K4": modet_attn.modet_attention_bwd_dk, "K2": warp3d.warp3d_trilinear,
-           "K5": warp3d.warp3d_trilinear_bwd, "K6": conv3d_wgrad.conv3d_wgrad}
+           "K5": warp3d.warp3d_trilinear_bwd, "K6": conv3d_wgrad.conv3d_wgrad,
+           "K7": correlation3d.correlation3d}
     return {f"{key} {name}": int(value) for key, fn in fns.items()
             for name, value in sorted(vars(fn).items())
             if name.startswith(("launches", "scatters", "declined"))}

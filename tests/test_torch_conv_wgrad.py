@@ -225,7 +225,8 @@ def test_k6_launches_and_declines_per_training_step_are_chip_smokes(monkeypatch,
     """K6's launches and declined weight gradients per training step of each
     family, as chip_smoke.py requires them on the card (``ZOO``; ModeT's 31
     and none declined), and none at all on the plain path."""
-    want = (31, 0) if name == "modet" else chip_smoke.ZOO[name][2][-2:]
+    step = dict(zip(chip_smoke.STEP_KEYS, chip_smoke.ZOO[name][2])) if name != "modet" else {}
+    want = (31, 0) if name == "modet" else (step["K6"], step["K6 declined"])
     routes = _routes_per_training_step(monkeypatch, name, shape, "auto", knobs)
     assert (routes["K6"], routes["declined"]) == want, routes
     plain = _routes_per_training_step(monkeypatch, name, shape, "plain", knobs)

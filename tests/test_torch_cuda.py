@@ -914,3 +914,138 @@ def test_modet_step_with_k6_matches_the_step_on_cudnn(dev):
     for name, g in grads.items():
         err = float((g - ref[name]).abs().max())
         assert err <= STEP_GRAD_TOL * float(ref[name].abs().max()) + floor, (name, err)
+
+
+# ---- K7: PR++'s windowed correlation and its adjoint ------------------------
+
+# (volume, C): PR++'s five correlations at 160x192x160 and c = 8 (blocks 1-5:
+# 4c at 1/8 and 1/4, 2c at 1/2 and full, c at full)
+K7_LPBA_CASES = [(_lpba_level(3), 32), (_lpba_level(2), 32), (_lpba_level(1), 16),
+                 (LPBA, 16), (LPBA, 8)]
+# tiles (8 x 32 of a plane, box tiles of 128 / C rows) that do not divide H
+# or W, batch 2, channels off the float4 path, single voxels, and widths up
+# to the kernel's MAX_CHANNELS (box tiles of one row at 128)
+K7_EDGE_CASES = [((1, 5, 7, 9), 8), ((2, 6, 11, 37), 16), ((1, 9, 13, 5), 32),
+                 ((2, 4, 5, 6), 3), ((1, 3, 17, 33), 6), ((1, 1, 1, 1), 4), ((1, 7, 9, 70), 12),
+                 ((1, 6, 9, 35), 64), ((2, 4, 6, 10), 97), ((1, 5, 7, 33), 128)]
+
+
+def _check_k7(dev, shape, c, seed):
+    """chip_smoke.py's phase-34 check (`k7_case`) on random maps of ``shape``
+    and ``c`` channels."""
+    from chip_smoke import k7_case
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mov, fix = (torch.randn((*shape, c), device=dev, generator=gen) for _ in range(2))
+    g = torch.randn((*shape, 27), device=dev, generator=gen)
+    errs, worst, _ = k7_case(mov, fix, g)
+    assert worst <= 1.0, errs
+
+
+@pytest.mark.parametrize("shape,c", K7_LPBA_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{c}" for s, c in K7_LPBA_CASES])
+def test_k7_matches_float64_at_the_cells_shapes(dev, shape, c):
+    _check_k7(dev, (1, *shape), c, seed=c)
+
+
+@pytest.mark.parametrize("shape,c", K7_EDGE_CASES)
+def test_k7_matches_float64_on_ragged_tiles(dev, shape, c):
+    _check_k7(dev, shape, c, seed=70 + c)
+
+
+def test_k7_function_matches_the_plain_autograd(dev):
+    """Through the wrapper and autograd: the correlation, then both inputs'
+    gradients of a weighted sum, K7 against the plain version in float32."""
+    from smilecode_tpu_torch.kernels.correlation3d import correlation3d, correlation3d_plain
+
+    mov, fix = (rand((1, 10, 12, 14, 16), s).to(dev).requires_grad_() for s in (71, 72))
+    g = rand((1, 10, 12, 14, 27), 73).to(dev)
+    got = correlation3d(mov, fix)
+    grads = torch.autograd.grad(got, (mov, fix), g)
+    want = correlation3d_plain(mov, fix)
+    ref = torch.autograd.grad(want, (mov, fix), g)
+    assert_scaled_close(got.detach(), want.detach().cpu(), "out")
+    for a, b, what in zip(grads, ref, ("d_mov", "d_fix")):
+        assert_scaled_close(a, b.cpu(), what)
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float64, 16), (torch.bfloat16, 16),
+                                     (torch.float32, 129)])
+def test_k7_refuses_what_it_cannot_take_on_the_card(dev, dtype, c):
+    """On the card with the kernel switch on, a map K7 cannot take raises:
+    no call there falls back to the plain version."""
+    from smilecode_tpu_torch.kernels.correlation3d import correlation3d
+
+    mov = torch.zeros((1, 4, 4, 4, c), dtype=dtype, device=dev)
+    with pytest.raises(ValueError, match="K7 takes float32"):
+        correlation3d(mov, mov)
+
+
+def _prpp(dev, shape, seed=5, attn_impl="auto"):
+    from smilecode_tpu_torch.models.prnet import PRNetPlusPlus
+    from smilecode_tpu_torch.models.registry import loss_plan
+    from smilecode_tpu_torch.train import make_loss_and_grads
+
+    model = PRNetPlusPlus(attn_impl=attn_impl,
+                          generator=torch.Generator().manual_seed(seed)).to(dev)
+    with torch.no_grad():  # flow heads that move voxels
+        for name, p in model.named_parameters():
+            if name.endswith("flow.weight"):
+                p.normal_(0.0, 0.2, generator=torch.Generator(device=dev).manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    x, y = (torch.rand((1, *shape, 1), generator=gen).to(dev) for _ in range(2))
+    return model, make_loss_and_grads(model, loss_plan("prnetplusplus"), (1.0, 1.0)), x, y
+
+
+def test_k7_launches_10_times_a_prpp_step_and_5_a_registered_pair(dev):
+    from smilecode_tpu_torch import infer, train
+
+    model, loss_and_grads, x, y = _prpp(dev, (32, 32, 32))
+    seg = torch.randint(0, 4, (1, 32, 32, 32, 1)).to(torch.int16).to(dev)
+    before = train.launch_counters()["K7 launches"]
+    loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    mid = train.launch_counters()["K7 launches"]
+    model.eval()
+    infer.make_infer_step(model)(x, y, seg, seg)
+    torch.cuda.synchronize()
+    assert (mid - before, train.launch_counters()["K7 launches"] - mid) == (10, 5)
+
+
+def test_plain_prpp_step_launches_no_kernel(dev):
+    """attn_impl "plain" runs no hand-written kernel: K7 included."""
+    from smilecode_tpu_torch import train
+
+    _, loss_and_grads, x, y = _prpp(dev, (32, 32, 32), attn_impl="plain")
+    before = train.launch_counters()
+    loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    assert train.launch_counters() == before
+
+
+def test_prpp_step_with_k7_matches_the_step_on_the_plain_correlation(dev):
+    """A full-size PR++ loss-and-gradients pass with K7 against the same
+    pass with the plain correlation (the blocks' kernel switch off; every
+    other kernel on in both): the loss within chip_smoke.py's STEP_LOSS_TOL,
+    every leaf's gradient within its phase-9 gates (STEP_GRAD_TOL of its
+    largest |gradient| + STEP_GRAD_FLOOR of the model's)."""
+    from chip_smoke import STEP_GRAD_FLOOR, STEP_GRAD_TOL, STEP_LOSS_TOL
+    from smilecode_tpu_torch.kernels import correlation3d as k7
+
+    torch.backends.cudnn.allow_tf32 = False
+    model, loss_and_grads, x, y = _prpp(dev, LPBA)
+    launches = k7.correlation3d.launches
+    loss, _ = loss_and_grads(x, y)
+    assert k7.correlation3d.launches == launches + 10
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    for i in range(1, 6):
+        getattr(model, f"prblock{i}").kernels = False
+    ref_loss, _ = loss_and_grads(x, y)
+    assert k7.correlation3d.launches == launches + 10
+    assert abs(float(loss) - float(ref_loss)) <= STEP_LOSS_TOL * abs(float(ref_loss))
+    ref = {n: p.grad for n, p in model.named_parameters()}
+    floor = STEP_GRAD_FLOOR * max(float(g.abs().max()) for g in ref.values())
+    for name, g in grads.items():
+        err = float((g - ref[name]).abs().max())
+        assert err <= STEP_GRAD_TOL * float(ref[name].abs().max()) + floor, (name, err)
