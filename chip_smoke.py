@@ -231,12 +231,15 @@ staged through pinned host buffers, the sums on the card):
 The Hopper kernels with no TPU counterpart (run after phase 7):
 
 33. K6, the float32 3x3x3 stride-1 conv weight and bias gradient, at
-   ModeT's 20 bare-conv shapes at 160x192x160 (`K6_SHAPES`): within
-   K6_TOL of the largest |value| of its plain version in float64 on the
-   card, and no further from it than cuDNN's float32 gradient or K6_FLOOR
-   of that value; two calls give the same bits; per shape the call ms,
-   device ms, the plain version's ms (float32), cuDNN's (the library call
-   it replaces) and the bound, each summed over one step's 31 calls.
+   ModeT's 20 bare-conv shapes at 160x192x160 (`K6_SHAPES`), then at PR++'s
+   20 stack convs (`K6_PRPP_SHAPES`) and RDN's Estimator convs of levels
+   0-2 (`K6_RDN_SHAPES`): within K6_TOL of the largest |value| of its plain
+   version in float64 on the card, and no further from it than cuDNN's
+   float32 gradient or K6_FLOOR of that value; two calls give the same
+   bits; per shape the call ms, device ms, the plain version's ms
+   (float32), cuDNN's (the library call it replaces) and the bound, each
+   summed over one step's calls (ModeT 31, PR++ 20, RDN 192), with K6's
+   share of the summed bound.
 34. K7, PR++'s windowed correlation and its adjoint, at PR++'s five
    correlations at 160x192x160 (`K7_SHAPES`): out, d_mov and d_fix within
    K7_TOL of the largest |value| of the plain version in float64 on the
@@ -354,19 +357,20 @@ BASELINE_HEADS = {"im2grid": ("proj", 0.1), "rdn": ("conv.4", 0.02),
 # gradients declined to cuDNN by `kernels.conv3d_wgrad.wgrad_route` for their
 # geometry and the K7 launches (PR++'s five correlations, forward and
 # adjoint; none in a plain run) (`STEP_KEYS`; every warp whose source needs a gradient: all but
-# the moved image's, and RCN's re-warps of the moving image; every bare
-# 3x3x3 stride-1 Conv3d, applied as often as the forward applies it). Derived from the JAX modules: PCNet warps in 3 DFI vecints of 7
+# the moved image's, and RCN's re-warps of the moving image; every 3x3x3
+# stride-1 Conv3d, bare or a Sequential's child, applied as often as the
+# forward applies it). Derived from the JAX modules: PCNet warps in 3 DFI vecints of 7
 # steps, vecint(pred0), 3 feature warps, T(wf0, pred0) and the moved image
 # (33); PRNet and PR++ in 4 feature warps, 4 compositions and the moved
 # image (9); the others as `BASELINES`. CPU tests count the same calls
 # (`tests/test_torch_baselines.py::test_kernel_wrapper_calls_per_pair`,
 # `tests/test_torch_baselines_train.py::test_kernel_wrapper_calls_per_training_step`).
 ZOO = {"im2grid": (SIZE, (5, 9, 0), (5, 5, 5, 9, 9, 8, 22, 0, 0)),
-       "pcnet": (SIZE, (0, 33, 0), (0, 0, 0, 33, 33, 32, 29, 11, 0)),
+       "pcnet": (SIZE, (0, 33, 0), (0, 0, 0, 33, 33, 32, 26, 16, 0)),
        "prnet": (SIZE, (0, 9, 0), (0, 0, 0, 9, 9, 8, 17, 8, 0)),
-       "prnetplusplus": (SIZE, (0, 9, 5), (0, 0, 0, 9, 9, 8, 17, 8, 10)),
-       "rdn": (SIZE, (0, 136, 0), (0, 0, 0, 136, 136, 135, 0, 8, 0)),
-       "rdn_diff_share": (SIZE, (0, 644, 0), (0, 0, 0, 644, 644, 643, 0, 8, 0)),
+       "prnetplusplus": (SIZE, (0, 9, 5), (0, 0, 0, 9, 9, 8, 35, 10, 10)),
+       "rdn": (SIZE, (0, 136, 0), (0, 0, 0, 136, 136, 135, 144, 120, 0)),
+       "rdn_diff_share": (SIZE, (0, 644, 0), (0, 0, 0, 644, 644, 643, 144, 120, 0)),
        "rcn": (RCN_SIZE, (0, 19, 0), (0, 0, 0, 19, 19, 9, 30, 120, 0))}
 STEP_KEYS = ("K1", "K3", "K4", "K2", "K5", "K5 d_src", "K6", "K6 declined", "K7")
 # K6 (the float32 3x3x3 conv weight gradient) at ModeT's bare convs:
@@ -377,6 +381,21 @@ K6_SHAPES = ((1, 1, 4, 2), (1, 4, 8, 2), (1, 8, 8, 2), (2, 8, 16, 2), (2, 16, 16
              (3, 16, 32, 2), (3, 32, 32, 2), (4, 32, 64, 2), (4, 64, 64, 2), (5, 64, 128, 2),
              (5, 128, 128, 2), (4, 24, 48, 1), (4, 48, 48, 1), (4, 48, 8, 1), (3, 12, 24, 1),
              (3, 24, 24, 1), (3, 24, 4, 1), (2, 6, 12, 1), (2, 12, 12, 1), (2, 12, 2, 1))
+# and at the convs of the Sequential stacks that `ops.blocks.conv3d_ndhwc`
+# routes child by child: PR++'s conv1/conv2 at c = 8 (blocks 1-5 on 4c, 4c,
+# 2c, 2c, c at 1/8, 1/4, 1/2, full, full: (2f + 27) -> (2f + 27) -> f -> f
+# -> f; 20 calls a step), and RDN's Estimator convs at levels 0-2 (16, 32
+# and 64 features at 1/2, 1/4 and 1/8: 2f -> 2f three times, 2f -> 3; 16
+# Estimators a level at stages 4, levels 4/4/4/4; 192 calls a step; level
+# 3's 256-wide convs are declined). K6 runs every shape here; the rule
+# sends PR++'s two 91 -> 91 and RDN's 128 -> 128 to cuDNN
+# (`kernels.conv3d_wgrad.WIDE_CHANNELS`), so a step launches K6 18 and 144
+# times for them.
+K6_PRPP_SHAPES = tuple(
+    shape for level, f in ((4, 32), (3, 32), (2, 16), (1, 16), (1, 8))
+    for shape in ((level, 2 * f + 27, 2 * f + 27, 1), (level, 2 * f + 27, f, 1), (level, f, f, 2)))
+K6_RDN_SHAPES = tuple(shape for level, f in ((2, 16), (3, 32), (4, 64))
+                      for shape in ((level, 2 * f, 2 * f, 48), (level, 2 * f, 3, 16)))
 K6_TOL, K6_FLOOR = 1e-5, 1e-6  # times the largest |dW| of the float64 reference (card tests)
 ZOO_SERVED = ("pcnet", "prnet", "prnetplusplus")  # served by phases 21 and 22
 ZOO_STEPS, ZOO_VAL_PAIRS = 2, 2  # train.main on 2 subjects, validated on the same 2
@@ -1214,23 +1233,29 @@ def k6_work(shape, cin: int, cout: int):
             vox * cout * (2 * 27 * cin + 1))
 
 
-def check_k6(device, size=SIZE):
-    """Phase 33: K6 at ModeT's 20 bare-conv shapes (`K6_SHAPES`) at
-    ``size``: dW and db within K6_TOL of the largest |value| of its plain
-    version in float64 on the card, and no further from it than cuDNN's
-    float32 gradient or K6_FLOOR of that value (the card tests' gates); two
-    calls give the same bits; one launch a call. Per shape: call ms (CUDA
-    events), device ms, the plain version's ms in float32, cuDNN's weight
-    and bias gradient's (the library call it replaces) and the bound.
+def check_k6(device, size=SIZE, shapes=K6_SHAPES, what="ModeT step"):
+    """Phase 33: K6 at ``shapes`` ((level, Cin, Cout, calls a step); ModeT's
+    20 bare-conv shapes, `K6_SHAPES`, by default) at ``size``: dW and db
+    within K6_TOL of the largest |value| of its plain version in float64 on
+    the card, and no further from it than cuDNN's float32 gradient or
+    K6_FLOOR of that value (the card tests' gates); two calls give the same
+    bits; one launch a call. Per shape: call ms (CUDA events), device ms,
+    the plain version's ms in float32, cuDNN's weight and bias gradient's
+    (the library call it replaces) and the bound.
     Returns (max abs err, per-step sums of ms, plain ms, library ms and
     device ms, per-step work, by_shape)."""
     import torch
 
-    from smilecode_tpu_torch.kernels.conv3d_wgrad import conv3d_wgrad, conv3d_wgrad_plain
+    from smilecode_tpu_torch.kernels.conv3d_wgrad import (
+        conv3d_wgrad,
+        conv3d_wgrad_plain,
+        wgrad_route,
+    )
 
     gen = torch.Generator(device=device).manual_seed(33)
     worst, max_err, sums, work, by_shape = 0.0, 0.0, np.zeros(4), np.zeros(2), {}
-    for level, cin, cout, calls in K6_SHAPES:
+    routed = 0.0  # device ms a step with each shape on the path the rule picks
+    for level, cin, cout, calls in shapes:
         shape = level_shape(level, size)
         x = torch.randn((1, *shape, cin), device=device, generator=gen)
         dy = torch.randn((1, *shape, cout), device=device, generator=gen)
@@ -1259,18 +1284,26 @@ def check_k6(device, size=SIZE):
                "library_ms": event_ms(lambda: cudnn_wgrad(x, dy), 3, 1)}
         w = k6_work(shape, cin, cout)
         rec["bound_ms"] = bound(*w)[0]
+        rec["route"] = wgrad_route(torch.nn.Conv3d(cin, cout, 3, 1, 1), torch.float32, "cuda",
+                                   True, int(np.prod(shape)))
+        if rec["route"] != "K6":
+            rec["library_device_ms"] = device_ms(lambda: cudnn_wgrad(x, dy), 3)
+        routed += calls * (rec["device_ms"] if rec["route"] == "K6" else rec["library_device_ms"])
         by_shape[key] = rec
         sums += calls * np.array([rec["ms"], rec["plain_ms"], rec["library_ms"], rec["device_ms"]])
         work += calls * np.array(w)
         print(f"K6 {key}: dW err {errs[0][0]:.3e} (cuDNN {errs[0][1]:.3e}, max |dW| "
               f"{errs[0][2]:.3e}), db err {errs[1][0]:.3e} (cuDNN {errs[1][1]:.3e}); ms "
               f"{rec['ms']:.4f}, device {rec['device_ms']:.4f}, plain {rec['plain_ms']:.4f}, cuDNN "
-              f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}", flush=True)
+              f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}; the rule: {rec['route']}",
+              flush=True)
         del x, dy, dw, db, lib
         torch.cuda.empty_cache()
-    print(f"K6 over one ModeT step's 31 calls: ms {sums[0]:.3f}, device {sums[3]:.3f}, plain "
-          f"{sums[1]:.3f}, cuDNN {sums[2]:.3f}, bound {bound(*work)[0]:.3f}; worst err/gate "
-          f"{worst:.4f}", flush=True)
+    n_calls = sum(shape[3] for shape in shapes)
+    print(f"K6 over one {what}'s {n_calls} calls: ms {sums[0]:.3f}, device {sums[3]:.3f}, plain "
+          f"{sums[1]:.3f}, cuDNN {sums[2]:.3f}, bound {bound(*work)[0]:.3f} "
+          f"({bound(*work)[0] / sums[3]:.1%} of it); worst err/gate {worst:.4f}; device ms with "
+          f"each shape where the rule sends it {routed:.3f}", flush=True)
     require(worst <= 1.0, f"K6 against its float64 plain version: err/gate {worst:.3f} > 1")
     return (max_err, *sums, tuple(work), by_shape)
 
@@ -3628,6 +3661,9 @@ def main() -> int:
         k5_err, k5_ms, k5_plain_ms, k5_lib_ms, k5_work, k5_shapes = check_warp_bwd(device)
         phase(33, "K6 conv weight gradient vs its float64 plain version and cuDNN")
         k6_err, k6_ms, k6_plain_ms, k6_lib_ms, k6_dev, k6_work, k6_shapes = check_k6(device)
+        for shapes, what in ((K6_PRPP_SHAPES, "PR++ step's stacks"),
+                             (K6_RDN_SHAPES, "RDN step's Estimators")):
+            check_k6(device, shapes=shapes, what=what)
         phase(34, "K7 windowed correlation and its adjoint vs the float64 plain version")
         k7_err, k7_ms, k7_lib_ms, k7_dev, k7_work, k7_shapes = check_k7(device)
 

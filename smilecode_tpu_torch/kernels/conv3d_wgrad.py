@@ -16,14 +16,15 @@ their shape, so the two give the share of such gradients that K6 takes
 (`chip_smoke.py` holds both to each model's count a training step).
 
 `wgrad_route` is the rule that `ops/blocks.py:conv3d_ndhwc` applies to
-every convolution it runs: what the call can observe (the module's type and
-geometry, the activation's dtype and device, whether a weight gradient is
-wanted) and the model's kernel switch decide; a model on the plain path
-(attn_impl "plain") runs no hand-written kernel, K6 included
-(`ops.blocks.channels_last_convs_` marks its convs). `Conv3dWgradFunction`
-is the path K6 takes: the forward is the module's own ``F.conv3d`` call,
-the backward takes dx from cuDNN (``aten.convolution_backward`` with only
-the input's output mask) and dW, db from K6.
+every convolution it runs, each Conv3d child of a Sequential included: what
+the call can observe (the module's type and geometry, the activation's
+dtype, device and voxel count, whether a weight gradient is wanted) and the
+model's kernel switch decide; a model on the plain path (attn_impl "plain")
+runs no hand-written kernel, K6 included (`ops.blocks.channels_last_convs_`
+marks its convs). `Conv3dWgradFunction` is the path K6 takes: the forward
+is the module's own ``F.conv3d`` call, the backward takes dx from cuDNN
+(``aten.convolution_backward`` with only the input's output mask) and dW,
+db from K6.
 """
 
 from __future__ import annotations
@@ -38,6 +39,12 @@ from smilecode_tpu_torch.kernels import _build
 from smilecode_tpu_torch.utils.profiling import span
 
 MAX_CHANNELS = 128  # the largest input and output channel counts the rule sends to K6
+# Where both channel counts exceed WIDE_CHANNELS and the convolution runs over
+# WIDE_VOXELS voxels or more, cuDNN's weight gradient is as fast as K6 or
+# faster (chip_smoke.py phase 33: PR++'s 91 -> 91 and RDN's 128 -> 128 at
+# 20x24x20), so the rule declines it; smaller volumes stay on K6 (ModeT's
+# 128 -> 128 at 10x12x10)
+WIDE_CHANNELS, WIDE_VOXELS = 64, 4096
 
 _PLAN_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p]
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -45,13 +52,17 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 _plans: dict = {}  # (device, B, D, H, W, Cin, Cout) -> (BD, BH, BW, P, workspace floats)
 
 
-def wgrad_route(conv: nn.Module, dtype: torch.dtype, device_type: str, grad_mode: bool):
+def wgrad_route(conv: nn.Module, dtype: torch.dtype, device_type: str, grad_mode: bool,
+                voxels: int = 0):
     """Where the weight gradient of ``conv`` applied to an activation of
-    ``dtype`` on ``device_type`` under ``grad_mode`` goes: "K6"; "declined",
-    a bare float32 ``nn.Conv3d`` of a kernel model on the card whose weight
-    gradient is wanted, but of a geometry or channel count K6 does not take;
+    ``dtype`` with ``voxels`` voxels (B D H W) on ``device_type`` under
+    ``grad_mode`` goes: "K6"; "declined", a float32 ``nn.Conv3d`` of a
+    kernel model on the card whose weight gradient is wanted, but of a
+    geometry or channel count K6 does not take, or wider than
+    WIDE_CHANNELS on both sides over WIDE_VOXELS voxels or more;
     None, today's path (no weight gradient wanted, the CPU, another dtype,
-    not a bare ``nn.Conv3d``, or a conv of a model on the plain path: its
+    not an ``nn.Conv3d`` (`ops.blocks.conv3d_ndhwc` asks for each child of
+    a Sequential), or a conv of a model on the plain path: its
     ``wgrad_kernel`` False)."""
     if (not grad_mode or type(conv) is not nn.Conv3d or device_type != "cuda"
             or not conv.weight.requires_grad or dtype != torch.float32
@@ -59,7 +70,9 @@ def wgrad_route(conv: nn.Module, dtype: torch.dtype, device_type: str, grad_mode
         return None
     if (conv.kernel_size == (3, 3, 3) and conv.stride == (1, 1, 1) and conv.padding == (1, 1, 1)
             and conv.dilation == (1, 1, 1) and conv.groups == 1 and conv.padding_mode == "zeros"
-            and conv.in_channels <= MAX_CHANNELS and conv.out_channels <= MAX_CHANNELS):
+            and conv.in_channels <= MAX_CHANNELS and conv.out_channels <= MAX_CHANNELS
+            and not (min(conv.in_channels, conv.out_channels) > WIDE_CHANNELS
+                     and voxels >= WIDE_VOXELS)):
         return "K6"
     return "declined"
 

@@ -88,7 +88,7 @@ def channels_last_convs_(model: nn.Module, kernels: bool):
     """Store every conv weight as channels_last_3d: the NDHWC activations
     permuted by `conv3d_ndhwc` are channels_last_3d, so cuDNN takes both
     without a copy. ``kernels``, the model's kernel switch (False for
-    attn_impl "plain"), becomes each bare Conv3d's ``wgrad_kernel``: False
+    attn_impl "plain"), becomes each Conv3d's ``wgrad_kernel``: False
     keeps its weight gradient on cuDNN (`kernels.conv3d_wgrad.wgrad_route`)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
@@ -98,24 +98,44 @@ def channels_last_convs_(model: nn.Module, kernels: bool):
 
 
 def conv3d_ndhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``conv`` (a Conv3d, ConvTranspose3d or a Sequential of them)
-    to an NDHWC tensor; returns NDHWC. A Conv3d runs in ``x``'s dtype.
+    """Apply ``conv`` (a Conv3d, ConvTranspose3d or a Sequential of them and
+    of activations) to an NDHWC tensor; returns NDHWC. A bare Conv3d runs in
+    ``x``'s dtype.
 
-    `kernels.conv3d_wgrad.wgrad_route` picks the weight gradient's path: a
-    3x3x3, stride-1, padding-1 float32 Conv3d of a kernel model on the card
-    goes through `Conv3dWgradFunction` (the same forward; dW and db from the
+    `kernels.conv3d_wgrad.wgrad_route` picks the weight gradient's path of a
+    bare Conv3d and of each Conv3d child of a Sequential: a 3x3x3,
+    stride-1, padding-1 float32 Conv3d of a kernel model on the card goes
+    through `Conv3dWgradFunction` (the same forward; dW and db from the
     Hopper kernel K6); a "declined" one is counted in
-    ``conv3d_wgrad.declined`` and, as every other, runs as below."""
+    ``conv3d_wgrad.declined`` and, as every other, runs as below. A
+    Sequential's children run in order on the channels_last_3d NCDHW view,
+    each other child as the Sequential applies it."""
     xc = x.permute(0, 4, 1, 2, 3)
-    route = wgrad_route(conv, x.dtype, x.device.type, torch.is_grad_enabled())
-    if route == "K6":
-        return Conv3dWgradFunction.apply(xc, conv.weight, conv.bias).permute(0, 2, 3, 4, 1)
-    if route == "declined":
-        conv3d_wgrad.declined += 1
+    if isinstance(conv, nn.Sequential):
+        for child in conv:
+            y = _k6_conv(child, xc)
+            xc = child(xc) if y is None else y
+        return xc.permute(0, 2, 3, 4, 1)
+    y = _k6_conv(conv, xc)
+    if y is not None:
+        return y.permute(0, 2, 3, 4, 1)
     if not isinstance(conv, nn.Conv3d) or x.dtype == conv.weight.dtype:
         return conv(xc).permute(0, 2, 3, 4, 1)
     y = conv._conv_forward(xc, conv.weight.to(x.dtype), None).permute(0, 2, 3, 4, 1)
     return y if conv.bias is None else y + conv.bias.to(x.dtype)
+
+
+def _k6_conv(conv: nn.Module, xc: torch.Tensor) -> torch.Tensor | None:
+    """``conv`` on the NCDHW view ``xc`` through `Conv3dWgradFunction` where
+    `wgrad_route` sends its weight gradient to K6; else None (a "declined"
+    conv counted)."""
+    voxels = xc.numel() // xc.shape[1] if xc.shape[1] else 0
+    route = wgrad_route(conv, xc.dtype, xc.device.type, torch.is_grad_enabled(), voxels)
+    if route == "K6":
+        return Conv3dWgradFunction.apply(xc, conv.weight, conv.bias)
+    if route == "declined":
+        conv3d_wgrad.declined += 1
+    return None
 
 
 def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,8 @@ so every CPU step runs exactly as before, and a model on the plain path
 """
 
 import collections
+import copy
+import math
 
 import pytest
 import torch
@@ -51,6 +53,37 @@ def test_plain_matches_autograd_in_float64(shape, cin, cout, batch):
     ref_w, ref_b = _autograd_grads(x, dy)
     torch.testing.assert_close(dw, ref_w, rtol=1e-12, atol=1e-12)
     torch.testing.assert_close(db, ref_b, rtol=1e-12, atol=1e-12)
+
+
+# (Cin, Cout): the odd widths of PR++'s conv stacks (2c + 27 at c = 8, 16,
+# 32), 3-wide flow heads and the widest odd count K6 takes
+RAGGED_CHANNELS = [(43, 43), (43, 8), (59, 59), (59, 16), (91, 32), (3, 127), (127, 3),
+                   (91, 91), (127, 127)]
+
+
+@pytest.mark.parametrize("cin,cout", RAGGED_CHANNELS)
+def test_plain_and_function_match_autograd_at_ragged_channel_counts(cin, cout):
+    """K6's plain version, and `Conv3dWgradFunction` (the module's forward
+    bit for bit, dx, dW and db) at the channel counts whose K6 tiles are
+    ragged, against autograd in float64."""
+    x, dy = _pair(1, (3, 4, 5), cin, cout, seed=cin * 100 + cout)
+    dw, db = k6.conv3d_wgrad_plain(x, dy)
+    ref_w, ref_b = _autograd_grads(x, dy)
+    torch.testing.assert_close(dw, ref_w, rtol=1e-12, atol=1e-10)
+    torch.testing.assert_close(db, ref_b, rtol=1e-12, atol=1e-12)
+    torch.manual_seed(cin + cout)
+    conv = nn.Conv3d(cin, cout, 3, 1, 1).double().to(memory_format=torch.channels_last_3d)
+    xc = x.permute(0, 4, 1, 2, 3).requires_grad_()
+    y = conv(xc)
+    y.backward(dy.permute(0, 4, 1, 2, 3))
+    ref = [p.grad.clone() for p in (xc, conv.weight, conv.bias)]
+    conv.zero_grad()
+    xc2 = x.permute(0, 4, 1, 2, 3).requires_grad_()
+    y2 = k6.Conv3dWgradFunction.apply(xc2, conv.weight, conv.bias)
+    assert torch.equal(y2, y)
+    y2.backward(dy.permute(0, 4, 1, 2, 3))
+    for got, want in zip((xc2.grad, conv.weight.grad, conv.bias.grad), ref):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-10)
 
 
 def test_plain_without_bias_gives_none():
@@ -186,6 +219,96 @@ def test_rule_leaves_other_convolutions_to_cudnn(case, want):
     assert k6.wgrad_route(conv, dtype, device, grad) == want
 
 
+def _stack(kernels=True):
+    """A Sequential as the models hold them: a k3 s1 conv K6 takes, a
+    LeakyReLU, a stride-2 conv, a 256-wide conv and a k3 s1 conv to 3."""
+    seq = nn.Sequential(nn.Conv3d(4, 8, 3, 1, 1), nn.LeakyReLU(0.1), nn.Conv3d(8, 256, 3, 2, 1),
+                        nn.Conv3d(256, 8, 3, 1, 1), nn.Conv3d(8, 3, 3, 1, 1))
+    blocks.channels_last_convs_(seq, kernels=kernels)
+    return seq
+
+
+def _routes_through(monkeypatch, seq, x, device_type="cuda", grad=True):
+    """The rule's answer for each child that `conv3d_ndhwc` asks about, as it
+    would be on ``device_type`` (the call itself runs on the CPU)."""
+    rule, asked = k6.wgrad_route, []
+
+    def as_on(conv, dtype, _device_type, grad_mode, voxels=0):
+        asked.append((type(conv).__name__, rule(conv, dtype, device_type, grad_mode, voxels)))
+        return None
+
+    monkeypatch.setattr(blocks, "wgrad_route", as_on)
+    with torch.set_grad_enabled(grad):
+        blocks.conv3d_ndhwc(seq, x)
+    return asked
+
+
+def test_rule_routes_each_child_of_a_sequential(monkeypatch):
+    """`conv3d_ndhwc` asks the rule about every child of a Sequential, in
+    order: K6 for the k3 s1 convs, declined for the stride-2 and the
+    256-wide ones, None for the LeakyReLU between them."""
+    x = torch.rand((1, 4, 6, 8, 4))
+    assert _routes_through(monkeypatch, _stack(), x) == [
+        ("Conv3d", "K6"), ("LeakyReLU", None), ("Conv3d", "declined"), ("Conv3d", "declined"),
+        ("Conv3d", "K6")]
+
+
+@pytest.mark.parametrize("case", ["no gradient wanted", "on the CPU", "a plain model's"])
+def test_rule_leaves_every_child_of_a_sequential_to_cudnn(monkeypatch, case):
+    x = torch.rand((1, 4, 6, 8, 4))
+    asked = _routes_through(monkeypatch, _stack(kernels=case != "a plain model's"), x,
+                            device_type="cpu" if case == "on the CPU" else "cuda",
+                            grad=case != "no gradient wanted")
+    assert [name for name, _ in asked] == ["Conv3d", "LeakyReLU", "Conv3d", "Conv3d", "Conv3d"]
+    assert {route for _, route in asked} == {None}
+
+
+def test_sequential_through_k6s_function_matches_the_sequential(monkeypatch):
+    """`conv3d_ndhwc` over a Sequential with the rule answering as on the
+    card for its float32 twin, so that its k3 s1 children run through
+    `Conv3dWgradFunction` (dW and db from the plain version on the CPU): the
+    Sequential's own output, bit for bit, and every gradient as autograd
+    through the Sequential gives it, in float64; the declined convs
+    counted."""
+    twin = _stack()
+    seq = copy.deepcopy(twin).double()
+    answers = {id(c): k6.wgrad_route(t, torch.float32, "cuda", True) for t, c in zip(twin, seq)}
+    monkeypatch.setattr(blocks, "wgrad_route",
+                        lambda conv, _dtype, _device, grad, _voxels: answers[id(conv)] if grad
+                        else None)
+    x = torch.rand((1, 4, 6, 8, 4), dtype=torch.float64, generator=torch.Generator().manual_seed(2))
+    xc = x.permute(0, 4, 1, 2, 3).requires_grad_()
+    want = seq(xc)
+    g = torch.rand(want.shape, dtype=torch.float64, generator=torch.Generator().manual_seed(3))
+    want.backward(g)
+    ref = [xc.grad] + [p.grad.clone() for p in seq.parameters()]
+    seq.zero_grad()
+    applied = []
+    monkeypatch.setattr(k6.Conv3dWgradFunction, "apply",
+                        lambda *a, fn=k6.Conv3dWgradFunction.apply: applied.append(1) or fn(*a))
+    x2 = x.clone().requires_grad_()
+    declined = k6.conv3d_wgrad.declined
+    y = blocks.conv3d_ndhwc(seq, x2)
+    assert len(applied) == 2 and k6.conv3d_wgrad.declined == declined + 2
+    assert torch.equal(y, want.permute(0, 2, 3, 4, 1))
+    y.backward(g.permute(0, 2, 3, 4, 1))
+    for got, exp in zip([x2.grad.permute(0, 4, 1, 2, 3)] + [p.grad for p in seq.parameters()], ref):
+        torch.testing.assert_close(got, exp, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("cin,cout,voxels,want", [
+    (91, 91, 20 * 24 * 20, "declined"), (128, 128, 20 * 24 * 20, "declined"),
+    (65, 65, 4096, "declined"), (91, 91, 40 * 48 * 40, "declined"),
+    (128, 128, 10 * 12 * 10, "K6"), (65, 65, 4095, "K6"), (64, 128, 20 * 24 * 20, "K6"),
+    (128, 3, 20 * 24 * 20, "K6"), (91, 32, 40 * 48 * 40, "K6"), (59, 59, 160 * 192 * 160, "K6"),
+])
+def test_rule_declines_convs_wide_on_both_sides_over_large_volumes(cin, cout, voxels, want):
+    """Both channel counts above WIDE_CHANNELS over WIDE_VOXELS voxels or
+    more go to cuDNN; a narrower side or a smaller volume keeps K6."""
+    conv = nn.Conv3d(cin, cout, 3, 1, 1)
+    assert k6.wgrad_route(conv, torch.float32, "cuda", True, voxels) == want
+
+
 def test_rule_never_routes_to_k6_on_the_cpu():
     assert all(k6.wgrad_route(m, torch.float32, "cpu", True) is None
                for m in _modet().modules() if isinstance(m, nn.Conv3d))
@@ -201,13 +324,16 @@ STEP_FAMILIES = [("modet", (16, 16, 16), {}), ("im2grid", (32, 32, 32), {}),
 
 def _routes_per_training_step(monkeypatch, name, shape, attn_impl, knobs):
     """The rule's answer for each convolution of one loss-and-gradients pass
-    of ``name``, as it would be on the card (the pass itself runs on the
-    CPU, where the rule sends nothing to K6)."""
+    of ``name``, as it would be on the card at the volume chip_smoke.py
+    trains it at (every level's voxels scaled from ``shape`` to it; the pass
+    itself runs on the CPU, where the rule sends nothing to K6)."""
     rule, routes = k6.wgrad_route, collections.Counter()
+    card = chip_smoke.ZOO[name][0] if name in chip_smoke.ZOO else chip_smoke.SIZE
+    scale = math.prod(card) // math.prod(shape)
 
-    def on_the_card(conv, dtype, device_type, grad_mode):
-        routes[rule(conv, dtype, "cuda", grad_mode)] += 1
-        return rule(conv, dtype, device_type, grad_mode)
+    def on_the_card(conv, dtype, device_type, grad_mode, voxels=0):
+        routes[rule(conv, dtype, "cuda", grad_mode, voxels * scale)] += 1
+        return rule(conv, dtype, device_type, grad_mode, voxels)
 
     monkeypatch.setattr(blocks, "wgrad_route", on_the_card)
     model = build_model(name, InferConfig(model=name, attn_impl=attn_impl, **knobs),

@@ -20,8 +20,9 @@ K6 (the f32 3x3x3 conv weight gradient): within 1e-5 of the largest |dW|
 of a float64 reference (float32 sums of up to 4.9 M products, taken in
 short sums), and no further from it than cuDNN's float32 weight gradient
 (or 1e-6 of that largest value, where both are rounding); bitwise equal
-over repeated calls (a fixed order, no atomics). A ModeT step with K6
-against the same step on cuDNN: chip_smoke.py's phase-9 gates.
+over repeated calls (a fixed order, no atomics); at ragged channel tiles
+(odd counts) too. A ModeT, a PR++ and an RDN step with K6 against the same
+step on cuDNN: chip_smoke.py's phase-9 gates.
 """
 
 import os
@@ -774,11 +775,24 @@ K6_LPBA_CASES = [(_lpba_level(k), ci, co) for k, ci, co in (
     (3, 32, 64), (3, 64, 64), (4, 64, 128), (4, 128, 128),
     (3, 24, 48), (3, 48, 48), (3, 48, 8), (2, 12, 24), (2, 24, 24), (2, 24, 4),
     (1, 6, 12), (1, 12, 12), (1, 12, 2),
-    (1, 32, 32), (1, 32, 3), (2, 64, 64), (2, 64, 3), (3, 128, 128), (3, 128, 3))]
+    (1, 32, 32), (1, 32, 3), (2, 64, 64), (2, 64, 3), (3, 128, 128), (3, 128, 3),
+    # PR++'s conv stacks at c = 8 (2f + 27 -> 2f + 27 -> f -> f -> f, f = 32
+    # at 1/8 and 1/4, 16 at 1/2 and full, 8 at full)
+    (3, 91, 91), (3, 91, 32), (3, 32, 32), (2, 91, 91), (2, 91, 32), (2, 32, 32),
+    (1, 59, 59), (1, 59, 16), (1, 16, 16), (0, 59, 59), (0, 59, 16), (0, 16, 16),
+    (0, 43, 43), (0, 43, 8), (0, 8, 8))]
 # bricks that do not divide D, H or W; batch 2; odd channel counts
 K6_EDGE_CASES = [((1, 7, 9, 33), 8, 8), ((1, 9, 7, 37), 16, 3), ((2, 3, 4, 5), 6, 2),
                  ((2, 5, 6, 11), 1, 12), ((1, 4, 5, 6), 128, 128), ((1, 2, 2, 2), 5, 7),
                  ((1, 7, 9, 5), 3, 4), ((2, 6, 6, 6), 12, 24)]
+# ragged channel tiles (an odd count: the last tile masked, each voxel's
+# channels off 16-byte alignment) at 3, 43, 59, 91 and 127 channels, on
+# either axis and both, with ragged bricks, batch 2 and the tensor's last
+# chunk cut short
+K6_RAGGED_CASES = [((1, 7, 9, 33), 59, 59), ((2, 5, 6, 11), 43, 3), ((1, 4, 5, 6), 127, 127),
+                   ((1, 9, 7, 37), 3, 91), ((1, 3, 17, 33), 91, 43), ((2, 6, 6, 6), 127, 3),
+                   ((1, 2, 2, 2), 59, 127), ((1, 5, 7, 9), 3, 59), ((1, 6, 10, 40), 16, 43),
+                   ((2, 4, 8, 32), 59, 16), ((1, 3, 3, 3), 3, 3), ((1, 5, 9, 20), 127, 8)]
 
 
 def _check_k6(dev, shape, cin, cout, seed):
@@ -813,6 +827,11 @@ def test_k6_matches_float64_and_cudnn_at_the_cells_shapes(dev, shape, cin, cout)
 @pytest.mark.parametrize("shape,cin,cout", K6_EDGE_CASES)
 def test_k6_matches_float64_on_ragged_bricks(dev, shape, cin, cout):
     _check_k6(dev, shape, cin, cout, seed=7)
+
+
+@pytest.mark.parametrize("shape,cin,cout", K6_RAGGED_CASES)
+def test_k6_matches_float64_with_ragged_channel_tiles(dev, shape, cin, cout):
+    _check_k6(dev, shape, cin, cout, seed=cin * 1000 + cout)
 
 
 def test_k6_writes_the_weights_memory_format_and_leaves_no_bias(dev):
@@ -888,32 +907,63 @@ def test_plain_modet_step_launches_no_k6(dev):
     assert train.launch_counters() == before
 
 
-def test_modet_step_with_k6_matches_the_step_on_cudnn(dev):
-    """A full-size ModeT loss-and-gradients pass with K6 against the same
-    pass with every weight gradient on cuDNN: the same loss (the forward is
-    unchanged), every leaf's gradient within chip_smoke.py's phase-9 gates
+def _k6_step_matches_cudnn(model, loss_and_grads, x, y, k6_calls):
+    """A loss-and-gradients pass with K6 against the same pass with every
+    weight gradient on cuDNN: the same loss (the forward is unchanged),
+    every leaf's gradient within chip_smoke.py's phase-9 gates
     (STEP_GRAD_TOL of its largest |gradient| + STEP_GRAD_FLOOR of the
     model's). The second pass turns the model's kernel switch for its convs
-    off, as attn_impl "plain" does."""
+    off, as attn_impl "plain" does; every other kernel stays on."""
     from chip_smoke import STEP_GRAD_FLOOR, STEP_GRAD_TOL
     from smilecode_tpu_torch.ops import blocks
 
     torch.backends.cudnn.allow_tf32 = False
-    model, loss_and_grads, x, y = _modet_step(dev, LPBA)
     launches = k6.conv3d_wgrad.launches
     loss, _ = loss_and_grads(x, y)
-    assert k6.conv3d_wgrad.launches == launches + 31
+    assert k6.conv3d_wgrad.launches == launches + k6_calls
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     blocks.channels_last_convs_(model, kernels=False)
     ref_loss, _ = loss_and_grads(x, y)
-    assert k6.conv3d_wgrad.launches == launches + 31
+    assert k6.conv3d_wgrad.launches == launches + k6_calls
     assert torch.equal(loss, ref_loss)
     ref = {n: p.grad for n, p in model.named_parameters()}
     floor = STEP_GRAD_FLOOR * max(float(g.abs().max()) for g in ref.values())
     for name, g in grads.items():
         err = float((g - ref[name]).abs().max())
         assert err <= STEP_GRAD_TOL * float(ref[name].abs().max()) + floor, (name, err)
+
+
+def test_modet_step_with_k6_matches_the_step_on_cudnn(dev):
+    """A full-size ModeT step with K6 (31 launches) against the same step on
+    cuDNN (`_k6_step_matches_cudnn`)."""
+    _k6_step_matches_cudnn(*_modet_step(dev, LPBA), k6_calls=31)
+
+
+def test_prpp_step_with_k6_matches_the_step_on_cudnn(dev):
+    """A full-size PR++ step with K6 (35 launches: the 17 bare convs and 18
+    of the conv stacks' 20, ragged tiles at 91, 59 and 43 channels; the rule
+    declines the two 91 -> 91) against the same step on cuDNN, K7 on in both
+    (`_k6_step_matches_cudnn`)."""
+    _k6_step_matches_cudnn(*_prpp(dev, LPBA), k6_calls=35)
+
+
+def test_rdn_step_with_k6_matches_the_step_on_cudnn(dev):
+    """A full-size RDN step (stages 4, levels 4/4/4/4) with K6 (144
+    launches: the Estimators' convs of levels 0-2 but level 2's 128 -> 128,
+    which the rule declines) against the same step on cuDNN
+    (`_k6_step_matches_cudnn`)."""
+    from chip_smoke import seeded_baseline
+    from smilecode_tpu_torch.config import TrainConfig
+    from smilecode_tpu_torch.models.registry import loss_plan
+    from smilecode_tpu_torch.train import make_loss_and_grads
+
+    model = seeded_baseline("rdn", dev).train()
+    gen = torch.Generator().manual_seed(6)
+    x, y = (torch.rand((1, *LPBA, 1), generator=gen).to(dev) for _ in range(2))
+    loss_and_grads = make_loss_and_grads(model, loss_plan("rdn", TrainConfig(model="rdn")),
+                                         (1.0, 1.0))
+    _k6_step_matches_cudnn(model, loss_and_grads, x, y, k6_calls=144)
 
 
 # ---- K7: PR++'s windowed correlation and its adjoint ------------------------
