@@ -8,13 +8,12 @@ checkout's on one NVIDIA card, in turns.
 DIR is an unpacked checkout of an earlier commit (for example
 ``git archive <commit> | tar -x -C _checkout/parent``); its
 `smilecode_tpu_torch/csrc/modet_attn.cu`, `modet_attn_bwd.cu` and `common.cu`
-are built with this checkout's nvcc flags into a library of their own. Its
-K1 and K3 take this checkout's arguments (the staged kernels, with their
-brick); its K4 takes the arguments K4 took before it was staged (no brick,
-`_OLD_DK`). At each of ModeT's level shapes of a 160x192x160 pair that
-``--levels`` names (1 = full size, 1 head; 2 = half size, 1 head; ...), in
-float32 and bf16, the kernels of ``--kernels`` of both builds run on the same
-seeded inputs (K4 on the plain version's dl): each output is first held
+are built with this checkout's nvcc flags into a library of their own, whose
+K1, K3 and K4 take this checkout's arguments. At each of ModeT's level
+shapes of a 160x192x160 pair that ``--levels`` names (1 = full size, 1
+head; 2 = half size, 1 head; ...), in float32 and bf16, the kernels of
+``--kernels`` of both builds run on the same seeded inputs (K4 on the plain
+version's dl): each output is first held
 against its plain version (chip_smoke.py's tolerances), then the device ms
 per call (`chip_smoke.device_ms`: calls queued behind a spin kernel) is taken
 old, new, new, old. Printed per row: both means, the bound
@@ -45,10 +44,6 @@ import numpy as np
 
 import chip_smoke as cs
 
-# K4's entry point in the parent build (before the staged K4: no brick arguments)
-_OLD_DK = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [
-    ctypes.c_float, ctypes.c_void_p]
-_OLD_DK_THREADS = 256  # the parent K4's block
 SWEEP = [(16, 16, 1024), (16, 16, 4096), (8, 32, 2048), (16, 32, 2048), (32, 16, 2048),
          (8, 16, 2048)]  # (ATTN_MAX_BH, ATTN_MAX_BW, ATTN_TARGET_BLOCKS)
 SWEEP_K4 = [(8, 32, 1024, 1), (8, 32, 1024, 2), (8, 32, 1024, 3), (8, 32, 1024, 4),
@@ -87,13 +82,6 @@ def build_checkouts(dirs, units=("modet_attn.cu", "modet_attn_bwd.cu", "common.c
         _build._run_all([[nvcc, *_build.NVCC_FLAGS, "-shared", "-o", lib, *(o for _, o in objs)]])
         libs[name] = (ctypes.CDLL(lib), logs[name])
     return libs
-
-
-def takes_koff(top) -> bool:
-    """Whether the attention entry points of the checkout at ``top`` take the
-    halo-k argument ``koff`` (before the stream)."""
-    with open(os.path.join(top, "smilecode_tpu_torch", "csrc", "modet_attn.cu")) as f:
-        return "int koff" in f.read()
 
 
 def registers(log: str):
@@ -147,24 +135,18 @@ def geometry(kernel, shape, isz):
     return bh, bw, cd, blocks, ring + (bh * stride + heads * 27 * 9) * 4
 
 
-def kernel_fns(lib, old_k4: bool, koff: bool = True):
-    """{kernel: {dtype: entry point, "koff": its koff argument or ()}} of a
-    built checkout, with argument types: this checkout's, or for ``old_k4``
-    the parent K4's; without ``koff`` (a checkout before the halo-k mode) the
-    entry points take no koff."""
+def kernel_fns(lib):
+    """{kernel: {dtype: entry point}} of a built checkout, with this
+    checkout's argument types."""
     import torch
 
     from smilecode_tpu_torch.kernels import modet_attn as ma
 
-    def types(argtypes):
-        return argtypes if koff else argtypes[:-2] + argtypes[-1:]
-
     fns = {}
-    for kernel, base, argtypes in (
-            ("K1", "smilecode_modet_attn_fwd", types(ma._FWD_ARGTYPES)),
-            ("K3", "smilecode_modet_attn_bwd_dq", types(ma._DQ_ARGTYPES)),
-            ("K4", "smilecode_modet_attn_bwd_dk", _OLD_DK if old_k4 else types(ma._DK_ARGTYPES))):
-        fns[kernel] = {"koff": (0,) if koff and not (old_k4 and kernel == "K4") else ()}
+    for kernel, base, argtypes in (("K1", "smilecode_modet_attn_fwd", ma._FWD_ARGTYPES),
+                                   ("K3", "smilecode_modet_attn_bwd_dq", ma._DQ_ARGTYPES),
+                                   ("K4", "smilecode_modet_attn_bwd_dk", ma._DK_ARGTYPES)):
+        fns[kernel] = {}
         for dt, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
             fn = getattr(lib, base + sfx)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -180,7 +162,7 @@ def call_k1(fn, q, k, rpb):
     b, d, h, w, heads, hd = q.shape
     out = torch.empty((b, d, h, w, heads * 3), dtype=q.dtype, device=q.device)
     code = fn[q.dtype](q.data_ptr(), k.data_ptr(), rpb.data_ptr(), out.data_ptr(), b, d, h, w,
-                       heads, hd, 1.0, *ma._launch_args(q, k), *fn["koff"],
+                       heads, hd, 1.0, *ma._launch_args(q, k), 0,
                        torch.cuda.current_stream().cuda_stream)
     cs.require(code == 0, f"K1 launch: CUDA error {code}")
     return out
@@ -198,21 +180,21 @@ def call_k3(fn, q, k, rpb, g):
                        device=q.device)
     code = fn[q.dtype](q.data_ptr(), k.data_ptr(), rpb.data_ptr(), g.data_ptr(), dq.data_ptr(),
                        dl.data_ptr(), part.data_ptr(), b, d, h, w, heads, hd, 1.0,
-                       *ma._launch_args(q, k), *fn["koff"], torch.cuda.current_stream().cuda_stream)
+                       *ma._launch_args(q, k), 0, torch.cuda.current_stream().cuda_stream)
     cs.require(code == 0, f"K3 launch: CUDA error {code}")
     return dq, dl, part
 
 
-def call_k4(fn, old, q, dl):
+def call_k4(fn, q, dl):
     import torch
 
     from smilecode_tpu_torch.kernels import modet_attn as ma
 
     b, d, h, w, heads, hd = q.shape
     dk = torch.empty_like(q)
-    extra = () if old else ma.dk_geometry(q.shape, q.element_size())[:3]
     code = fn[q.dtype](q.data_ptr(), dl.data_ptr(), dk.data_ptr(), b, d, h, w, heads, hd, 1.0,
-                       *extra, *fn["koff"], torch.cuda.current_stream().cuda_stream)
+                       *ma.dk_geometry(q.shape, q.element_size())[:3], 0,
+                       torch.cuda.current_stream().cuda_stream)
     cs.require(code == 0, f"K4 launch: CUDA error {code}")
     return dk
 
@@ -263,11 +245,10 @@ def main() -> int:
     regs["new"] = registers(_build.build_info["log"])
     runs = {}
     for name, (lib, _) in built.items():
-        f = kernel_fns(lib, name == "parent", takes_koff(dirs[name]))
+        f = kernel_fns(lib)
         runs[name] = {"K1": lambda q, k, r, dl, g, f=f: call_k1(f["K1"], q, k, r),
                       "K3": lambda q, k, r, dl, g, f=f: call_k3(f["K3"], q, k, r, g),
-                      "K4": lambda q, k, r, dl, g, f=f, old=name == "parent":
-                          call_k4(f["K4"], old, q, dl)}
+                      "K4": lambda q, k, r, dl, g, f=f: call_k4(f["K4"], q, dl)}
     runs["new"] = {
         "K1": lambda q, k, r, dl, g: ma.modet_attention(q, k, r.reshape(-1, 3, 3, 3), 1.0),
         "K3": lambda q, k, r, dl, g: ma.modet_attention_bwd_dq(q, k, r.reshape(-1, 3, 3, 3),
@@ -339,8 +320,7 @@ def main() -> int:
                     order = (other, "new", "new", other)
                     t = [cs.device_ms(calls[n]) for n in order]
                     other_ms, new_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-                    old = other == "parent" and kernel == "K4"
-                    oregs = find_regs(regs[other], kname, bf, pairs=None if old else True)
+                    oregs = find_regs(regs[other], kname, bf, pairs=True)
                     row = {"kernel": kernel, "dtype": dname, "level": level, "shape": list(shape),
                            "against": other, "other_ms": other_ms, "new_ms": new_ms,
                            "times_in_turns": t, "bound_ms": bound_ms, "share": bound_ms / new_ms,
@@ -348,9 +328,7 @@ def main() -> int:
                            "blocks": blocks, "regs": new_regs, "other_regs": oregs,
                            "smem": smem,
                            "blocks_per_sm": blocks_per_sm(new_regs, bh * bw * heads, smem),
-                           "other_blocks_per_sm": blocks_per_sm(
-                               oregs, _OLD_DK_THREADS if old else bh * bw * heads,
-                               0 if old else smem)}
+                           "other_blocks_per_sm": blocks_per_sm(oregs, bh * bw * heads, smem)}
                     rows.append(row)
                     print(f"[{card}] {kernel} {dname} level {level} {shape}: device ms {other} "
                           f"{other_ms:.4f}, new {new_ms:.4f} (in turns "

@@ -57,8 +57,8 @@ The baseline-serving slice (Im2grid, RCN, RDN):
 11. K1 at Im2grid's five level shapes with one head, head_dim 6 and no
    rpb (its `cotr`) vs plain, max abs error <= 1e-5; K3 and K4 without rpb
    at level 1 vs plain; call and device ms per shape as phases 1 and 6.
-12. K2 through kernel F's entries, ``ops.warp(impl="pallas")`` and
-   ``"guarded"``, at the baselines' warp shapes (RDN features C=16..128,
+12. K2 through ``ops.warp(..., kernels=True)``, the counterpart of kernel
+   F's entries, at the baselines' warp shapes (RDN features C=16..128,
    C=3 flows, RCN's 128x192x128 image and flow, one source/flow shape
    mismatch), smooth +-5 and wild +-20 voxel flows, vs plain; one launch
    per call; path and per-shape times as phase 2.
@@ -294,6 +294,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from smilecode_tpu_torch.kernels import launch_counters, reset_launch_counters
 
 SIZE = (160, 192, 160)  # LPBA
 NUM_HEADS = (8, 4, 2, 1, 1)  # levels 5..1
@@ -838,11 +840,11 @@ def check_attention_bwd(device, size=SIZE, specs=tuple(zip((5, 4, 3, 2, 1), NUM_
 
 
 def check_warp_f(device):
-    """K2 through kernel F's entries, ``ops.warp(impl="pallas" | "guarded")``,
-    vs plain at `F_CASES`, smooth and wild flows; exactly one launch per
-    call, on the path its row calls for. Returns (max_err, ms, plain_ms,
-    grid_sample ms, (bytes, operations)), summed over the smooth cases of
-    "pallas", one call each, and per case {label: dict(ms, library_ms,
+    """K2 through ``ops.warp(..., kernels=True)``, the counterpart of kernel
+    F's entries, vs plain at `F_CASES`, smooth and wild flows; exactly one
+    launch per call, on the path its row calls for. Returns (max_err, ms,
+    plain_ms, grid_sample ms, (bytes, operations)), summed over the smooth
+    cases, one call each, and per case {label: dict(ms, library_ms,
     bound_ms, variant)}."""
     import torch
 
@@ -863,26 +865,25 @@ def check_warp_f(device):
         for name, flow in flows.items():
             ref = warp3d_trilinear_plain(src, flow)
             line = f"K2 via ops.warp {what} C={c} src {src_shape} flow {flow_shape} {name}:"
-            for impl in ("pallas", "guarded"):
-                before, vectors = warp3d_trilinear.launches, warp3d_trilinear.launches_vector
-                out = warp(src, flow, impl=impl)
-                require(warp3d_trilinear.launches == before + 1, f"warp(impl={impl!r}) did not "
-                                                                 "launch K2 exactly once")
-                variant = warp_path(warp3d_trilinear, vectors, c, src, f"{line} impl={impl}")
-                err = float((out - ref).abs().max())
-                require(bool(torch.isfinite(out).all()) and out.shape == (1, *flow_shape, c),
-                        f"{line} impl={impl}: output not finite or of the wrong shape")
-                require(err <= tol, f"{line} impl={impl}: max abs err {err} > {tol}")
-                worst = max(worst, err)
-                line += f" {impl} max_abs_err {err:.3e}"
-            t = event_ms(lambda: warp(src, flow, impl="pallas"), 20)
+            before, vectors = warp3d_trilinear.launches, warp3d_trilinear.launches_vector
+            out = warp(src, flow, kernels=True)
+            require(warp3d_trilinear.launches == before + 1,
+                    "warp(kernels=True) did not launch K2 exactly once")
+            variant = warp_path(warp3d_trilinear, vectors, c, src, line)
+            err = float((out - ref).abs().max())
+            require(bool(torch.isfinite(out).all()) and out.shape == (1, *flow_shape, c),
+                    f"{line} output not finite or of the wrong shape")
+            require(err <= tol, f"{line} max abs err {err} > {tol}")
+            worst = max(worst, err)
+            line += f" max_abs_err {err:.3e}"
+            t = event_ms(lambda: warp(src, flow, kernels=True), 20)
             tp = event_ms(lambda: warp3d_trilinear_plain(src, flow), 5)
             lib = library_warp_ms(src, flow)
             line = (f"{line} (tol {tol:.3e}; {variant}), kernel {t:.4f} ms, plain {tp:.4f} ms, "
                     f"F.grid_sample {lib:.4f} ms, bound {bound_ms:.4f} ms")
             if name.startswith("smooth"):
                 ms, plain_ms, lib_ms = ms + t, plain_ms + tp, lib_ms + lib
-                dev = (device_ms(lambda: warp(src, flow, impl="pallas")),
+                dev = (device_ms(lambda: warp(src, flow, kernels=True)),
                        library_warp_ms(src, flow, timer=device_ms))
                 line += f"; device ms kernel {dev[0]:.4f}, F.grid_sample {fmt_ms(dev[1])}"
                 by_shape[f"{what} {shape_label(c, flow_shape)}"] = {
@@ -1409,46 +1410,17 @@ def check_k7(device, size=SIZE):
 
 
 def launch_counts():
-    """Each kernel's launches since the last reset, and those of its bf16
-    instance ("K1 bf16", ...); K6's, and the float32 weight gradients its
-    rule declined for their geometry ("K6 declined"); K7's."""
-    from smilecode_tpu_torch.kernels.modet_attn import (
-        modet_attention,
-        modet_attention_bwd_dk,
-        modet_attention_bwd_dq,
-    )
-    from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_bwd
-
-    counters = {"K1": (modet_attention, "launches"), "K2": (warp3d_trilinear, "launches"),
-                "K3": (modet_attention_bwd_dq, "launches"),
-                "K4": (modet_attention_bwd_dk, "launches"),
-                "K5": (warp3d_trilinear_bwd, "launches"),
-                "K5 d_src": (warp3d_trilinear_bwd, "scatters")}
-    from smilecode_tpu_torch.kernels.conv3d_wgrad import conv3d_wgrad
-    from smilecode_tpu_torch.kernels.correlation3d import correlation3d
-
-    out = {k: getattr(fn, what) for k, (fn, what) in counters.items()}
-    out.update({f"{k} bf16": getattr(fn, f"{what}_bf16") for k, (fn, what) in counters.items()})
-    out.update({"K6": conv3d_wgrad.launches, "K6 declined": conv3d_wgrad.declined,
-                "K7": correlation3d.launches})
+    """Each kernel's launches since the last `reset_launch_counters`, and
+    those of its bf16 instance ("K1 bf16", ...); K5's d_src scatters ("K5
+    d_src"); K6's, and the float32 weight gradients its rule declined for
+    their geometry ("K6 declined"); K7's."""
+    c = launch_counters()
+    names = {"K1": "K1 launches", "K2": "K2 launches", "K3": "K3 launches", "K4": "K4 launches",
+             "K5": "K5 launches", "K5 d_src": "K5 scatters"}
+    out = {k: c[v] for k, v in names.items()}
+    out.update({f"{k} bf16": c[f"{v}_bf16"] for k, v in names.items()})
+    out.update({"K6": c["K6 launches"], "K6 declined": c["K6 declined"], "K7": c["K7 launches"]})
     return out
-
-
-def reset_launch_counts():
-    from smilecode_tpu_torch.kernels.modet_attn import (
-        modet_attention,
-        modet_attention_bwd_dk,
-        modet_attention_bwd_dq,
-    )
-    from smilecode_tpu_torch.kernels.conv3d_wgrad import conv3d_wgrad
-    from smilecode_tpu_torch.kernels.correlation3d import correlation3d
-    from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear, warp3d_trilinear_bwd
-
-    for fn in (modet_attention, modet_attention_bwd_dq, modet_attention_bwd_dk,
-               warp3d_trilinear, warp3d_trilinear_bwd, conv3d_wgrad, correlation3d):
-        for name in list(vars(fn)):
-            if name.startswith(("launches", "scatters", "declined")):
-                setattr(fn, name, 0)
 
 
 def vector_counts() -> str:
@@ -1472,7 +1444,7 @@ def run_train(train_dir, val_dir, root, attn_impl="auto", compute_dtype="", mode
     cfg = TrainConfig(model=model, train_dir=train_dir, val_dir=val_dir, max_epoch=1,
                       attn_impl=attn_impl, save_root=os.path.join(root, "experiments"),
                       log_root=os.path.join(root, "logs"), compute_dtype=compute_dtype, **kw)
-    reset_launch_counts()
+    reset_launch_counters()
     t0 = time.perf_counter()
     best = train.main(cfg)
     torch.cuda.synchronize()
@@ -1758,7 +1730,7 @@ def run_infer(test_dir, model_dir, attn_impl="auto", model="modet", compute_dtyp
 
     cfg = InferConfig(model=model, test_dir=test_dir, model_dir=model_dir, attn_impl=attn_impl,
                       compute_dtype=compute_dtype, **kw)
-    reset_launch_counts()
+    reset_launch_counters()
     t0 = time.perf_counter()
     dsc, fold = infer.main(cfg, mc_record=mc_record)
     torch.cuda.synchronize()
@@ -2737,7 +2709,7 @@ def half_step(device, data_dir, shape):
     x, y = forward_pair(data_dir, device, "half")
     require(tuple(x.shape) == (1, *shape, 1), f"half pair {tuple(x.shape)}")
     model, plain = seeded_model(device), seeded_model(device, attn_impl="plain")
-    reset_launch_counts()
+    reset_launch_counters()
     loss, p_loss, _ = compare_step_grads(model, plain, x, y)
     counts = launch_counts()
     want = modet_train_launches(1, 0)
@@ -3477,7 +3449,7 @@ def spatial_rank(mesh, data_dir, n_timed):
     x, y = shard_batch(mesh, forward_pair(data_dir, mesh.device))
     with torch.no_grad():
         moved, flow = modet_forward_spatial(model, x, y, mesh)
-    reset_launch_counts()
+    reset_launch_counters()
     loss, _ = make_spatial_loss_and_grads(model, mesh)(x, y)
     torch.cuda.synchronize()
     counts = {**launch_counts(), **mode_counts()}
@@ -3850,7 +3822,7 @@ def main() -> int:
               device=warp_path_device_ms(k5_shapes, bwd=True)),
         entry("modet_attn_fwd (Im2grid: 1 head, no rpb)", "modet_attn.cu", "modet_attn.py:56",
               "K1", g_err, g_ms, g_plain_ms, g_work, None, base_counts, g_shapes, g_dev),
-        entry("warp3d_trilinear_fwd (ops.warp impl=pallas|guarded, baselines)", "warp3d.cu",
+        entry("warp3d_trilinear_fwd (ops.warp, baselines)", "warp3d.cu",
               "warp3d.py:52", "K2", f_err, f_ms, f_plain_ms, f_work, f_lib_ms, base_counts,
               f_shapes),
         bf16_entry("modet_attn_fwd", "modet_attn.cu", "modet_attn.py:56", "K1"),

@@ -20,11 +20,11 @@ every convolution it runs, each Conv3d child of a Sequential included: what
 the call can observe (the module's type and geometry, the activation's
 dtype, device and voxel count, whether a weight gradient is wanted) and the
 model's kernel switch decide; a model on the plain path (attn_impl "plain")
-runs no hand-written kernel, K6 included (`ops.blocks.channels_last_convs_`
-marks its convs). `Conv3dWgradFunction` is the path K6 takes: the forward
-is the module's own ``F.conv3d`` call, the backward takes dx from cuDNN
-(``aten.convolution_backward`` with only the input's output mask) and dW,
-db from K6.
+runs no hand-written kernel, K6 included (`ops.blocks.mark_model_` sets
+its convs' ``kernels`` False). `Conv3dWgradFunction` is the path K6 takes:
+the forward is the module's own ``F.conv3d`` call, the backward takes dx
+from cuDNN (``aten.convolution_backward`` with only the input's output
+mask) and dW, db from K6.
 """
 
 from __future__ import annotations
@@ -62,11 +62,11 @@ def wgrad_route(conv: nn.Module, dtype: torch.dtype, device_type: str, grad_mode
     WIDE_CHANNELS on both sides over WIDE_VOXELS voxels or more;
     None, today's path (no weight gradient wanted, the CPU, another dtype,
     not an ``nn.Conv3d`` (`ops.blocks.conv3d_ndhwc` asks for each child of
-    a Sequential), or a conv of a model on the plain path: its
-    ``wgrad_kernel`` False)."""
+    a Sequential), or a conv of a model on the plain path: its ``kernels``
+    False; a conv never marked counts as on)."""
     if (not grad_mode or type(conv) is not nn.Conv3d or device_type != "cuda"
             or not conv.weight.requires_grad or dtype != torch.float32
-            or conv.weight.dtype != torch.float32 or not getattr(conv, "wgrad_kernel", True)):
+            or conv.weight.dtype != torch.float32 or not getattr(conv, "kernels", True)):
         return None
     if (conv.kernel_size == (3, 3, 3) and conv.stride == (1, 1, 1) and conv.padding == (1, 1, 1)
             and conv.dilation == (1, 1, 1) and conv.groups == 1 and conv.padding_mode == "zeros"
@@ -114,7 +114,7 @@ def _plan(x, cout: int) -> tuple:
 
 def conv3d_wgrad(x: torch.Tensor, dy: torch.Tensor, want_bias: bool = True):
     """(dW (Cout, Cin, 3, 3, 3) in channels_last_3d, the port's weight
-    layout (`ops.blocks.channels_last_convs_`), db (Cout) or None) of
+    layout (`ops.blocks.mark_model_`), db (Cout) or None) of
     a 3x3x3, stride-1, padding-1 convolution from x (B, D, H, W, Cin) and
     the output cotangent dy (B, D, H, W, Cout): K6 for CUDA tensors (float32,
     contiguous), `conv3d_wgrad_plain` for CPU tensors.

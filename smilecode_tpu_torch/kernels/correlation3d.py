@@ -10,10 +10,10 @@ about that.
 
 `correlation3d` is the entry that `models.prnet.PRPlusPlusBlock` calls.
 `k7_route` is its rule, on the device and the model's kernel switch alone:
-on the card, in a model whose switch is on (attn_impl "auto"), every call
-goes through `Correlation3dFunction`, whose forward launches K7's forward
-and whose backward launches K7's adjoint (d_mov and d_fix, in gather form,
-no atomics: two calls give the same bits); a dtype other than float32 or a
+on the card, in a model whose kernel switch is on, every call goes through
+`Correlation3dFunction`, whose forward launches K7's forward and whose
+backward launches K7's adjoint (d_mov and d_fix, in gather form, no
+atomics: two calls give the same bits); a dtype other than float32 or a
 width over the kernel's MAX_CHANNELS raises there. Off the card, and in a
 plain model, the call takes `correlation3d_plain`, differentiated by torch
 autograd; it is also K7's oracle on the card. There is no fallback from the
@@ -64,8 +64,8 @@ def correlation3d_plain(mov, fix, kernel_size: int = 3, d: int = 3, sf: int = 2)
 def k7_route(dtype: torch.dtype, device_type: str, channels: int, kernels: bool = True) -> bool:
     """Whether a correlation of two ``channels``-wide maps of ``dtype`` on
     ``device_type`` goes to K7: on the card in a model whose kernel switch
-    (``kernels``, False for attn_impl "plain") is on. There the maps must be
-    float32 of 1 to MAX_CHANNELS channels, else ValueError."""
+    (``kernels``) is on. There the maps must be float32 of 1 to
+    MAX_CHANNELS channels, else ValueError."""
     if not (kernels and device_type == "cuda"):
         return False
     if dtype != torch.float32 or not 0 < channels <= MAX_CHANNELS:

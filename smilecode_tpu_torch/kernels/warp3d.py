@@ -3,10 +3,8 @@
 * K2 (`csrc/warp3d.cu`) replaces `smilecode_tpu/kernels/warp3d_v4.py:_warp_v4_kernel`
   (D) and `smilecode_tpu/kernels/warp3d_v3.py:_warp_v3_kernel` (E), the
   planes-layout warps of ModeT, and `smilecode_tpu/kernels/warp3d.py:
-  _warp_kernel` (F), the channels-last warp behind `ops.warp(impl="pallas" |
-  "guarded")` that the baseline models run. `warp3d_pallas` and
-  `warp3d_guarded` name F's two entries; both are `warp3d_trilinear`, since
-  K2 needs neither F's window budget nor its guard.
+  _warp_kernel` (F), the channels-last warp that the baseline models run
+  (`ops.warp`); K2 needs neither F's window budget nor its guard.
 * K5 (`csrc/warp3d_bwd.cu`) replaces `warp3d_v4.py:_warp_v4_dflow_kernel` and
   `warp3d_v3.py:_warp_v3_dflow_kernel` (d_flow), fused with the d_src scatter
   that the TPU path leaves to XLA (`smilecode_tpu/models/modet_planes.py:_warp_hw_bwd`).
@@ -304,10 +302,6 @@ def warp3d_trilinear(src: torch.Tensor, flow: torch.Tensor, d0: int | None = Non
             return Warp3dTrilinearFunction.apply(src, flow, d0)
         return _launch_fwd(src, flow, d0)
 
-
-# F's entries (`smilecode_tpu/kernels/warp3d.py:238,259`): the same K2 wrapper
-# and launch count, with no fallback
-warp3d_pallas = warp3d_guarded = warp3d_trilinear
 
 warp3d_trilinear.launches = warp3d_trilinear.launches_bf16 = warp3d_trilinear.launches_vector = 0
 warp3d_trilinear.launches_origin = 0

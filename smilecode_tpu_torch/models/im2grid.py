@@ -10,7 +10,7 @@ compose as ``flow = up(2*(T(flow, w) + w))`` at levels 5..2 and
 
 Kernels: `cotr` reaches K1 (`kernels/modet_attn.py`) with one head,
 head_dim 6 and no rpb; each bilinear warp reaches K2 through
-``ops.warp(impl="guarded")``, the counterpart of kernel F's entry. Per pair:
+`ops.warp`, the counterpart of kernel F's entry. Per pair:
 5 K1 and 9 K2 launches.
 
 Module names follow the reference `state_dict` keys (``encoder.conv0_0.main
@@ -25,9 +25,9 @@ from torch import nn
 
 from smilecode_tpu_torch.models.modet import Encoder
 from smilecode_tpu_torch.ops.attention import neighborhood_attention_3d
-from smilecode_tpu_torch.ops.blocks import channels_last_convs_, reset_torch_default_
+from smilecode_tpu_torch.ops.blocks import mark_model_, reset_torch_default_
 from smilecode_tpu_torch.ops.resize import upsample2_trilinear
-from smilecode_tpu_torch.ops.warp import baseline_warp_impl, warp
+from smilecode_tpu_torch.ops.warp import warp
 
 
 def _axis_emb(n: int) -> np.ndarray:
@@ -68,12 +68,13 @@ class PositionalEncodingLayer(nn.Module):
         return feat + self.alpha.to(feat.dtype) * emb
 
 
-def cotr(q, k, impl: str = "auto"):
+def cotr(q, k, kernels: bool = True):
     """Shared single-head neighborhood attention, no scale, no rpb.
-    Parameter-free. (B, D, H, W, C) each -> (B, D, H, W, 3)."""
+    Parameter-free. (B, D, H, W, C) each -> (B, D, H, W, 3); ``kernels``
+    is the model's kernel switch."""
     b, d, h, w, c = q.shape
     return neighborhood_attention_3d(q.reshape(b, d, h, w, 1, c), k.reshape(b, d, h, w, 1, c),
-                                     None, scale=1.0, impl=impl)
+                                     None, scale=1.0, kernels=kernels)
 
 
 class Im2grid(nn.Module):
@@ -88,8 +89,6 @@ class Im2grid(nn.Module):
     def __init__(self, channels: int = 4, attn_impl: str = "auto", device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.warp_impl = baseline_warp_impl(attn_impl)
-        self.attn_impl = attn_impl
         c = channels
         enc_ch = (2 * c, 4 * c, 8 * c, 16 * c, 32 * c)  # levels 1..5
         with torch.device("meta"):
@@ -98,7 +97,7 @@ class Im2grid(nn.Module):
                 setattr(self, f"peblock{level}", PositionalEncodingLayer(enc_ch[level - 1]))
         self.to_empty(device=device or "cpu")
         self.reset_parameters(generator)
-        channels_last_convs_(self, kernels=attn_impl != "plain")
+        mark_model_(self, attn_impl)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Torch-default conv init; zero projections, unit alpha."""
@@ -110,11 +109,11 @@ class Im2grid(nn.Module):
                 nn.init.ones_(m.alpha)
 
     def _warp(self, src, flow):
-        return warp(src, flow, impl=self.warp_impl)
+        return warp(src, flow, kernels=self.kernels)
 
     def _level(self, level, f, m):
         pe = getattr(self, f"peblock{level}")
-        return cotr(pe(f), pe(m), self.attn_impl)
+        return cotr(pe(f), pe(m), self.kernels)
 
     def forward(self, moving, fixed):
         m1, m2, m3, m4, m5 = self.encoder(moving)

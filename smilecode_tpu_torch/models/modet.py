@@ -39,17 +39,15 @@ from smilecode_tpu_torch.ops.attention import neighborhood_attention_3d
 from smilecode_tpu_torch.ops.blocks import (
     ConvBlock,
     ConvInsBlock,
-    channels_last_convs_,
     conv3d_ndhwc,
     layer_norm,
     linear,
+    mark_model_,
     normal_,
     reset_conv_,
 )
 from smilecode_tpu_torch.ops.resize import avg_pool2, upsample2_trilinear
 from smilecode_tpu_torch.ops.warp import warp
-
-IMPLS = ("auto", "plain")
 
 
 class Encoder(nn.Module):
@@ -118,20 +116,18 @@ class ModeTransformer(nn.Module):
     """Neighborhood attention -> per-head subfields; holds the zero-init RPB
     (heads, 3, 3, 3)."""
 
-    def __init__(self, dim: int, num_heads: int, qk_scale: float | None = None,
-                 attn_impl: str = "auto"):
+    def __init__(self, dim: int, num_heads: int, qk_scale: float | None = None):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.scale = float(qk_scale or self.head_dim ** -0.5)
-        self.attn_impl = attn_impl
         self.rpb = nn.Parameter(torch.zeros(num_heads, 3, 3, 3))
 
     def forward(self, q, k):
         b, d, h, w, _ = q.shape
         q = q.reshape(b, d, h, w, self.num_heads, self.head_dim)
         k = k.reshape(b, d, h, w, self.num_heads, self.head_dim)
-        return neighborhood_attention_3d(q, k, self.rpb, scale=self.scale, impl=self.attn_impl)
+        return neighborhood_attention_3d(q, k, self.rpb, scale=self.scale, kernels=self.kernels)
 
 
 class ModeT(nn.Module):
@@ -156,11 +152,8 @@ class ModeT(nn.Module):
                  attn_impl: str = "auto", compute_dtype: str | None = "", device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if attn_impl not in IMPLS:
-            raise ValueError(f"attn_impl must be one of {IMPLS}, got {attn_impl!r}")
         if (compute_dtype or "") not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}")
-        self.attn_impl = attn_impl
         self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
         c, nh = channels, tuple(num_heads)
         enc_ch = (2 * c, 4 * c, 8 * c, 16 * c, 32 * c)  # levels 1..5
@@ -169,13 +162,12 @@ class ModeT(nn.Module):
             for level, heads in zip((5, 4, 3, 2, 1), nh):
                 dim = head_dim * heads
                 setattr(self, f"projblock{level}", ProjectionLayer(enc_ch[level - 1], dim))
-                setattr(self, f"mdt{level}", ModeTransformer(dim, heads, qk_scale,
-                                                             attn_impl=attn_impl))
+                setattr(self, f"mdt{level}", ModeTransformer(dim, heads, qk_scale))
                 if level >= 3:
                     setattr(self, f"cwm{level}", CWM(3 * heads, 3 * heads * 2))
         self.to_empty(device=device or "cpu")
         self.reset_parameters(generator)
-        channels_last_convs_(self, kernels=attn_impl != "plain")
+        mark_model_(self, attn_impl)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         """Torch-default conv init, N(0, 1e-5) projection weights, zero
@@ -204,7 +196,7 @@ class ModeT(nn.Module):
         return getattr(self, f"cwm{level}")(x)
 
     def warp(self, src, flow):
-        return warp(src, flow, impl=self.attn_impl)
+        return warp(src, flow, kernels=self.kernels)
 
     def upsample(self, x):
         return upsample2_trilinear(x)

@@ -14,7 +14,7 @@ attention). Final: integrate ``pred0`` and compose
 ``UpConvBlockP1`` is not the shared ``UpConvBlock``: ConvTranspose3d(k4, s2,
 padding 1), then IN and LeakyReLU(0.1), with no ``[1:-1]`` crop.
 
-Kernels: every bilinear warp reaches K2 through ``ops.warp(impl="guarded")``,
+Kernels: every bilinear warp reaches K2 through `ops.warp`,
 the counterpart of kernel F's entry (K5 under autograd): 3 DFI `vecint`s of
 7 steps, ``vecint(pred0)`` (7), the 3 feature warps, ``T(wf0, pred0)`` and
 the moved image, 33 per pair.
@@ -34,15 +34,15 @@ from torch import nn
 
 from smilecode_tpu_torch.ops.blocks import (
     ConvInsBlock,
-    channels_last_convs_,
     conv3d_ndhwc,
     instance_norm,
     leaky_relu,
+    mark_model_,
     reset_torch_default_,
 )
 from smilecode_tpu_torch.ops.integrate import vecint
 from smilecode_tpu_torch.ops.resize import interp_trilinear
-from smilecode_tpu_torch.ops.warp import baseline_warp_impl, warp
+from smilecode_tpu_torch.ops.warp import warp
 
 VECINT_STEPS = 7
 
@@ -93,10 +93,9 @@ class UpConvBlockP1(nn.Module):
 class DFIBlock(nn.Module):
     """Deformation field integration of the ``5 - level`` cached predictions."""
 
-    def __init__(self, level: int, channel: int = 16, steps: int = VECINT_STEPS,
-                 warp_impl: str = "guarded"):
+    def __init__(self, level: int, channel: int = 16, steps: int = VECINT_STEPS):
         super().__init__()
-        self.n, self.steps, self.warp_impl = 5 - level, steps, warp_impl
+        self.n, self.steps = 5 - level, steps
         c = channel * self.n
         self.conv = nn.Sequential(ConvInsBlock(3 * self.n, c), ConvInsBlock(c, c))
         self.weight_conv = nn.ModuleList(
@@ -115,7 +114,7 @@ class DFIBlock(nn.Module):
         for p, wc in zip(cache, self.weight_conv):
             contrib = p * torch.sigmoid(conv3d_ndhwc(wc[0], x))
             field = contrib if field is None else field + contrib
-        return vecint(field, self.steps, impl=self.warp_impl)
+        return vecint(field, self.steps, kernels=self.kernels)
 
 
 class ChannelAttention(nn.Module):
@@ -163,7 +162,6 @@ class PCNet(nn.Module):
     def __init__(self, channels: int = 16, attn_impl: str = "auto", device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.warp_impl = baseline_warp_impl(attn_impl)
         c = channels
         with torch.device("meta"):
             self.encoder_float = PCEncoder(1, c)
@@ -174,23 +172,23 @@ class PCNet(nn.Module):
             # from below, the DFI of the cached heads, the NFF of 3 maps
             self.reg_conv3 = nn.Conv3d(8 * c, 3, 3, 1, 1)
             self.upconv2 = UpConvBlockP1(8 * c, 4 * c)
-            self.dfi_2 = DFIBlock(4, warp_impl=self.warp_impl)
+            self.dfi_2 = DFIBlock(4)
             self.nff_2 = NFFBlock(4 * c)
             self.reg_conv2 = nn.Conv3d(12 * c, 3, 3, 1, 1)
             self.upconv1 = UpConvBlockP1(12 * c, 2 * c)
-            self.dfi_1 = DFIBlock(3, warp_impl=self.warp_impl)
+            self.dfi_1 = DFIBlock(3)
             self.nff_1 = NFFBlock(2 * c)
             self.reg_conv1 = nn.Conv3d(6 * c, 3, 3, 1, 1)
             self.upconv0 = UpConvBlockP1(6 * c, c)
-            self.dfi_0 = DFIBlock(2, warp_impl=self.warp_impl)
+            self.dfi_0 = DFIBlock(2)
             self.nff_0 = NFFBlock(c)
             self.reg_conv0 = nn.Sequential(nn.Conv3d(3 * c, c, 3, 1, 1), nn.Conv3d(c, 3, 3, 1, 1))
         self.to_empty(device=device or "cpu")
         reset_torch_default_(self, generator)
-        channels_last_convs_(self, kernels=attn_impl != "plain")
+        mark_model_(self, attn_impl)
 
     def _warp(self, src, flow):
-        return warp(src, flow, impl=self.warp_impl)
+        return warp(src, flow, kernels=self.kernels)
 
     def forward(self, moving, fixed):
         f0m, f1m, f2m, f3m = self.encoder_float(moving)
@@ -207,6 +205,6 @@ class PCNet(nn.Module):
             wf = dfi(cache)
             concat = nff(ff, self._warp(fm, wf), deconv)
 
-        pred0 = vecint(conv3d_ndhwc(self.reg_conv0, concat), VECINT_STEPS, impl=self.warp_impl)
+        pred0 = vecint(conv3d_ndhwc(self.reg_conv0, concat), VECINT_STEPS, kernels=self.kernels)
         flow = self._warp(wf, pred0) + pred0
         return self._warp(moving, flow), flow

@@ -14,7 +14,7 @@ the warp's source is smaller than its flow and the coordinates are rescaled
 by (S-1)/(F-1) < 1, with no 2x magnitude rescale (a reference quirk the JAX
 package keeps, `smilecode_tpu/models/prnet.py:12-15`).
 
-Kernels: every bilinear warp reaches K2 through ``ops.warp(impl="guarded")``,
+Kernels: every bilinear warp reaches K2 through `ops.warp`,
 the counterpart of kernel F's entry (K5 under autograd): 4 feature warps, 4
 compositions and the moved image, 9 per pair; in PR++ three compositions
 have a source coarser than the flow. PR++'s five correlations go through
@@ -33,13 +33,13 @@ from torch import nn
 
 from smilecode_tpu_torch.kernels.correlation3d import correlation3d
 from smilecode_tpu_torch.ops.blocks import (
-    channels_last_convs_,
     conv3d_ndhwc,
+    mark_model_,
     normal_,
     reset_torch_default_,
 )
 from smilecode_tpu_torch.ops.resize import upsample2_nearest, upsample2_trilinear
-from smilecode_tpu_torch.ops.warp import baseline_warp_impl, warp
+from smilecode_tpu_torch.ops.warp import warp
 
 
 class ReluConvBlock(nn.Module):
@@ -114,16 +114,16 @@ class _FlowBlock(nn.Module):
     and upsampled unless ``scale`` is False) warps x; ``flow`` is the
     N(0, 1e-5), zero-bias flow head."""
 
-    def __init__(self, in_flow: bool, scale: bool, warp_impl: str):
+    def __init__(self, in_flow: bool, scale: bool):
         super().__init__()
-        self.in_flow, self.scale, self.warp_impl = in_flow, scale, warp_impl
+        self.in_flow, self.scale = in_flow, scale
 
     def _warp_x(self, x, flow):
         if not self.in_flow:
             return x
         if self.scale:
             flow = upsample2_trilinear(flow * 2)
-        return warp(x, flow, impl=self.warp_impl)
+        return warp(x, flow, kernels=self.kernels)
 
     def reset_flow_head(self, generator):
         normal_(self.flow.weight, 1e-5, generator)
@@ -133,9 +133,8 @@ class _FlowBlock(nn.Module):
 class PRBlock(_FlowBlock):
     """Residual flow from concat(warped x, y)."""
 
-    def __init__(self, channels: int, in_flow: bool = True, scale: bool = True,
-                 warp_impl: str = "guarded"):
-        super().__init__(in_flow, scale, warp_impl)
+    def __init__(self, channels: int, in_flow: bool = True, scale: bool = True):
+        super().__init__(in_flow, scale)
         self.flow = nn.Conv3d(2 * channels, 3, 3, 1, 1)
 
     def forward(self, x, y, flow=None):
@@ -146,10 +145,8 @@ class PRPlusPlusBlock(_FlowBlock):
     """Residual flow from concat(warped x, correlation, y) through two conv
     stacks (``conv1``, ``conv2``) with a residual connection."""
 
-    def __init__(self, channels: int, in_flow: bool = True, scale: bool = True,
-                 warp_impl: str = "guarded"):
-        super().__init__(in_flow, scale, warp_impl)
-        self.kernels = warp_impl != "plain"
+    def __init__(self, channels: int, in_flow: bool = True, scale: bool = True):
+        super().__init__(in_flow, scale)
         c, c_in = channels, 2 * channels + 27
         self.conv1 = nn.Sequential(nn.Conv3d(c_in, c_in, 3, 1, 1), nn.Conv3d(c_in, c, 3, 1, 1))
         self.conv2 = nn.Sequential(nn.Conv3d(c, c, 3, 1, 1), nn.Conv3d(c, c, 3, 1, 1))
@@ -176,7 +173,6 @@ class _PRBase(nn.Module):
     def __init__(self, first_channel: int = 8, attn_impl: str = "auto", device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.warp_impl = baseline_warp_impl(attn_impl)
         c = first_channel
         # blocks 1..5 on the features [4c, 4c, 2c, 2c, c]; block 1 takes no
         # flow, block 5 no upsampling
@@ -185,15 +181,15 @@ class _PRBase(nn.Module):
         with torch.device("meta"):
             self.net = BackBone(c)
             for i, (ch, in_flow, scale) in enumerate(specs, 1):
-                setattr(self, f"prblock{i}", self.block_type(ch, in_flow, scale, self.warp_impl))
+                setattr(self, f"prblock{i}", self.block_type(ch, in_flow, scale))
         self.to_empty(device=device or "cpu")
         reset_torch_default_(self, generator)
         for i in range(1, 6):
             getattr(self, f"prblock{i}").reset_flow_head(generator)
-        channels_last_convs_(self, kernels=attn_impl != "plain")
+        mark_model_(self, attn_impl)
 
     def _warp(self, src, flow):
-        return warp(src, flow, impl=self.warp_impl)
+        return warp(src, flow, kernels=self.kernels)
 
 
 class PRNet(_PRBase):

@@ -15,7 +15,7 @@ too); the models raise before any compute otherwise. 128x192x128 is the
 largest crop of an LPBA volume they take.
 
 Kernels: every bilinear warp reaches K2 through
-``ops.warp(impl="guarded")``, the counterpart of kernel F's entry: VTN 1
+`ops.warp`, the counterpart of kernel F's entry: VTN 1
 per pair, RCN ``2 * n_cascade - 1`` (19 for the reference's 10).
 
 Module names follow the reference `state_dict` keys (``encoder.conv1.main
@@ -32,13 +32,13 @@ from torch import nn
 
 from smilecode_tpu_torch.ops.blocks import (
     ConvBlock,
-    channels_last_convs_,
     conv3d_ndhwc,
     leaky_relu,
+    mark_model_,
     normal_,
     reset_torch_default_,
 )
-from smilecode_tpu_torch.ops.warp import baseline_warp_impl, warp
+from smilecode_tpu_torch.ops.warp import warp
 
 MULTIPLE = 64  # 2**6: every spatial axis of a VTN input
 
@@ -116,13 +116,11 @@ class VTN(nn.Module):
     ``torch.device("meta")`` and call `reset_parameters`, or through
     `build_vtn`/`RCN`, which do."""
 
-    def __init__(self, channels: int = 16, flow_multiplier: float = 1.0, do_warp: bool = True,
-                 warp_impl: str = "guarded"):
+    def __init__(self, channels: int = 16, flow_multiplier: float = 1.0, do_warp: bool = True):
         super().__init__()
         c = channels
         self.flow_multiplier = flow_multiplier
         self.do_warp = do_warp
-        self.warp_impl = warp_impl
         self.encoder = VTNEncoder(2, c)
         self.Pred6 = nn.Conv3d(32 * c, 3, 3, 1, 1)
         self.Upsamp6to5 = UpConvFlow(3)
@@ -154,7 +152,7 @@ class VTN(nn.Module):
             concat = torch.cat([skips[lvl - 1], deconv, w], -1)
         flow = self.Pred0(concat) * self.flow_multiplier
         if self.do_warp:
-            return warp(moving, flow, impl=self.warp_impl), flow
+            return warp(moving, flow, kernels=self.kernels), flow
         return flow
 
 
@@ -164,10 +162,10 @@ def build_vtn(channels: int = 16, attn_impl: str = "auto", device=None,
     attn_impl "auto": its warp reaches K2 for CUDA tensors; "plain": the
     plain version."""
     with torch.device("meta"):
-        model = VTN(channels, warp_impl=baseline_warp_impl(attn_impl))
+        model = VTN(channels)
     model.to_empty(device=device or "cpu")
     model.reset_parameters(generator)
-    channels_last_convs_(model, kernels=attn_impl != "plain")
+    mark_model_(model, attn_impl)
     return model
 
 
@@ -180,7 +178,6 @@ class RCN(nn.Module):
                  return_aux: bool = True, attn_impl: str = "auto", device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.warp_impl = baseline_warp_impl(attn_impl)
         self.return_aux = return_aux
         with torch.device("meta"):
             self.vtn = nn.ModuleList(VTN(channels, flow_multiplier, do_warp=False)
@@ -188,7 +185,7 @@ class RCN(nn.Module):
         self.to_empty(device=device or "cpu")
         for v in self.vtn:
             v.reset_parameters(generator)
-        channels_last_convs_(self, kernels=attn_impl != "plain")
+        mark_model_(self, attn_impl)
 
     def forward(self, moving, fixed):
         check_vtn_shape(moving, fixed)
@@ -196,8 +193,8 @@ class RCN(nn.Module):
         for i, vtn in enumerate(self.vtn):
             w = vtn(moved, fixed)
             subflows.append(w)
-            flow = w if i == 0 else w + warp(flow, w, impl=self.warp_impl)
-            moved = warp(moving, flow, impl=self.warp_impl)
+            flow = w if i == 0 else w + warp(flow, w, kernels=self.kernels)
+            moved = warp(moving, flow, kernels=self.kernels)
         if self.return_aux:
             return (moved, flow, *subflows)
         return moved, flow

@@ -19,7 +19,7 @@ forward that is given a ``generator`` (the MC-uncertainty protocol,
 `infer.run_mc_uncertainty`).
 
 Kernels: every bilinear warp, `vecint`'s included, reaches K2 through
-``ops.warp(impl="guarded")``, the counterpart of kernel F's entry. Per
+`ops.warp`, the counterpart of kernel F's entry. Per
 forward: per stage, a feature warp before and a composition after every
 estimate but the first; per stage after the first, 4 feature
 re-warps and 1 composition; with ``diff``, per estimate also 7 `vecint`
@@ -41,14 +41,14 @@ from torch import nn
 
 from smilecode_tpu_torch.ops.blocks import (
     ConvBlock,
-    channels_last_convs_,
     conv3d_ndhwc,
+    mark_model_,
     normal_,
     reset_torch_default_,
 )
 from smilecode_tpu_torch.ops.integrate import vecint
 from smilecode_tpu_torch.ops.resize import interp_trilinear, upsample2_trilinear
-from smilecode_tpu_torch.ops.warp import baseline_warp_impl, warp
+from smilecode_tpu_torch.ops.warp import warp
 
 VECINT_STEPS = 7
 
@@ -135,7 +135,6 @@ class RDN(nn.Module):
                  attn_impl: str = "auto", device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.warp_impl = baseline_warp_impl(attn_impl)
         self.stages, self.levels = stages, tuple(levels)
         self.share_weights, self.diff, self.return_aux = share_weights, diff, return_aux
         c = channels
@@ -147,7 +146,7 @@ class RDN(nn.Module):
                     setattr(self, self._est_name(level, stage), Estimator(est_ch, dropout_rate))
         self.to_empty(device=device or "cpu")
         self.reset_parameters(generator)
-        channels_last_convs_(self, kernels=attn_impl != "plain")
+        mark_model_(self, attn_impl)
 
     def _est_name(self, level: int, stage: int) -> str:
         return f"est{level}" if self.share_weights else f"est{level}_{stage}"
@@ -162,10 +161,10 @@ class RDN(nn.Module):
                 nn.init.zeros_(m.conv[4].bias)
 
     def _warp(self, src, flow):
-        return warp(src, flow, impl=self.warp_impl)
+        return warp(src, flow, kernels=self.kernels)
 
     def _vecint(self, vec):
-        return vecint(vec, VECINT_STEPS, impl=self.warp_impl)
+        return vecint(vec, VECINT_STEPS, kernels=self.kernels)
 
     def forward(self, moving, fixed, generator: torch.Generator | None = None):
         """``generator``: draws the Estimators' dropout masks, in the order

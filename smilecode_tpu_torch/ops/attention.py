@@ -29,7 +29,7 @@ def offset_grid(kernel_size: int = 3) -> np.ndarray:
 KERNEL_SIZES = (3, 5, 7, 9, 11, 13)
 
 
-def neighborhood_attention_3d(q, k, rpb, scale: float = 1.0, impl: str = "auto",
+def neighborhood_attention_3d(q, k, rpb, scale: float = 1.0, kernels: bool = True,
                               kernel_size: int = 3) -> torch.Tensor:
     """Fused neighborhood attention -> deformation subfields.
 
@@ -37,20 +37,18 @@ def neighborhood_attention_3d(q, k, rpb, scale: float = 1.0, impl: str = "auto",
       q, k: (B, D, H, W, heads, head_dim) query (fixed) and key (moving).
       rpb: (heads, k, k, k) relative position bias, or None.
       scale: query scaling (the reference trains with scale=1).
-      impl: "auto" sends kernel_size 3 through the Hopper kernel wrapper
-        (`kernels/modet_attn.py`: the forward kernel, and the backward
-        kernels under autograd, for CUDA tensors; this module's plain version
-        for CPU tensors); "plain" forces the plain version. Other kernel
-        sizes always take the plain version.
+      kernels: the model's kernel switch. True sends kernel_size 3 through
+        the Hopper kernel wrapper (`kernels/modet_attn.py`: the forward
+        kernel, and the backward kernels under autograd, for CUDA tensors;
+        this module's plain version for CPU tensors); False forces the plain
+        version. Other kernel sizes always take the plain version.
 
     Returns:
       (B, D, H, W, heads*3) subfields, channel order head-major then (d,h,w).
     """
     if kernel_size not in KERNEL_SIZES:
         raise ValueError(f"kernel_size {kernel_size} not in whitelist {KERNEL_SIZES}")
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"attention impl must be 'auto' or 'plain', got {impl!r}")
-    if impl == "auto" and kernel_size == 3:
+    if kernels and kernel_size == 3:
         from smilecode_tpu_torch.kernels.modet_attn import modet_attention
 
         return modet_attention(q.contiguous(), k.contiguous(), rpb, scale)

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smilecode_tpu_torch.kernels import kernel_switch
 from smilecode_tpu_torch.kernels.conv3d_wgrad import (
     Conv3dWgradFunction,
     conv3d_wgrad,
@@ -84,17 +85,19 @@ def reset_torch_default_(model: nn.Module, generator: torch.Generator | None):
                 torch_uniform_(m.bias, m.in_features, generator)
 
 
-def channels_last_convs_(model: nn.Module, kernels: bool):
-    """Store every conv weight as channels_last_3d: the NDHWC activations
-    permuted by `conv3d_ndhwc` are channels_last_3d, so cuDNN takes both
-    without a copy. ``kernels``, the model's kernel switch (False for
-    attn_impl "plain"), becomes each Conv3d's ``wgrad_kernel``: False
-    keeps its weight gradient on cuDNN (`kernels.conv3d_wgrad.wgrad_route`)."""
+def mark_model_(model: nn.Module, attn_impl: str):
+    """Finish building ``model``: store every conv weight as
+    channels_last_3d (the NDHWC activations permuted by `conv3d_ndhwc` are
+    channels_last_3d, so cuDNN takes both without a copy), and set
+    ``kernels``, the model's kernel switch
+    (`kernels.kernel_switch(attn_impl)`), on every submodule, the model
+    included. The ops and routes that reach a hand-written kernel read it
+    there."""
+    kernels = kernel_switch(attn_impl)
     for m in model.modules():
         if isinstance(m, (nn.Conv3d, nn.ConvTranspose3d)):
             m.to(memory_format=torch.channels_last_3d)
-        if type(m) is nn.Conv3d:
-            m.wgrad_kernel = kernels
+        m.kernels = kernels
 
 
 def conv3d_ndhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:

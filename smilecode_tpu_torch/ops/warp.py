@@ -39,53 +39,27 @@ def rescale_factors(src_spatial, flow_spatial):
     return tuple((s - 1) / max(f - 1, 1) for s, f in zip(src_spatial, flow_spatial))
 
 
-# impl names of `smilecode_tpu/ops/warp.py:warp`, and which of them reach
-# the kernel wrapper (K2) for a bilinear warp; the others run `_warp_simple`
-IMPLS = ("auto", "plain", "pallas", "guarded", "simple", "packed")
-KERNEL_IMPLS = ("auto", "pallas", "guarded")
-
-
 def warp(src: torch.Tensor, flow: torch.Tensor, mode: str = "bilinear",
-         impl: str = "auto") -> torch.Tensor:
+         kernels: bool = True) -> torch.Tensor:
     """Warp ``src`` by dense displacement ``flow`` (voxel units, channels-last).
 
-    impl takes the JAX package's names. "auto", "pallas" and "guarded" send
-    the bilinear warp through the Hopper kernel wrapper (`kernels/warp3d.py`:
-    K2, and its adjoint K5 under autograd, for CUDA tensors; the plain
-    version for CPU tensors). "pallas" and "guarded" are the port's
-    counterparts of kernel F's entries (`smilecode_tpu/kernels/warp3d.py:
-    warp3d_pallas`, `warp3d_guarded`), which the baseline models take. F
-    clamps tiles whose (d, h) spread exceeds its window budget and
-    "guarded" falls back to the gather oracle for a whole call when one
-    would; K2 has no window and is exact for every flow. So the port's
-    "pallas" equals JAX "pallas" within F's window budget and equals JAX
-    "guarded" everywhere, and there is no counterpart of
-    `warp_window_violations`. "simple" and "packed" (the JAX package's two
-    XLA formulations of one function) and "plain" run `_warp_simple`. At a
-    NaN or infinite flow every route gives zeros, a zero flow gradient and
-    no source gradient (`guard_non_finite`), as JAX "packed" (its default)
-    does; JAX "simple" gives NaN flow gradients there, so the port's
-    "simple" follows JAX "packed" at such flows.
+    ``kernels`` (the model's kernel switch) True sends the bilinear warp
+    through the Hopper kernel wrapper (`kernels/warp3d.py`: K2, and its
+    adjoint K5 under autograd, for CUDA tensors; the plain version for CPU
+    tensors), the port's counterpart of JAX's kernel F entries
+    ("pallas", "guarded"): K2 has no window and is exact for every flow, so
+    it equals JAX "guarded" everywhere. False runs `_warp_simple`. At a NaN
+    or infinite flow both give zeros, a zero flow gradient and no source
+    gradient (`guard_non_finite`), as JAX "packed" (its default) does.
     Nearest mode (segmentations) always runs `_warp_simple`: the JAX
     package has no kernel for it either.
     """
     check_warp_args(src, flow)
-    if impl not in IMPLS:
-        raise ValueError(f"warp impl must be one of {IMPLS}, got {impl!r}")
-    if mode == "bilinear" and impl in KERNEL_IMPLS:
+    if mode == "bilinear" and kernels:
         from smilecode_tpu_torch.kernels.warp3d import warp3d_trilinear
 
         return warp3d_trilinear(src.contiguous(), flow.contiguous())
     return _warp_simple(src, flow, mode)
-
-
-def baseline_warp_impl(attn_impl: str) -> str:
-    """The impl of every bilinear warp of a baseline model (Im2grid, VTN,
-    RCN, RDN) for its ``attn_impl``: kernel F's entry "guarded" (K2) for
-    "auto", the plain version for "plain"."""
-    if attn_impl not in ("auto", "plain"):
-        raise ValueError(f"attn_impl must be 'auto' or 'plain', got {attn_impl!r}")
-    return "guarded" if attn_impl == "auto" else "plain"
 
 
 def guard_non_finite(coords: torch.Tensor) -> torch.Tensor:

@@ -74,15 +74,16 @@ def encoder_sp(enc, x, mesh: Mesh):
     return outs
 
 
-def attention_sp(mdt, q, k, mesh: Mesh, impl: str = "auto"):
+def attention_sp(mdt, q, k, mesh: Mesh, kernels: bool = True):
     """`models.modet.ModeTransformer` on D slabs: k gets a 1-voxel D halo
     from the neighbours (zeros at the volume's ends, the unsharded zero
-    border), then the attention in halo-k mode."""
+    border), then the attention in halo-k mode (``kernels`` False: its
+    plain version)."""
     b, dl, h, w, _ = q.shape
     kh = halo_exchange(k, 1, mesh)
     q6 = q.reshape(b, dl, h, w, mdt.num_heads, mdt.head_dim)
     k6 = kh.reshape(b, dl + 2, h, w, mdt.num_heads, mdt.head_dim)
-    if impl == "plain":
+    if not kernels:
         return modet_attention_plain(q6, k6, mdt.rpb, mdt.scale, k_halo=True)
     return modet_attention(q6.contiguous(), k6.contiguous(), mdt.rpb, mdt.scale, k_halo=True)
 
@@ -107,13 +108,13 @@ def upsample2_sp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _interp_axis(_interp_axis(up, 2 * h, 2), 2 * w, 3)
 
 
-def warp_sp(src: torch.Tensor, flow: torch.Tensor, mesh: Mesh, impl: str = "auto"):
+def warp_sp(src: torch.Tensor, flow: torch.Tensor, mesh: Mesh, kernels: bool = True):
     """Warp the D slab ``src`` by the local ``flow`` (same slab): the source
     all-gathered over "spatial", sampled at global depth. Exact for any
-    displacement."""
+    displacement. ``kernels`` False: the plain version."""
     src_g = all_gather_d(src, mesh)
     d0 = mesh.spatial_index * flow.shape[1]
-    if impl == "plain":
+    if not kernels:
         return warp3d_trilinear_plain(src_g, flow, d0)
     return warp3d_trilinear(src_g.contiguous(), flow.contiguous(), d0)
 
@@ -133,7 +134,7 @@ class SpatialOps:
     with ``model``'s parameters."""
 
     def __init__(self, model, mesh: Mesh):
-        self.model, self.mesh, self.impl = model, mesh, model.attn_impl
+        self.model, self.mesh, self.kernels = model, mesh, model.kernels
 
     def encode(self, x):
         return encoder_sp(self.model.encoder, x, self.mesh)
@@ -141,13 +142,13 @@ class SpatialOps:
     def attend(self, level, f, m):
         proj = getattr(self.model, f"projblock{level}")
         return attention_sp(getattr(self.model, f"mdt{level}"), proj(f), proj(m), self.mesh,
-                            self.impl)
+                            self.kernels)
 
     def fuse(self, level, x):
         return cwm_sp(getattr(self.model, f"cwm{level}"), x, self.mesh)
 
     def warp(self, src, flow):
-        return warp_sp(src, flow, self.mesh, self.impl)
+        return warp_sp(src, flow, self.mesh, self.kernels)
 
     def upsample(self, x):
         return upsample2_sp(x, self.mesh)
@@ -157,9 +158,10 @@ def modet_forward_spatial(model, moving: torch.Tensor, fixed: torch.Tensor, mesh
     """`ModeT.forward` with D sharded over "spatial" (the same graph, on
     `SpatialOps`): ``moving`` and ``fixed`` are this rank's D slabs (B,
     D/spatial, H, W, 1) of volumes whose D is a multiple of 16 * spatial;
-    returns this rank's slabs of (y_moved, flow). ``model.attn_impl``
-    "auto" runs the kernels' halo-k and D-origin modes on CUDA tensors
-    (their plain versions on CPU tensors), "plain" the plain versions."""
+    returns this rank's slabs of (y_moved, flow). With ``model.kernels``,
+    the model's kernel switch, on: the kernels' halo-k and D-origin modes
+    on CUDA tensors (their plain versions on CPU tensors); off: the plain
+    versions."""
     dl, n = moving.shape[1], mesh.spatial
     if dl % 16:
         raise ValueError(f"D={dl * n} must be divisible by 16*{n}")

@@ -80,6 +80,7 @@ from smilecode_tpu_torch.data import (
     Seg_norm,
     pair_dataset,
 )
+from smilecode_tpu_torch.kernels import launch_counters
 from smilecode_tpu_torch.metrics import dice_val_voi
 from smilecode_tpu_torch.models.registry import CRITERIA, build_model, loss_plan
 from smilecode_tpu_torch.ops.warp import warp
@@ -275,23 +276,6 @@ def _datasets(cfg: TrainConfig):
     val_paths = sorted(glob.glob(os.path.join(cfg.val_dir, "*.pkl")))
     return (pair_dataset(cfg.dataset, train_paths, train_composed, False, cfg.atlas_path),
             pair_dataset(cfg.dataset, val_paths, val_composed, True, cfg.atlas_path))
-
-
-def launch_counters() -> dict:
-    """Every counter of the kernel wrappers K1-K7 in this process
-    (``"K1 launches"``, ``"K1 launches_halo"``, ``"K5 scatters_origin"``,
-    ``"K6 launches"``, ``"K6 declined"``: float32 weight gradients on the
-    card that went to cuDNN because of their shape, ``"K7 launches"``: PR++'s
-    correlations and their adjoints, ...)."""
-    from smilecode_tpu_torch.kernels import conv3d_wgrad, correlation3d, modet_attn, warp3d
-
-    fns = {"K1": modet_attn.modet_attention, "K3": modet_attn.modet_attention_bwd_dq,
-           "K4": modet_attn.modet_attention_bwd_dk, "K2": warp3d.warp3d_trilinear,
-           "K5": warp3d.warp3d_trilinear_bwd, "K6": conv3d_wgrad.conv3d_wgrad,
-           "K7": correlation3d.correlation3d}
-    return {f"{key} {name}": int(value) for key, fn in fns.items()
-            for name, value in sorted(vars(fn).items())
-            if name.startswith(("launches", "scatters", "declined"))}
 
 
 def _train(cfg: TrainConfig, device: torch.device, exp_dir: str, metrics: MetricsWriter, f,

@@ -164,14 +164,14 @@ def test_k7_route(dtype, device, channels, kernels, to_k7):
 
 
 def test_cpu_correlation_takes_the_plain_version_and_launches_nothing():
-    from smilecode_tpu_torch import train
+    from smilecode_tpu_torch.kernels import launch_counters
     from smilecode_tpu_torch.kernels.correlation3d import correlation3d, correlation3d_plain
 
     g = torch.Generator().manual_seed(3)
     mov, fix = (torch.randn((1, 4, 5, 6, 8), generator=g) for _ in range(2))
-    before = train.launch_counters()
+    before = launch_counters()
     assert torch.equal(correlation3d(mov, fix), correlation3d_plain(mov, fix))
-    assert train.launch_counters() == before and "K7 launches" in before
+    assert launch_counters() == before and "K7 launches" in before
     model = _model(attn_impl="auto")
     assert all(getattr(model, f"prblock{i}").kernels for i in range(1, 6))
     assert not any(getattr(_model(), f"prblock{i}").kernels for i in range(1, 6))

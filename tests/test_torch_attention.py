@@ -94,7 +94,7 @@ def test_cotr_matches_jax_pallas_interpret(shape):
     assert out.shape == (1, *shape, 3)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL, rtol=0)
     np.testing.assert_allclose(out.numpy(), np.asarray(jax_cotr(*to_jax(q, k))), atol=TOL, rtol=0)
-    torch.testing.assert_close(cotr(*to_torch(q, k), impl="plain"), out, rtol=0, atol=0)
+    torch.testing.assert_close(cotr(*to_torch(q, k), kernels=False), out, rtol=0, atol=0)
 
 
 def test_plain_kernel_size_5_matches_jax_xla():
@@ -117,7 +117,7 @@ def test_wrapper_on_cpu_runs_plain_without_launch():
     out = modet_attention(q, k, rpb, 1.0)
     assert modet_attention.launches == before
     torch.testing.assert_close(out, modet_attention_plain(q, k, rpb, 1.0), rtol=0, atol=0)
-    via_dispatch = neighborhood_attention_3d(q, k, rpb, 1.0, impl="auto")
+    via_dispatch = neighborhood_attention_3d(q, k, rpb, 1.0, kernels=True)
     torch.testing.assert_close(via_dispatch, out, rtol=0, atol=0)
 
 
@@ -137,8 +137,6 @@ def test_dispatch_rejects_bad_arguments():
     q, k, rpb = to_torch(*make_inputs((3, 3, 3), 1, seed=5))
     with pytest.raises(ValueError, match="whitelist"):
         neighborhood_attention_3d(q, k, rpb, kernel_size=4)
-    with pytest.raises(ValueError, match="impl"):
-        neighborhood_attention_3d(q, k, rpb, impl="pallas")
     with pytest.raises(ValueError, match="equal"):
         modet_attention(q, k[..., :3], rpb)
     with pytest.raises(ValueError, match="rpb"):

@@ -321,11 +321,11 @@ def test_registry_and_config():
     assert (tcfg.n_cascade, tcfg.stages, tcfg.levels, tcfg.dropout_rate) == (10, 4, (4, 4, 4, 4),
                                                                               0.0)
     rdn = build_model("rdn_diff_share", InferConfig(stages=1, levels=(1, 1, 1, 1)))
-    assert isinstance(rdn, RDN) and rdn.share_weights and rdn.diff and rdn.warp_impl == "guarded"
+    assert isinstance(rdn, RDN) and rdn.share_weights and rdn.diff and rdn.kernels is True
     plain = build_model("rdn", InferConfig(attn_impl="plain", stages=1, levels=(1, 1, 1, 1)))
-    assert not plain.share_weights and not plain.diff and plain.warp_impl == "plain"
+    assert not plain.share_weights and not plain.diff and plain.kernels is False
     assert len(build_model("rcn", InferConfig(n_cascade=3)).vtn) == 3
-    assert build_model("im2grid", InferConfig()).warp_impl == "guarded"
+    assert build_model("im2grid", InferConfig()).kernels is True
 
     names = ("modet", "modet-cu", "modet_cu", "modetcu", "im2grid", "pcnet", "prnet",
              "prnetplusplus", "prnet++", "prpp", "vtn", "rcn", "rdn", "rdn_share", "rdn_diff",
@@ -340,7 +340,6 @@ def test_registry_and_config():
         model = build_model(name, InferConfig(attn_impl="plain", stages=1, levels=(1, 1, 1, 1),
                                               n_cascade=1), device="meta")
         assert type(model).__name__.lower() == type(spec.module).__name__.lower(), name
-        assert getattr(model, "warp_impl", "plain") == "plain"
     for bad in ("nope", "pcnet2", "prnet+"):
         with pytest.raises(ValueError, match="unknown"):
             build_model(bad, cfg, device="meta")
@@ -356,6 +355,21 @@ def test_registry_and_config():
         build_model("pcnet", InferConfig(compute_dtype="bfloat16"))
     with pytest.raises(ValueError, match="attn_impl"):
         build_model("vtn", InferConfig(attn_impl="xla"))
+
+
+@pytest.mark.parametrize("attn_impl", ["auto", "plain"])
+@pytest.mark.parametrize("name", ["modet", "modet-cu", "im2grid", "pcnet", "prnet",
+                                  "prnetplusplus", "vtn", "rcn", "rdn", "rdn_share", "rdn_diff",
+                                  "rdn_diff_share"])
+def test_every_submodule_carries_the_kernel_switch(name, attn_impl):
+    """A registry model carries its kernel switch as ``kernels`` on every
+    submodule, the model included, at the value ``attn_impl`` parses to
+    ("modet-cu" on whatever ``attn_impl``), and no other encoding of it."""
+    cfg = InferConfig(attn_impl=attn_impl, n_cascade=2, stages=2, levels=(1, 1, 1, 1))
+    model = build_model(name, cfg, device="meta")
+    want = attn_impl == "auto" or name == "modet-cu"
+    assert {m.kernels for m in model.modules()} == {want}
+    assert not [key for m in model.modules() for key in vars(m) if key.endswith("_impl")]
 
 
 def write_subjects(test_dir, shape, n=3, seed=13):

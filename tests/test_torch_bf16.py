@@ -219,18 +219,18 @@ def test_warp_bf16_and_its_adjoint_match_jax_kernels_d_g(hw_warp_interpret):
 @pytest.mark.parametrize("src_shape,flow_shape", [((8, 10, 6), (8, 10, 6)),
                                                   ((9, 11, 7), (5, 6, 4))])  # shape mismatch
 def test_warp_bf16_matches_jax_ops_warp_and_f_entries(src_shape, flow_shape):
-    """The port's ``warp`` of a bf16 source, through every impl that reaches
-    K2 ("auto" and F's entries "pallas", "guarded"), against JAX's packed
-    warp and its kernel F in interpret mode: bf16 out within 2 ulps."""
+    """The port's ``warp`` of a bf16 source with the kernel switch on (the
+    K2 wrapper, the counterpart of F's entries "pallas" and "guarded"),
+    against JAX's packed warp and its kernel F in interpret mode: bf16 out
+    within 2 ulps."""
     src, flow = rand((1, *src_shape, 4), 11), smooth_flow(flow_shape, 1.2)
     js, jf = jnp.asarray(src, jnp.bfloat16), jnp.asarray(flow)
     refs = {"packed": jax_warp(js, jf), "pallas": jax_warp(js, jf, impl="pallas"),
             "guarded": jax_warp(js, jf, impl="guarded")}
     plain = warp3d_trilinear_plain(torch.from_numpy(src).to(BF16), torch.from_numpy(flow))
-    for impl in ("auto", "pallas", "guarded"):
-        out = warp(torch.from_numpy(src).to(BF16), torch.from_numpy(flow), impl=impl)
-        assert out.dtype == BF16 and out.shape == (1, *flow_shape, 4)
-        torch.testing.assert_close(out, plain, rtol=0, atol=0)
+    out = warp(torch.from_numpy(src).to(BF16), torch.from_numpy(flow), kernels=True)
+    assert out.dtype == BF16 and out.shape == (1, *flow_shape, 4)
+    torch.testing.assert_close(out, plain, rtol=0, atol=0)
     for name, ref in refs.items():
         assert ref.dtype == jnp.bfloat16, name
         ref = np.asarray(ref, np.float32)

@@ -22,6 +22,7 @@ import chip_smoke
 from smilecode_tpu_torch import train
 from smilecode_tpu_torch.config import InferConfig, TrainConfig
 from smilecode_tpu_torch.kernels import conv3d_wgrad as k6
+from smilecode_tpu_torch.kernels import launch_counters
 from smilecode_tpu_torch.models.modet import ModeT
 from smilecode_tpu_torch.models.registry import build_model, loss_plan
 from smilecode_tpu_torch.ops import blocks
@@ -215,16 +216,16 @@ def test_rule_leaves_other_convolutions_to_cudnn(case, want):
     elif case == "on the CPU":
         device = "cpu"
     elif case == "a plain model's":
-        blocks.channels_last_convs_(conv, kernels=False)
+        blocks.mark_model_(conv, "plain")
     assert k6.wgrad_route(conv, dtype, device, grad) == want
 
 
-def _stack(kernels=True):
+def _stack(attn_impl="auto"):
     """A Sequential as the models hold them: a k3 s1 conv K6 takes, a
     LeakyReLU, a stride-2 conv, a 256-wide conv and a k3 s1 conv to 3."""
     seq = nn.Sequential(nn.Conv3d(4, 8, 3, 1, 1), nn.LeakyReLU(0.1), nn.Conv3d(8, 256, 3, 2, 1),
                         nn.Conv3d(256, 8, 3, 1, 1), nn.Conv3d(8, 3, 3, 1, 1))
-    blocks.channels_last_convs_(seq, kernels=kernels)
+    blocks.mark_model_(seq, attn_impl)
     return seq
 
 
@@ -256,7 +257,7 @@ def test_rule_routes_each_child_of_a_sequential(monkeypatch):
 @pytest.mark.parametrize("case", ["no gradient wanted", "on the CPU", "a plain model's"])
 def test_rule_leaves_every_child_of_a_sequential_to_cudnn(monkeypatch, case):
     x = torch.rand((1, 4, 6, 8, 4))
-    asked = _routes_through(monkeypatch, _stack(kernels=case != "a plain model's"), x,
+    asked = _routes_through(monkeypatch, _stack("plain" if case == "a plain model's" else "auto"), x,
                             device_type="cpu" if case == "on the CPU" else "cuda",
                             grad=case != "no gradient wanted")
     assert [name for name, _ in asked] == ["Conv3d", "LeakyReLU", "Conv3d", "Conv3d", "Conv3d"]
@@ -376,5 +377,5 @@ def test_cpu_training_forward_takes_todays_path(monkeypatch):
 
 
 def test_launch_counters_report_k6():
-    counters = train.launch_counters()
+    counters = launch_counters()
     assert "K6 launches" in counters and "K6 declined" in counters

@@ -42,6 +42,7 @@ from smilecode_tpu_torch.kernels.modet_attn import (
     modet_attention_plain,
 )
 from smilecode_tpu_torch.kernels import conv3d_wgrad as k6
+from smilecode_tpu_torch.kernels import launch_counters
 from smilecode_tpu_torch.kernels import probes
 from smilecode_tpu_torch.kernels.warp3d import (
     warp3d_trilinear,
@@ -332,25 +333,24 @@ def test_warp_kernel_matches_plain(dev, src_shape, flow_shape, c, kind, misalign
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5 * float(src.abs().max()))
 
 
-@pytest.mark.parametrize("impl", ["pallas", "guarded", "auto"])
 @pytest.mark.parametrize("src_shape,flow_shape,c,amp", [
     ((8, 10, 8), (8, 10, 8), 16, 2.0),
     ((6, 7, 8), (6, 7, 8), 3, 20.0),
     ((9, 11, 7), (5, 6, 4), 1, 1.0),  # shape-mismatch rescale
 ])
-def test_warp_f_entries_launch_k2(dev, impl, src_shape, flow_shape, c, amp):
-    """``ops.warp(impl="pallas"|"guarded")``, kernel F's entries, launch K2
-    once per bilinear warp and match the plain version; nearest mode and
-    ``impl="simple"`` launch nothing."""
+def test_warp_f_entries_launch_k2(dev, src_shape, flow_shape, c, amp):
+    """``ops.warp(kernels=True)``, the counterpart of kernel F's entries,
+    launches K2 once per bilinear warp and matches the plain version;
+    nearest mode and ``kernels=False`` launch nothing."""
     from smilecode_tpu_torch.ops.warp import warp
 
     src = rand((1, *src_shape, c), 25)
     flow = rand((1, *flow_shape, 3), 26, amp)
     ref = warp3d_trilinear_plain(src, flow)
     before = warp3d_trilinear.launches
-    out = warp(src.to(dev), flow.to(dev), impl=impl)
-    warp(src.to(dev), flow.to(dev), mode="nearest", impl=impl)
-    warp(src.to(dev), flow.to(dev), impl="simple")
+    out = warp(src.to(dev), flow.to(dev), kernels=True)
+    warp(src.to(dev), flow.to(dev), mode="nearest", kernels=True)
+    warp(src.to(dev), flow.to(dev), kernels=False)
     torch.cuda.synchronize()
     assert warp3d_trilinear.launches == before + 1
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-5 * float(src.abs().max()))
@@ -559,11 +559,10 @@ def test_bf16_warp_kernels_match_plain(dev, src_shape, flow_shape, c, kind, misa
     g = on_card(rand((2, *flow_shape, c), 37).to(BF16), dev, misaligned)
     vector = vector_path(c, BF16, misaligned)
     ref = warp3d_trilinear_plain(src, flow)
-    for impl in ("auto", "pallas", "guarded"):
-        before = (warp3d_trilinear.launches_bf16, warp3d_trilinear.launches_vector)
-        assert_bf16_close(warp(src, flow, impl=impl), ref, f"out ({impl})")
-        assert (warp3d_trilinear.launches_bf16, warp3d_trilinear.launches_vector) == (
-            before[0] + 1, before[1] + vector)
+    before = (warp3d_trilinear.launches_bf16, warp3d_trilinear.launches_vector)
+    assert_bf16_close(warp(src, flow, kernels=True), ref, "out")
+    assert (warp3d_trilinear.launches_bf16, warp3d_trilinear.launches_vector) == (
+        before[0] + 1, before[1] + vector)
     counters = ("launches_bf16", "scatters_bf16", "launches_vector")
     before = [getattr(warp3d_trilinear_bwd, k) for k in counters]
     d_src, d_flow = warp3d_trilinear_bwd(src, flow, g, True)
@@ -878,33 +877,49 @@ def _modet_step(dev, shape, seed=5, attn_impl="auto"):
 
 
 def test_k6_launches_31_times_a_modet_step_and_never_in_registration(dev):
-    from smilecode_tpu_torch import infer, train
+    from smilecode_tpu_torch import infer
 
     model, loss_and_grads, x, y = _modet_step(dev, (32, 32, 32))
     seg = torch.randint(0, 4, (1, 32, 32, 32, 1)).to(torch.int16).to(dev)
-    before = train.launch_counters()
+    before = launch_counters()
     loss_and_grads(x, y)
     torch.cuda.synchronize()
-    mid = train.launch_counters()
+    mid = launch_counters()
     model.eval()
     infer.make_infer_step(model)(x, y, seg, seg)
     torch.cuda.synchronize()
-    after = train.launch_counters()
+    after = launch_counters()
     assert (mid["K6 launches"] - before["K6 launches"], mid["K6 declined"] - before["K6 declined"]) \
         == (31, 0)
     assert (after["K6 launches"], after["K6 declined"]) == (mid["K6 launches"], mid["K6 declined"])
 
 
-def test_plain_modet_step_launches_no_k6(dev):
-    """attn_impl "plain" runs no hand-written kernel: every weight gradient
-    of its step comes from cuDNN."""
-    from smilecode_tpu_torch import train
+PLAIN_FAMILIES = [("modet", (32, 32, 32), {}), ("im2grid", (32, 32, 32), {}),
+                  ("pcnet", (32, 32, 32), {}), ("prnet", (32, 32, 32), {}),
+                  ("prnetplusplus", (32, 32, 32), {}), ("vtn", (64, 64, 64), {}),
+                  ("rcn", (64, 64, 64), {"n_cascade": 2}),
+                  *((name, (32, 32, 32), {"stages": 2, "levels": (2, 1, 1, 2)})
+                    for name in ("rdn", "rdn_share", "rdn_diff", "rdn_diff_share"))]
 
-    _, loss_and_grads, x, y = _modet_step(dev, (32, 32, 32), attn_impl="plain")
-    before = train.launch_counters()
+
+@pytest.mark.parametrize("name,shape,knobs", PLAIN_FAMILIES, ids=[f[0] for f in PLAIN_FAMILIES])
+def test_plain_modet_step_launches_no_k6(dev, name, shape, knobs):
+    """attn_impl "plain" runs no hand-written kernel: a loss-and-gradients
+    pass of every family on the card launches none of K1-K7 (every weight
+    gradient comes from cuDNN)."""
+    from smilecode_tpu_torch.config import TrainConfig
+    from smilecode_tpu_torch.models.registry import build_model, loss_plan
+    from smilecode_tpu_torch.train import make_loss_and_grads
+
+    cfg = TrainConfig(model=name, attn_impl="plain", **knobs)
+    model = build_model(name, cfg, device=dev, generator=torch.Generator().manual_seed(5))
+    loss_and_grads = make_loss_and_grads(model, loss_plan(name, cfg), (1.0, 1.0))
+    gen = torch.Generator().manual_seed(6)
+    x, y = (torch.rand((1, *shape, 1), generator=gen).to(dev) for _ in range(2))
+    before = launch_counters()
     loss_and_grads(x, y)
     torch.cuda.synchronize()
-    assert train.launch_counters() == before
+    assert launch_counters() == before
 
 
 def _k6_step_matches_cudnn(model, loss_and_grads, x, y, k6_calls):
@@ -915,7 +930,6 @@ def _k6_step_matches_cudnn(model, loss_and_grads, x, y, k6_calls):
     model's). The second pass turns the model's kernel switch for its convs
     off, as attn_impl "plain" does; every other kernel stays on."""
     from chip_smoke import STEP_GRAD_FLOOR, STEP_GRAD_TOL
-    from smilecode_tpu_torch.ops import blocks
 
     torch.backends.cudnn.allow_tf32 = False
     launches = k6.conv3d_wgrad.launches
@@ -923,7 +937,9 @@ def _k6_step_matches_cudnn(model, loss_and_grads, x, y, k6_calls):
     assert k6.conv3d_wgrad.launches == launches + k6_calls
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    blocks.channels_last_convs_(model, kernels=False)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv3d):
+            m.kernels = False
     ref_loss, _ = loss_and_grads(x, y)
     assert k6.conv3d_wgrad.launches == launches + k6_calls
     assert torch.equal(loss, ref_loss)
@@ -1048,34 +1064,32 @@ def _prpp(dev, shape, seed=5, attn_impl="auto"):
 
 
 def test_k7_launches_10_times_a_prpp_step_and_5_a_registered_pair(dev):
-    from smilecode_tpu_torch import infer, train
+    from smilecode_tpu_torch import infer
 
     model, loss_and_grads, x, y = _prpp(dev, (32, 32, 32))
     seg = torch.randint(0, 4, (1, 32, 32, 32, 1)).to(torch.int16).to(dev)
-    before = train.launch_counters()["K7 launches"]
+    before = launch_counters()["K7 launches"]
     loss_and_grads(x, y)
     torch.cuda.synchronize()
-    mid = train.launch_counters()["K7 launches"]
+    mid = launch_counters()["K7 launches"]
     model.eval()
     infer.make_infer_step(model)(x, y, seg, seg)
     torch.cuda.synchronize()
-    assert (mid - before, train.launch_counters()["K7 launches"] - mid) == (10, 5)
+    assert (mid - before, launch_counters()["K7 launches"] - mid) == (10, 5)
 
 
 def test_plain_prpp_step_launches_no_kernel(dev):
     """attn_impl "plain" runs no hand-written kernel: K7 included."""
-    from smilecode_tpu_torch import train
-
     _, loss_and_grads, x, y = _prpp(dev, (32, 32, 32), attn_impl="plain")
-    before = train.launch_counters()
+    before = launch_counters()
     loss_and_grads(x, y)
     torch.cuda.synchronize()
-    assert train.launch_counters() == before
+    assert launch_counters() == before
 
 
-def test_prpp_step_with_k7_matches_the_step_on_the_plain_correlation(dev):
+def test_prpp_step_with_k7_matches_the_step_on_the_plain_correlation(dev, monkeypatch):
     """A full-size PR++ loss-and-gradients pass with K7 against the same
-    pass with the plain correlation (the blocks' kernel switch off; every
+    pass with the plain correlation (`k7_route` answering False; every
     other kernel on in both): the loss within chip_smoke.py's STEP_LOSS_TOL,
     every leaf's gradient within its phase-9 gates (STEP_GRAD_TOL of its
     largest |gradient| + STEP_GRAD_FLOOR of the model's)."""
@@ -1089,8 +1103,7 @@ def test_prpp_step_with_k7_matches_the_step_on_the_plain_correlation(dev):
     assert k7.correlation3d.launches == launches + 10
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    for i in range(1, 6):
-        getattr(model, f"prblock{i}").kernels = False
+    monkeypatch.setattr(k7, "k7_route", lambda *args: False)
     ref_loss, _ = loss_and_grads(x, y)
     assert k7.correlation3d.launches == launches + 10
     assert abs(float(loss) - float(ref_loss)) <= STEP_LOSS_TOL * abs(float(ref_loss))

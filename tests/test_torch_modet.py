@@ -145,8 +145,8 @@ def test_load_torch_checkpoint_drops_buffers(tmp_path):
 def test_registry():
     cfg = InferConfig()
     model = build_model("modet-cu", InferConfig(attn_impl="plain"))
-    assert model.attn_impl == "auto"
-    assert build_model("modet", InferConfig(attn_impl="plain")).attn_impl == "plain"
+    assert model.kernels is True
+    assert build_model("modet", InferConfig(attn_impl="plain")).kernels is False
     assert type(build_model("pcnet", cfg, device="meta")).__name__ == "PCNet"
     assert type(build_model("prnet++", cfg, device="meta")).__name__ == "PRNetPlusPlus"
     assert type(build_model("rdn-diff", InferConfig(stages=1, levels=(1, 1, 1, 1)))).__name__ == "RDN"

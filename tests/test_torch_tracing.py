@@ -14,6 +14,7 @@ import torch
 
 from smilecode_tpu_torch import infer, train
 from smilecode_tpu_torch.data import Loader
+from smilecode_tpu_torch.kernels import launch_counters
 from smilecode_tpu_torch.kernels.modet_attn import (
     modet_attention,
     modet_attention_bwd_dk,
@@ -203,14 +204,14 @@ def test_kernel_spans_count_the_launches_on_the_card():
     infer_step = infer.make_infer_step(model)
     step(x, y)  # the kernels' build
     profiling.reset()
-    before = train.launch_counters()
+    before = launch_counters()
     with profiled():
         model.train()
         step(x, y)
         model.eval()
         infer_step(x, y, seg, seg)
         torch.cuda.synchronize()
-    after = train.launch_counters()
+    after = launch_counters()
     spans = collections.Counter(s.name for s in profiling.spans())
     for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
         grew = after[f"{k} launches"] - before[f"{k} launches"]

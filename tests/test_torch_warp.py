@@ -2,13 +2,12 @@
 interpret mode on smooth flows within its window budget, and the naive
 gather oracle `_warp_simple` on every flow, including a wild one the TPU
 kernels' budgets could not take. Kernel F's entries: the port's
-``warp(impl="pallas")`` vs JAX ``warp(impl="pallas")`` (F in interpret
-mode) on smooth flows within F's window, and ``impl="guarded"`` vs JAX
-``impl="guarded"`` on smooth and wild flows, with a shape mismatch; the
-mapping of the JAX impl names. The written-out adjoint
-(`warp3d_trilinear_bwd_plain`, K5's oracle) vs the VJPs of the JAX oracle and
-of JAX `ops.warp`, the v3 d_coords kernel in interpret mode, and torch
-autograd.
+``warp(kernels=True)`` vs JAX ``warp(impl="pallas")`` (F in interpret
+mode) on smooth flows within F's window, and vs JAX ``impl="guarded"`` on
+smooth and wild flows, with a shape mismatch; the kernel switch's routes.
+The written-out adjoint (`warp3d_trilinear_bwd_plain`, K5's oracle) vs the
+VJPs of the JAX oracle and of JAX `ops.warp`, the v3 d_coords kernel in
+interpret mode, and torch autograd.
 
 Tolerance 1e-5 absolute on unit-scale sources: 8 float32 products summed in
 the same corner order on both sides. Adjoints 2e-5 times their largest
@@ -35,7 +34,7 @@ from smilecode_tpu_torch.kernels.warp3d import (
     warp3d_trilinear_plain,
 )
 from smilecode_tpu_torch.kernels import warp3d as port_warp3d
-from smilecode_tpu_torch.ops.warp import IMPLS, KERNEL_IMPLS, _warp_simple, base_grid, warp
+from smilecode_tpu_torch.ops.warp import _warp_simple, base_grid, warp
 
 torch.set_num_threads(1)
 TOL = 1e-5
@@ -249,8 +248,6 @@ def test_bad_shapes_raise():
         warp(torch.zeros((1, 4, 4, 4)), torch.zeros((1, 4, 4, 4, 3)))
     with pytest.raises(ValueError, match="batch"):
         warp(torch.zeros((2, 4, 4, 4, 1)), torch.zeros((1, 4, 4, 4, 3)))
-    with pytest.raises(ValueError, match="impl"):
-        warp(torch.zeros((1, 4, 4, 4, 1)), torch.zeros((1, 4, 4, 4, 3)), impl="cuda")
 
 
 @pytest.mark.parametrize("src_shape,flow_shape,c,amp,freq", [
@@ -265,7 +262,7 @@ def test_pallas_matches_jax_f_interpret(src_shape, flow_shape, c, amp, freq):
     src, fl = source(src_shape, c, 31), smooth_flow(flow_shape, amp, freq)
     assert float(warp_window_violations(jnp.asarray(fl), src_shape)) == 0.0
     ref = np.asarray(jax_warp(jnp.asarray(src), jnp.asarray(fl), impl="pallas"))
-    out = warp(torch.from_numpy(src), torch.from_numpy(fl), impl="pallas")
+    out = warp(torch.from_numpy(src), torch.from_numpy(fl), kernels=True)
     assert out.shape == (1, *flow_shape, c)
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
 
@@ -282,26 +279,25 @@ def test_guarded_matches_jax_guarded(src_shape, flow_shape, c, kind, amp):
     viol = float(warp_window_violations(jnp.asarray(fl), src_shape))
     assert (viol > 0) == (kind == "wild")
     ref = np.asarray(jax_warp(jnp.asarray(src), jnp.asarray(fl), impl="guarded"))
-    out = warp(torch.from_numpy(src), torch.from_numpy(fl), impl="guarded")
+    out = warp(torch.from_numpy(src), torch.from_numpy(fl), kernels=True)
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("kernels", [True, False])
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
-def test_impl_names_map_to_the_kernel_wrapper_or_plain(monkeypatch, impl, mode):
-    """"auto", "pallas" and "guarded" reach the K2 wrapper for a bilinear
-    warp (on the CPU: its plain version); the rest, and nearest mode, run
-    `_warp_simple`. Every name gives the same numbers on the CPU."""
+def test_impl_names_map_to_the_kernel_wrapper_or_plain(monkeypatch, kernels, mode):
+    """With the kernel switch on, a bilinear warp reaches the K2 wrapper (on
+    the CPU: its plain version); off, and in nearest mode, it runs
+    `_warp_simple`. Both give the same numbers on the CPU."""
     calls = []
     plain = port_warp3d.warp3d_trilinear_plain
     monkeypatch.setattr(port_warp3d, "warp3d_trilinear_plain",
                         lambda s, f, d0: calls.append(1) or plain(s, f, d0))
     src = torch.from_numpy(source((5, 6, 7), 2, 34))
     fl = torch.from_numpy(wild_flow((5, 6, 7), 3.0, 35))
-    out = warp(src, fl, mode=mode, impl=impl)
-    assert len(calls) == int(mode == "bilinear" and impl in KERNEL_IMPLS)
+    out = warp(src, fl, mode=mode, kernels=kernels)
+    assert len(calls) == int(mode == "bilinear" and kernels)
     torch.testing.assert_close(out, _warp_simple(src, fl, mode), rtol=0, atol=0)
-    assert port_warp3d.warp3d_pallas is port_warp3d.warp3d_guarded is port_warp3d.warp3d_trilinear
 
 
 def nan_flow_case():

@@ -8,11 +8,10 @@ DIR is an unpacked checkout of an earlier commit (for example
 ``git archive <commit> | tar -x -C _checkout/parent``); its
 `smilecode_tpu_torch/csrc/warp3d.cu`, `warp3d_bwd.cu` and `common.cu` are
 built with this checkout's nvcc flags into a library of their own
-(`attn_ab.build_checkouts`). Its entry points take a D origin ``d0`` only
-if its sources do; this checkout's take ``d0 = 0``, as ModeT's unsharded
-path passes it. Both builds are called the same way, straight through
-ctypes, with the allocations `kernels/warp3d.py` makes (K5's d_src zeroed
-per call).
+(`attn_ab.build_checkouts`). Both builds' entry points take this
+checkout's arguments, the D origin ``d0 = 0`` as ModeT's unsharded path
+passes it, and are called the same way, straight through ctypes, with the
+allocations `kernels/warp3d.py` makes (K5's d_src zeroed per call).
 
 At each of the nine warps of a ModeT pair at 160x192x160
 (`chip_smoke.warp_calls`), float32, on a smooth +-5 voxel flow, both
@@ -41,43 +40,36 @@ from attn_ab import build_checkouts
 UNITS = ("warp3d.cu", "warp3d_bwd.cu", "common.cu")
 
 
-def takes_d0(top) -> bool:
-    """Whether the warp entry points of the checkout at ``top`` take ``d0``."""
-    with open(os.path.join(top, "smilecode_tpu_torch", "csrc", "warp3d.cu")) as f:
-        return "int d0" in f.read()
-
-
-def warp_fns(lib, d0: bool):
-    """(K2, K5) float32 entry points of a built checkout with their argument
-    types: this checkout's, less ``d0`` for a checkout before it."""
+def warp_fns(lib):
+    """(K2, K5) float32 entry points of a built checkout with this
+    checkout's argument types."""
     from smilecode_tpu_torch.kernels import _build, warp3d
 
     fns = []
-    for name, argtypes, d0_at in (("smilecode_warp3d_trilinear_fwd", warp3d._FWD_ARGTYPES, 12),
-                                  ("smilecode_warp3d_trilinear_bwd", warp3d._BWD_ARGTYPES, 14)):
+    for name, argtypes in (("smilecode_warp3d_trilinear_fwd", warp3d._FWD_ARGTYPES),
+                           ("smilecode_warp3d_trilinear_bwd", warp3d._BWD_ARGTYPES)):
         fn = getattr(lib, name)
-        fn.argtypes = argtypes if d0 else argtypes[:d0_at] + argtypes[d0_at + 1:]
+        fn.argtypes = argtypes
         fn.restype = _build.ctypes.c_int
         fns.append(fn)
     return fns
 
 
-def caller(lib, d0: bool):
+def caller(lib):
     """{"K2": f(src, flow), "K5": f(src, flow, g, want_dsrc)} calling the
     build's entry points directly on the current stream."""
     import torch
 
     from smilecode_tpu_torch.kernels.warp3d import _lanes_per_voxel, _scale
 
-    k2, k5 = warp_fns(lib, d0)
-    origin = (0,) if d0 else ()
+    k2, k5 = warp_fns(lib)
 
     def fwd(src, flow):
         b, sd, sh, sw, c = src.shape
         out = torch.empty((b, *flow.shape[1:4], c), dtype=src.dtype, device=src.device)
         lanes = _lanes_per_voxel(c, 4, src.data_ptr(), out.data_ptr())
         code = k2(src.data_ptr(), flow.data_ptr(), out.data_ptr(), b, sd, sh, sw, c, lanes,
-                  *flow.shape[1:4], *origin, *_scale(src, flow),
+                  *flow.shape[1:4], 0, *_scale(src, flow),
                   torch.cuda.current_stream().cuda_stream)
         cs.require(code == 0, f"K2 launch: CUDA error {code}")
         return out
@@ -90,7 +82,7 @@ def caller(lib, d0: bool):
         ptrs = (src.data_ptr(), g.data_ptr()) + ((d_src.data_ptr(),) if want_dsrc else ())
         code = k5(src.data_ptr(), flow.data_ptr(), g.data_ptr(),
                   d_src.data_ptr() if want_dsrc else None, d_flow.data_ptr(), b, sd, sh, sw, c,
-                  _lanes_per_voxel(c, 4, *ptrs), *flow.shape[1:4], *origin, *_scale(src, flow),
+                  _lanes_per_voxel(c, 4, *ptrs), *flow.shape[1:4], 0, *_scale(src, flow),
                   torch.cuda.current_stream().cuda_stream)
         cs.require(code == 0, f"K5 launch: CUDA error {code}")
         return d_src, d_flow
@@ -117,7 +109,7 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     (parent_lib, _), = build_checkouts({"parent": args.parent}, UNITS).values()
-    runs = {"parent": caller(parent_lib, takes_d0(args.parent)), "new": caller(_build.library(), True)}
+    runs = {"parent": caller(parent_lib), "new": caller(_build.library())}
     device = torch.device("cuda:0")
     rng = np.random.default_rng(2)
     order = ("parent", "new", "new", "parent") * args.rounds
