@@ -247,6 +247,15 @@ The Hopper kernels with no TPU counterpart (run after phase 7):
    of the forward and of the adjoint, the eager correlation's forward and
    forward + backward in float32 and the bounds, summed over one step's 10
    calls.
+35. K8, ModeT's LayerNorm and its backward, at its five projections at
+   160x192x160 (`K8_SHAPES`), on the fixed and on the moving features: y,
+   dz within K8_TOL of the largest |value| of LayerNorm in float64 on the
+   card, dgamma and dbeta within K8_TOL of the largest column sum of their
+   terms' magnitudes; two calls give the same bits; per shape the call ms
+   and device ms of the forward and of the backward, `F.layer_norm`'s
+   forward and forward + backward (the library call, and the plain
+   version) and the bounds, summed over a pair's 10 forwards and a step's
+   10 forwards and 10 backwards.
 
 Every failed check raises, so the exit code is non-zero; without a CUDA card
 it exits non-zero before printing any result. Each phase's seconds and the
@@ -265,7 +274,8 @@ modes of the D-sharded step (phase 30's times, rank 0's launches in phase
 32's `train.main(spatial=2)`), then K6 (phase 33's times, phase 8's
 launches and ``declined``), then K7 (phase 34's times, forward and adjoint
 summed; the launches of phase 23's PR++ run: 10 a step, 5 a validation
-pair); each with its
+pair), then K8 (phase 35's times, forward and backward summed over a step;
+phase 8's launches: 20 a step, 10 a validation pair); each with its
 bound (bytes or float32 operations
 at the card's published peaks) and, for K2 and K5, the time of
 `F.grid_sample` (forward or backward) on the same inputs, and per distinct
@@ -1409,17 +1419,126 @@ def check_k7(device, size=SIZE):
     return (max_err, *sums, tuple(work), by_shape)
 
 
+# K8 (ModeT's LayerNorm) at its five projections: (level as `level_shape`
+# counts it, width 6 x heads); each on the fixed and on the moving features,
+# a forward each in a pair, a forward and a backward each in a step
+K8_SHAPES = ((1, 6), (2, 6), (3, 12), (4, 24), (5, 48))
+K8_TOL = 1e-5  # times the largest |value| of the float64 version (card tests)
+K8_EPS = 1e-5  # ModeT's `ProjectionLayer`
+
+
+def k8_case(z, weight, bias, dy):
+    """K8's forward and backward on one case (``z`` and the cotangent
+    ``dy`` (..., N), ``weight`` and ``bias`` (N), float32 on the card): one
+    launch a call, two calls give the same bits; y and dz each within K8_TOL
+    of the largest |value| of LayerNorm in float64 (dz as autograd takes it
+    there), dgamma and dbeta within K8_TOL of the largest column sum of
+    |dy xh| and of |dy| (float32 sums over up to 4.9 M rows, which can
+    cancel to far below their terms). Returns (the four errors, the worst
+    error over its gate)."""
+    import torch
+    import torch.nn.functional as F
+
+    from smilecode_tpu_torch.kernels.layer_norm import layer_norm, layer_norm_bwd, layer_norm_fwd
+
+    what = f"K8 {tuple(z.shape)}"
+    before = layer_norm.launches
+    got = (layer_norm_fwd(z, weight, bias, K8_EPS), *layer_norm_bwd(dy, z, weight, K8_EPS))
+    again = (layer_norm_fwd(z, weight, bias, K8_EPS), *layer_norm_bwd(dy, z, weight, K8_EPS))
+    torch.cuda.synchronize()
+    require(layer_norm.launches == before + 4, f"{what}: launches")
+    require(all(torch.equal(a, b) for a, b in zip(got, again)), f"{what}: two calls differ")
+    n = z.shape[-1]
+    z64, w64, b64 = (t.double().requires_grad_() for t in (z, weight, bias))
+    dy64 = dy.double()
+    ref = F.layer_norm(z64, (n,), w64, b64, K8_EPS)
+    refs = (ref.detach(), *torch.autograd.grad(ref, (z64, w64, b64), dy64))
+    xh = F.layer_norm(z64.detach(), (n,), None, None, K8_EPS)
+    scales = (float(refs[0].abs().max()), float(refs[1].abs().max()),
+              float((dy64 * xh).abs().reshape(-1, n).sum(0).max()),
+              float(dy64.abs().reshape(-1, n).sum(0).max()))
+    errs = [float((a.double() - b).abs().max()) for a, b in zip(got, refs)]
+    worst = max(e / (K8_TOL * max(s, 1e-30)) for e, s in zip(errs, scales))
+    return errs, worst
+
+
+def check_k8(device, size=SIZE):
+    """Phase 35: K8 at ModeT's five projections (`K8_SHAPES`) at ``size``,
+    on the fixed and on the moving features, each through `k8_case`. Per
+    shape: call ms (CUDA events) and device ms of the forward and of the
+    backward, `F.layer_norm`'s forward and forward + backward in float32
+    (the library call; the plain version is that call) and the bounds (z
+    read and y written once; z and dy read and dz written once). Returns
+    (max err, per-step sums of ms, library ms and device ms, per-step work,
+    by_shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from smilecode_tpu_torch.kernels.layer_norm import layer_norm_bwd, layer_norm_fwd
+
+    gen = torch.Generator(device=device).manual_seed(35)
+    worst, max_err, sums, pair, work, by_shape = 0.0, 0.0, np.zeros(3), np.zeros(2), 0.0, {}
+    for level, n in K8_SHAPES:
+        shape = (1, *level_shape(level, size), n)
+        weight, bias = 1 + 0.1 * torch.randn(n, device=device, generator=gen), \
+            0.1 * torch.randn(n, device=device, generator=gen)
+        shape_err = 0.0
+        for what in ("f", "m"):
+            z = 2 * torch.randn(shape, device=device, generator=gen) + 0.5
+            dy = torch.randn(shape, device=device, generator=gen)
+            errs, case_worst = k8_case(z, weight, bias, dy)
+            worst, shape_err = max(worst, case_worst), max(shape_err, *errs)
+            print(f"K8 {what} {'x'.join(map(str, shape))}: err y {errs[0]:.3e}, dz {errs[1]:.3e}, "
+                  f"dgamma {errs[2]:.3e}, dbeta {errs[3]:.3e}", flush=True)
+        zg, wg, bg = (t.clone().requires_grad_() for t in (z, weight, bias))
+
+        def library_step():
+            torch.autograd.grad(F.layer_norm(zg, (n,), wg, bg, K8_EPS), (zg, wg, bg), dy)
+
+        max_err = max(max_err, shape_err)
+        rec = {"err": shape_err,
+               "ms": event_ms(lambda: layer_norm_fwd(z, weight, bias, K8_EPS), 10),
+               "device_ms": device_ms(lambda: layer_norm_fwd(z, weight, bias, K8_EPS), 10),
+               "bwd_ms": event_ms(lambda: layer_norm_bwd(dy, z, weight, K8_EPS), 10),
+               "bwd_device_ms": device_ms(lambda: layer_norm_bwd(dy, z, weight, K8_EPS), 10),
+               "library_ms": event_ms(lambda: F.layer_norm(z, (n,), weight, bias, K8_EPS), 10),
+               "library_step_ms": event_ms(library_step, 10)}
+        rec["bound_ms"] = bound(8 * z.numel(), 0)[0]
+        rec["bwd_bound_ms"] = bound(12 * z.numel(), 0)[0]
+        key = shape_label(n, shape[1:-1])
+        by_shape[key] = rec
+        # two calls a shape (f and m): a pair's forwards, a step's forwards and backwards
+        sums += 2 * np.array([rec["ms"] + rec["bwd_ms"], rec["library_step_ms"],
+                              rec["device_ms"] + rec["bwd_device_ms"]])
+        pair += 2 * np.array([rec["device_ms"], rec["bound_ms"]])
+        work += 2 * 20 * z.numel()
+        print(f"K8 {key}: forward ms {rec['ms']:.4f}, device {rec['device_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.4f}, library {rec['library_ms']:.4f}; backward ms "
+              f"{rec['bwd_ms']:.4f}, device {rec['bwd_device_ms']:.4f}, bound "
+              f"{rec['bwd_bound_ms']:.4f}; library forward + backward "
+              f"{rec['library_step_ms']:.4f}", flush=True)
+        del z, dy, zg, wg, bg
+        torch.cuda.empty_cache()
+    print(f"K8 over a pair's 10 forwards: device {pair[0]:.4f} ms, bound {pair[1]:.4f} "
+          f"(share {pair[1] / pair[0]:.3f}); over a step's 20 calls: ms {sums[0]:.4f}, device "
+          f"{sums[2]:.4f}, library {sums[1]:.4f}, bound {bound(work, 0)[0]:.4f} (share "
+          f"{bound(work, 0)[0] / sums[2]:.3f}); worst err/gate {worst:.4f}", flush=True)
+    require(worst <= 1.0, f"K8 against LayerNorm in float64: err/gate {worst:.3f} > 1")
+    return (max_err, *sums, (work, 0.0), by_shape)
+
+
 def launch_counts():
     """Each kernel's launches since the last `reset_launch_counters`, and
     those of its bf16 instance ("K1 bf16", ...); K5's d_src scatters ("K5
     d_src"); K6's, and the float32 weight gradients its rule declined for
-    their geometry ("K6 declined"); K7's."""
+    their geometry ("K6 declined"); K7's; K8's."""
     c = launch_counters()
     names = {"K1": "K1 launches", "K2": "K2 launches", "K3": "K3 launches", "K4": "K4 launches",
              "K5": "K5 launches", "K5 d_src": "K5 scatters"}
     out = {k: c[v] for k, v in names.items()}
     out.update({f"{k} bf16": c[f"{v}_bf16"] for k, v in names.items()})
-    out.update({"K6": c["K6 launches"], "K6 declined": c["K6 declined"], "K7": c["K7 launches"]})
+    out.update({"K6": c["K6 launches"], "K6 declined": c["K6 declined"], "K7": c["K7 launches"],
+                "K8": c["K8 launches"]})
     return out
 
 
@@ -2136,7 +2255,7 @@ def run_bf16_phases(card, device, tmp, test_dir, val_dir, f32_infer):
     want = {"K1": 5 * fwd, "K1 bf16": 5 * fwd, "K2": 9 * fwd, "K2 bf16": 4 * fwd,
             "K3": 5 * n_steps, "K3 bf16": 5 * n_steps, "K4": 5 * n_steps, "K4 bf16": 5 * n_steps,
             "K5": 9 * n_steps, "K5 bf16": 4 * n_steps, "K5 d_src": 8 * n_steps,
-            "K5 d_src bf16": 4 * n_steps, "K6": 0, "K6 declined": 0, "K7": 0}
+            "K5 d_src bf16": 4 * n_steps, "K6": 0, "K6 declined": 0, "K7": 0, "K8": 0}
     require(counts == want, f"bf16 train launches {counts}, expected {want}")
     _, _, p_losses, p_counts, p_secs = run_train(test_dir, val_dir, os.path.join(tmp, "bf16p"),
                                                  attn_impl="plain", compute_dtype="bfloat16")
@@ -2624,7 +2743,8 @@ def modet_train_launches(n_steps, n_val):
     want = {"K1": 5 * (n_steps + n_val), "K2": 9 * (n_steps + n_val), "K3": 5 * n_steps,
             "K4": 5 * n_steps, "K5": 9 * n_steps, "K5 d_src": 8 * n_steps}
     want.update({f"{k} bf16": 0 for k in want})
-    want.update({"K6": 31 * n_steps, "K6 declined": 0, "K7": 0})
+    want.update({"K6": 31 * n_steps, "K6 declined": 0, "K7": 0,
+                 "K8": 20 * n_steps + 10 * n_val})
     return want
 
 
@@ -2685,7 +2805,8 @@ def run_dataset_phase(card, device, tmp, data_dir):
               f"K1 {i_counts['K1']}, K2 {i_counts['K2']} launches", flush=True)
         require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0 and np.isfinite(fold) and 0 <= fold <= 1,
                 f"{dataset}: dsc {dsc}, fold {fold}")
-        require(i_counts == {**dict.fromkeys(i_counts, 0), "K1": 5 * n_val, "K2": 9 * n_val},
+        require(i_counts == {**dict.fromkeys(i_counts, 0), "K1": 5 * n_val, "K2": 9 * n_val,
+                             "K8": 10 * n_val},
                 f"{dataset}: infer launches {i_counts}")
         require(not any(ip_counts.values()), f"{dataset}: the plain infer run launched a kernel")
         require(abs(dsc - p_dsc) <= 1e-3 and abs(fold - p_fold) <= 1e-3,
@@ -3017,7 +3138,8 @@ def run_data_tools_phase(card, device, tmp, model_dir, trace_dir="chiprun_out/tr
           f"fold {fold:.6f}, launches {counts}", flush=True)
     require(np.isfinite(dsc) and 0.0 <= dsc <= 1.0 and np.isfinite(fold),
             f"preprocessed pkls: dsc {dsc}, fold {fold}")
-    require(counts == {**dict.fromkeys(counts, 0), "K1": 5 * n_pairs, "K2": 9 * n_pairs},
+    require(counts == {**dict.fromkeys(counts, 0), "K1": 5 * n_pairs, "K2": 9 * n_pairs,
+                       "K8": 10 * n_pairs},
             f"infer launches on the preprocessed pkls {counts}")
 
     x, y = forward_pair(pkl_dir, device)
@@ -3319,7 +3441,7 @@ def rank_counts(record) -> dict:
     out = {k: lc[f"{v} launches"] for k, v in names.items()}
     out["K5 d_src"] = lc["K5 scatters"]
     out.update({"K6": lc["K6 launches"], "K6 declined": lc["K6 declined"],
-                "K7": lc["K7 launches"]})
+                "K7": lc["K7 launches"], "K8": lc["K8 launches"]})
     out.update({f"{k} halo": lc[f"{k} launches_halo"] for k in ("K1", "K3", "K4")})
     out.update({"K2 origin": lc["K2 launches_origin"], "K5 origin": lc["K5 launches_origin"],
                 "K5 origin d_src": lc["K5 scatters_origin"]})
@@ -3404,12 +3526,13 @@ def run_dp_phase(card, device, tmp, data_dir):
     cfg, records, secs = run_multi_rank_train(card, device, data_dir, os.path.join(tmp, "dp"),
                                               dp=2, batch_size=2, max_epoch=2)
     per_step = {"K1": 5, "K3": 5, "K4": 5, "K2": 9, "K5": 9, "K5 d_src": 8, "K6": 31,
-                "K6 declined": 0, "K7": 0}
+                "K6 declined": 0, "K7": 0, "K8": 20}
     for r, rec in enumerate(records):
         want = {k: v * n_steps for k, v in per_step.items()}
         if r == 0:
             want["K1"] += 5 * n_val
             want["K2"] += 9 * n_val
+            want["K8"] += 10 * n_val
         want.update({k: 0 for k in ("K1 halo", "K3 halo", "K4 halo", "K2 origin", "K5 origin",
                                     "K5 origin d_src")})
         require(rank_counts(rec) == want, f"dp rank {r}: launches {rank_counts(rec)}, expected {want}")
@@ -3496,12 +3619,13 @@ def run_spatial_phase(card, device, tmp, data_dir):
                                               spatial=2, max_epoch=1)
     sp_step = {"K1": 5, "K3": 5, "K4": 5, "K2": 9, "K5": 9, "K5 d_src": 8, "K1 halo": 5,
                "K3 halo": 5, "K4 halo": 5, "K2 origin": 9, "K5 origin": 9, "K5 origin d_src": 8,
-               "K6": 0, "K6 declined": 0, "K7": 0}
+               "K6": 0, "K6 declined": 0, "K7": 0, "K8": 20}
     for r, rec in enumerate(records):
         want = {k: v * n_steps for k, v in sp_step.items()}
         if r == 0:
             want["K1"] += 5 * n_val
             want["K2"] += 9 * n_val
+            want["K8"] += 10 * n_val
         require(rank_counts(rec) == want,
                 f"spatial rank {r}: launches {rank_counts(rec)}, expected {want}")
     loss, _ = reference_step(TrainConfig(**{**cfg.__dict__, "spatial": 1}), device, 1)
@@ -3638,6 +3762,8 @@ def main() -> int:
             check_k6(device, shapes=shapes, what=what)
         phase(34, "K7 windowed correlation and its adjoint vs the float64 plain version")
         k7_err, k7_ms, k7_lib_ms, k7_dev, k7_work, k7_shapes = check_k7(device)
+        phase(35, "K8 LayerNorm and its backward vs LayerNorm in float64")
+        k8_err, k8_ms, k8_lib_ms, k8_dev, k8_work, k8_shapes = check_k8(device)
 
         phase(8, "train.main on synthetic 160x192x160 subjects")
         val_dir = os.path.join(tmp, "Val")
@@ -3858,6 +3984,10 @@ def main() -> int:
                  "correlation3d.cu", "", "K7", k7_err, k7_ms, None, k7_work, k7_lib_ms,
                  counts=family_counts["prnetplusplus"], by_shape=k7_shapes, device=k7_dev),
          "replaces": "the eager correlation (the JAX package leaves it to XLA)"},
+        {**entry("layer_norm (ModeT's LayerNorm and its backward, one step)", "layer_norm.cu",
+                 "", "K8", k8_err, k8_ms, k8_lib_ms, k8_work, k8_lib_ms, by_shape=k8_shapes,
+                 device=k8_dev),
+         "replaces": "torch's LayerNorm (the JAX package leaves it to XLA)"},
     ]}
     for rec in record["kernels"]:
         print(f"[{card}] host us per call while its calls queued: {rec['name']} "

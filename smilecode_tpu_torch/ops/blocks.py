@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from smilecode_tpu_torch.kernels import kernel_switch
+from smilecode_tpu_torch.kernels import layer_norm as k8
 from smilecode_tpu_torch.kernels.conv3d_wgrad import (
     Conv3dWgradFunction,
     conv3d_wgrad,
@@ -149,9 +150,12 @@ def linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """``norm`` (eps, affine) over the last axis, applied in ``x``'s dtype."""
+    """``norm`` (eps, affine) over the last axis, applied in ``x``'s dtype: in
+    its parameters' dtype through `kernels.layer_norm.layer_norm` (K8 where
+    `k8_route` sends it: float32 on the card in a kernel model; else
+    `layer_norm_plain`), a bf16 activation as the JAX layer's separate ops."""
     if x.dtype == norm.weight.dtype:
-        return norm(x)
+        return k8.layer_norm(x, norm.weight, norm.bias, norm.eps, getattr(norm, "kernels", True))
     var, mean = torch.var_mean(x, dim=-1, correction=0, keepdim=True)
     y = (x - mean) * torch.rsqrt(var + norm.eps)
     return y * norm.weight.to(x.dtype) + norm.bias.to(x.dtype)

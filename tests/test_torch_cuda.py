@@ -905,7 +905,7 @@ PLAIN_FAMILIES = [("modet", (32, 32, 32), {}), ("im2grid", (32, 32, 32), {}),
 @pytest.mark.parametrize("name,shape,knobs", PLAIN_FAMILIES, ids=[f[0] for f in PLAIN_FAMILIES])
 def test_plain_modet_step_launches_no_k6(dev, name, shape, knobs):
     """attn_impl "plain" runs no hand-written kernel: a loss-and-gradients
-    pass of every family on the card launches none of K1-K7 (every weight
+    pass of every family on the card launches none of K1-K8 (every weight
     gradient comes from cuDNN)."""
     from smilecode_tpu_torch.config import TrainConfig
     from smilecode_tpu_torch.models.registry import build_model, loss_plan
@@ -1106,6 +1106,163 @@ def test_prpp_step_with_k7_matches_the_step_on_the_plain_correlation(dev, monkey
     monkeypatch.setattr(k7, "k7_route", lambda *args: False)
     ref_loss, _ = loss_and_grads(x, y)
     assert k7.correlation3d.launches == launches + 10
+    assert abs(float(loss) - float(ref_loss)) <= STEP_LOSS_TOL * abs(float(ref_loss))
+    ref = {n: p.grad for n, p in model.named_parameters()}
+    floor = STEP_GRAD_FLOOR * max(float(g.abs().max()) for g in ref.values())
+    for name, g in grads.items():
+        err = float((g - ref[name]).abs().max())
+        assert err <= STEP_GRAD_TOL * float(ref[name].abs().max()) + floor, (name, err)
+
+
+# K8 (ModeT's LayerNorm): its five projections at the cells' volume (width
+# 6 x heads), row counts around its 512-row tiles of width 6 (one row, a
+# ragged last tile, several tiles), widths off its compiled instances (1, 7,
+# 130) and the widest (256: tiles of 32 rows)
+K8_LPBA_CASES = [(LPBA, 6), (_lpba_level(1), 6), (_lpba_level(2), 12), (_lpba_level(3), 24),
+                 (_lpba_level(4), 48)]
+K8_EDGE_CASES = [(1, 6), (31, 6), (33, 6), (513, 6), (1100, 6), (77, 12), (45, 1), (45, 7),
+                 (70, 130), (33, 256)]
+
+
+def _check_k8(dev, shape, seed, offset=0):
+    """chip_smoke.py's phase-35 check (`k8_case`) on random rows of
+    ``shape``; z and dy ``offset`` floats past a 16-byte boundary."""
+    from chip_smoke import k8_case
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, numel = shape[-1], int(np.prod(shape))
+    z, dy = ((scale * torch.randn(numel + offset, device=dev, generator=gen) + shift)[offset:]
+             .view(shape) for scale, shift in ((2.0, 0.5), (1.0, 0.0)))
+    weight = 1 + 0.1 * torch.randn(n, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(n, device=dev, generator=gen)
+    errs, worst = k8_case(z, weight, bias, dy)
+    assert worst <= 1.0, errs
+
+
+@pytest.mark.parametrize("shape,n", K8_LPBA_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{n}" for s, n in K8_LPBA_CASES])
+def test_k8_matches_float64_at_the_cells_shapes(dev, shape, n):
+    _check_k8(dev, (1, *shape, n), seed=n)
+
+
+@pytest.mark.parametrize("rows,n", K8_EDGE_CASES)
+def test_k8_matches_float64_on_ragged_rows_and_widths(dev, rows, n):
+    _check_k8(dev, (rows, n), seed=80 + rows)
+
+
+@pytest.mark.parametrize("offset,rows,n", [(1, 513, 6), (2, 100, 7), (3, 64, 48)])
+def test_k8_takes_views_off_the_16_byte_grid(dev, offset, rows, n):
+    _check_k8(dev, (rows, n), seed=90 + offset, offset=offset)
+
+
+def test_k8_function_matches_the_plain_autograd(dev):
+    """Through the wrapper and autograd: LayerNorm, then the input's, the
+    weight's and the bias's gradients of a weighted sum, K8 against the
+    plain version (torch's LayerNorm) in float32."""
+    from smilecode_tpu_torch.kernels.layer_norm import layer_norm, layer_norm_plain
+
+    x = rand((1, 10, 12, 14, 6), 91).to(dev).requires_grad_()
+    w, b = (rand((6,), s).to(dev).requires_grad_() for s in (92, 93))
+    g = rand((1, 10, 12, 14, 6), 94).to(dev)
+    launches = layer_norm.launches
+    got = layer_norm(x, w, b, 1e-5)
+    grads = torch.autograd.grad(got, (x, w, b), g)
+    assert layer_norm.launches == launches + 2
+    want = layer_norm_plain(x, w, b, 1e-5)
+    ref = torch.autograd.grad(want, (x, w, b), g)
+    assert_scaled_close(got.detach(), want.detach().cpu(), "y")
+    for a, r, what in zip(grads, ref, ("dz", "dgamma", "dbeta")):
+        assert_scaled_close(a, r.cpu(), what)
+
+
+def test_k8_weight_gradients_are_the_same_bits_twice(dev):
+    """dgamma and dbeta of the full-size level-1 LayerNorm through autograd,
+    twice: summed in a fixed order, no atomics."""
+    from smilecode_tpu_torch.kernels.layer_norm import layer_norm
+
+    gen = torch.Generator(device=dev).manual_seed(95)
+    x = torch.randn((1, *LPBA, 6), device=dev, generator=gen).requires_grad_()
+    w, b = (torch.randn(6, device=dev, generator=gen).requires_grad_() for _ in range(2))
+    g = torch.randn((1, *LPBA, 6), device=dev, generator=gen)
+    first, second = (torch.autograd.grad(layer_norm(x, w, b, 1e-5), (w, b), g) for _ in range(2))
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float64, 6), (torch.float16, 6),
+                                     (torch.float32, 257)])
+def test_k8_refuses_what_it_cannot_take_on_the_card(dev, dtype, n):
+    """On the card with the kernel switch on, rows K8 cannot take raise: no
+    call there falls back to torch's LayerNorm."""
+    from smilecode_tpu_torch.kernels.layer_norm import layer_norm
+
+    x = torch.zeros((4, n), dtype=dtype, device=dev)
+    w = torch.ones(n, dtype=dtype, device=dev)
+    with pytest.raises(ValueError, match="K8 takes"):
+        layer_norm(x, w, torch.zeros_like(w), 1e-5)
+
+
+def test_k8_launches_10_times_a_modet_forward_and_20_a_step(dev, monkeypatch):
+    """A ModeT loss-and-gradients pass launches K8 for the fixed and the
+    moving features at each of five levels, forward and backward; a
+    registered pair the 10 forwards; no float32 LayerNorm of the kernel
+    model reaches torch's (`layer_norm_plain` raises here)."""
+    from smilecode_tpu_torch import infer
+    from smilecode_tpu_torch.kernels import layer_norm as k8
+
+    def refuse(*args):
+        raise AssertionError("a float32 LayerNorm of a kernel model on the card reached torch's")
+
+    monkeypatch.setattr(k8, "layer_norm_plain", refuse)
+    model, loss_and_grads, x, y = _modet_step(dev, (32, 32, 32))
+    seg = torch.randint(0, 4, (1, 32, 32, 32, 1)).to(torch.int16).to(dev)
+    before = launch_counters()["K8 launches"]
+    loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    mid = launch_counters()["K8 launches"]
+    model.eval()
+    infer.make_infer_step(model)(x, y, seg, seg)
+    torch.cuda.synchronize()
+    assert (mid - before, launch_counters()["K8 launches"] - mid) == (20, 10)
+
+
+@pytest.mark.parametrize("name,knobs", [("rdn", {"stages": 2, "levels": (2, 1, 1, 2)}),
+                                        ("prnetplusplus", {})])
+def test_rdn_and_prpp_steps_launch_no_k8(dev, name, knobs):
+    from smilecode_tpu_torch.config import TrainConfig
+    from smilecode_tpu_torch.models.registry import build_model, loss_plan
+    from smilecode_tpu_torch.train import make_loss_and_grads
+
+    cfg = TrainConfig(model=name, **knobs)
+    model = build_model(name, cfg, device=dev, generator=torch.Generator().manual_seed(5))
+    loss_and_grads = make_loss_and_grads(model, loss_plan(name, cfg), (1.0, 1.0))
+    gen = torch.Generator().manual_seed(6)
+    x, y = (torch.rand((1, 32, 32, 32, 1), generator=gen).to(dev) for _ in range(2))
+    before = launch_counters()
+    loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    after = launch_counters()
+    assert after["K8 launches"] == before["K8 launches"]
+    assert after["K2 launches"] > before["K2 launches"]  # the kernel path ran
+
+
+def test_modet_step_with_k8_matches_the_step_on_torchs_layer_norm(dev, monkeypatch):
+    """A full-size ModeT loss-and-gradients pass with K8 against the same
+    pass with torch's LayerNorm (`k8_route` answering False; every other
+    kernel on in both): the loss within chip_smoke.py's STEP_LOSS_TOL, every
+    leaf's gradient within its phase-9 gates."""
+    from chip_smoke import STEP_GRAD_FLOOR, STEP_GRAD_TOL, STEP_LOSS_TOL
+    from smilecode_tpu_torch.kernels import layer_norm as k8
+
+    torch.backends.cudnn.allow_tf32 = False
+    model, loss_and_grads, x, y = _modet_step(dev, LPBA)
+    launches = k8.layer_norm.launches
+    loss, _ = loss_and_grads(x, y)
+    assert k8.layer_norm.launches == launches + 20
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    monkeypatch.setattr(k8, "k8_route", lambda *args: False)
+    ref_loss, _ = loss_and_grads(x, y)
+    assert k8.layer_norm.launches == launches + 20
     assert abs(float(loss) - float(ref_loss)) <= STEP_LOSS_TOL * abs(float(ref_loss))
     ref = {n: p.grad for n, p in model.named_parameters()}
     floor = STEP_GRAD_FLOOR * max(float(g.abs().max()) for g in ref.values())

@@ -190,7 +190,7 @@ def test_trace_empties_the_log(tmp_path):
 
 @pytest.mark.cuda
 def test_kernel_spans_count_the_launches_on_the_card():
-    """On the card: one ``kernel.K*`` span per launch of K1-K6 in a ModeT
+    """On the card: one ``kernel.K*`` span per launch of K1-K6 and K8 in a ModeT
     training step and an infer step."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -213,6 +213,6 @@ def test_kernel_spans_count_the_launches_on_the_card():
         torch.cuda.synchronize()
     after = launch_counters()
     spans = collections.Counter(s.name for s in profiling.spans())
-    for k in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K8"):
         grew = after[f"{k} launches"] - before[f"{k} launches"]
         assert grew > 0 and spans[f"kernel.{k}"] == grew, k
